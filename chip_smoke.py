@@ -1,5 +1,5 @@
 """Smoke test of the PyTorch / CUDA port (``src/repro_torch``) on one
-NVIDIA GPU: the quickest proof that the port builds, is exact, and serves.
+NVIDIA GPU: the quickest proof that the port builds, is right, and serves.
 
     python3 chip_smoke.py
 
@@ -7,19 +7,32 @@ Phases, one JSON line each; any failure exits nonzero without the final
 line:
 
 1. environment: the card, its power limit, torch/CUDA versions, and the
-   build of every CUDA source of the port with ``nvcc``;
+   build of every CUDA source of the port with ``nvcc`` (one ``nvcc`` per
+   source, all started together, each build timed);
 2. ``gemm_int8`` against its plain version on the card, bit for bit: the
    reference's shape sweep, ``emit_int32``/ReLU, biases near +-2^30, every
    shift in -31..31 with accumulators at the int32 rails, and the 8
    AlexNet engine shapes, each timed (kernel, plain version, one library
    call) beside its bound;
 3. full-width AlexNet served through ``serve`` on the default (kernel)
-   route, with the kernel's launches counted; every served frame's logits
+   route, with the kernels' launches counted; every served frame's logits
    equal the oracle route's on the same frames; on one batch the raw
    int32 accumulators of the kernel, oracle and f32 routes are identical
    on the card and equal the plain integer oracle run on the CPU; and a
    breakdown of one batch's time (host enqueue, wall, device by kernel);
-4. the ``kernels`` line, the card's ``nvidia-smi`` name and power limit,
+4. ``flash_attention`` against its plain version on the card: the
+   reference's test shapes (2e-5 in float32, 3e-2 in bfloat16), a query
+   block shorter than the keys, GQA, and the Yi-6B shape, which is timed
+   (kernel, plain version, one library call) beside its bound;
+5. Yi-6B at full width (seed 0, bf16, weights drawn on the card): the
+   cache-less forward on 2 x 2048 tokens on the kernel impl, with its
+   ``flash_attention`` launches counted (one per layer), held against the
+   torch impl and both against a float32 forward of the same weights;
+   the forward's wall time, device time by kernel and idle share;
+6. Yi-6B served through ``repro_torch.launch.serve.main`` (batch 4,
+   prompt 512, 32 generated), and a teacher-forced decode over the cache
+   held against the kernel forward's logits at the same positions;
+7. the ``kernels`` line, the card's ``nvidia-smi`` name and power limit,
    and last ``{"ok": true, "device": {...}}``.
 """
 
@@ -27,6 +40,8 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
+from concurrent.futures import ThreadPoolExecutor
 import subprocess
 import sys
 import time
@@ -39,20 +54,30 @@ sys.path.insert(0, str(ROOT / "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+from repro_torch.configs import ARCHS  # noqa: E402
 from repro_torch.core.executor import EngineExecutor  # noqa: E402
 from repro_torch.core.program import ROUTES  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
-from repro_torch.kernels.conv2d_int8.kernel import (SOURCE,  # noqa: E402
-                                                    gemm_int8)
+from repro_torch.kernels.conv2d_int8 import kernel as gemm_kernel  # noqa
+from repro_torch.kernels.conv2d_int8.kernel import gemm_int8  # noqa: E402
 from repro_torch.kernels.conv2d_int8.ref import (gemm_int8_ref,  # noqa: E402
                                                  requantize_ref)
+from repro_torch.kernels.flash_attention import kernel as flash_kernel  # noqa
+from repro_torch.kernels.flash_attention.kernel import (  # noqa: E402
+    flash_attention)
+from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa
+from repro_torch.launch import serve as lm_serve  # noqa: E402
+from repro_torch.launch import steps as lm_steps  # noqa: E402
+from repro_torch.models import layers as L  # noqa: E402
+from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.serving.server import (compile_for_serving,  # noqa: E402
                                         serve, synthetic_stream)
 
-# Published dense peaks (NVIDIA data sheets): int8 tensor-core op/s and
-# device-memory bytes/s, at the card's full power limit.
-PEAKS = {"H100 SXM": (1979e12, 3.35e12), "H100 PCIe": (1513e12, 2.0e12),
-         "H200": (1979e12, 4.8e12)}
+# Published dense peaks (NVIDIA data sheets), at the card's full power
+# limit: int8 and bf16 tensor-core op/s, device-memory bytes/s.
+PEAKS = {"H100 SXM": (1979e12, 989e12, 3.35e12),
+         "H100 PCIe": (1513e12, 756e12, 2.0e12),
+         "H200": (1979e12, 989e12, 4.8e12)}
 
 # AlexNet at batch 16 on the main path: (engine, N, K, M, launches per
 # batch, groups, emits int32). A grouped engine's weights are a view of
@@ -70,6 +95,48 @@ ALEXNET_B16 = [
 SERVE_FRAMES, SERVE_BATCH = 64, 16
 GEMM_SOURCE = "src/repro_torch/kernels/conv2d_int8/csrc/gemm_int8.cu"
 GEMM_REPLACES = "src/repro/kernels/conv2d_int8/kernel.py:61"
+FLASH_SOURCE = ("src/repro_torch/kernels/flash_attention/csrc/"
+                "flash_attention.cu")
+FLASH_REPLACES = "src/repro/kernels/flash_attention/kernel.py:67"
+# flash_attention against its plain version: (label, B, Sq, Skv, H, KV, d,
+# dtype, causal, window). The first four are the reference's test cases
+# (tests/test_kernels.py); the tolerances are the ones it states.
+FLASH_CASES = [
+    ("reference f32", 1, 64, 64, 1, 1, 32, torch.float32, False, 0),
+    ("reference f32 causal", 2, 128, 128, 2, 2, 64, torch.float32, True, 0),
+    ("reference f32 window 64", 1, 256, 256, 2, 2, 64, torch.float32, True,
+     64),
+    ("reference bf16 window 64", 1, 256, 256, 2, 2, 64, torch.bfloat16,
+     True, 64),
+    ("Sq < Skv", 2, 64, 192, 4, 2, 64, torch.float32, True, 0),
+    ("GQA 8:2, ragged S", 2, 300, 300, 8, 2, 128, torch.bfloat16, True, 0),
+]
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
+# Yi-6B at full width: the forward's batch and length (the flash kernel's
+# timed shape), the float32 reference's slice, the served batch.
+LM_ARCH = "yi-6b"
+LM_B, LM_S = 2, 2048
+F32_S, F32_LAST = 512, 64
+SERVE_ARGS = ["--arch", LM_ARCH, "--batch", "4", "--prompt-len", "512",
+              "--gen", "32", "--seed", "0"]
+TF_PROMPT, TF_STEPS = 504, 8
+# Tolerances of the full-width Yi-6B checks, on bf16 logits whose largest
+# magnitude is about 5 (the float32 forward's, measured by this script on
+# an NVIDIA H100 80GB HBM3 at 700 W). Both attention impls round every matmul output, norm
+# and residual add to bf16 over 32 layers; they differ only in where the
+# attention logits are rounded (the kernel keeps QK^T in fp32, the torch
+# impl rounds it to bf16 first), so that rounding noise, not the kernel,
+# sets how far apart they land. Measured: kernel vs torch impl 0.121 max
+# |diff| over all 2 x 2048 x 64000 logits; kernel vs float32 0.092 and
+# torch impl vs float32 0.099 on the compared slice; the cache's
+# teacher-forced logits vs the kernel forward 0.109.
+# * LM_ROUTE_TOL bounds |kernel - torch impl| and |teacher-forced -
+#   kernel forward|: twice the largest measured spread.
+# * The kernel impl's error against float32 may exceed the torch impl's
+#   by at most one bf16 ulp at the float32 logits' largest magnitude
+#   (2^-5 for magnitudes in [4, 8)): the kernel may not make the model
+#   measurably worse than the plain attention does.
+LM_ROUTE_TOL = 0.25
 
 
 class SmokeFailure(Exception):
@@ -80,10 +147,16 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def card_peaks(name: str) -> tuple[str, float, float]:
+def card_peaks(name: str) -> tuple[str, float, float, float]:
+    """(table key, int8 op/s, bf16 op/s, bytes/s) for the card ``name``."""
     key = ("H200" if "H200" in name else
            "H100 PCIe" if "H100" in name and "PCIe" in name else "H100 SXM")
     return (key, *PEAKS[key])
+
+
+def reset_launches() -> None:
+    gemm_int8.launches = 0
+    flash_attention.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -103,13 +176,23 @@ def phase_environment() -> dict:
         raise SmokeFailure(f"nvidia-smi failed: {smi.stderr.strip()}")
     smi_line = smi.stdout.strip().splitlines()[0]
     name = torch.cuda.get_device_name(0)
-    t0 = time.perf_counter()
-    _build.load(SOURCE)
-    build_s = time.perf_counter() - t0
+    # Full float32 matmuls everywhere (the float32 references below).
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    def timed_build(source):
+        t0 = time.perf_counter()
+        _build.load(source)
+        return round(time.perf_counter() - t0, 3)
+
+    sources = [gemm_kernel.SOURCE, flash_kernel.SOURCE]
+    with ThreadPoolExecutor(len(sources)) as pool:   # one nvcc per source
+        build_s = dict(zip((src.name for src in sources),
+                           pool.map(timed_build, sources)))
     env = {"phase": "environment", "device": name, "nvidia_smi": smi_line,
            "peaks_of": card_peaks(name)[0], "torch": torch.__version__,
            "cuda": torch.version.cuda, "python": sys.version.split()[0],
-           "kernel_build_s": round(build_s, 3)}
+           "kernel_build_s": build_s}
     emit(env)
     return env
 
@@ -256,7 +339,7 @@ def phase_gemm(env: dict) -> dict:
         raise SmokeFailure("the rails case does not reach INT32_MAX/MIN")
 
     # The AlexNet engine shapes, checked and timed.
-    _, peak_ops, peak_bytes = card_peaks(env["device"])
+    _, peak_ops, _, peak_bytes = card_peaks(env["device"])
     flush = torch.empty(64 << 20, dtype=torch.int8, device="cuda")
     shapes = []
     for name, N, K, M, launches, groups, emit_int32 in ALEXNET_B16:
@@ -330,12 +413,14 @@ def _program_on_cpu(prog):
 
 
 def phase_main_path() -> dict:
-    gemm_int8.launches = 0
+    reset_launches()
     result = serve("alexnet", frames=SERVE_FRAMES, batch=SERVE_BATCH,
                    output="logits", device="cuda", verbose=False,
                    return_outputs=True)
     torch.cuda.synchronize()
     launches = gemm_int8.launches
+    if flash_attention.launches:
+        raise SmokeFailure("the AlexNet path launched flash_attention")
     served = result.pop("outputs")
     expect = 11 * result["batches"]
     emit({"phase": "serve", **result, "gemm_int8_launches": launches,
@@ -493,11 +578,335 @@ def phase_breakdown(prog, frames) -> None:
           "top_device_ops_us": [[k[:60], round(us, 1)] for k, us in ops[:6]]})
 
 
+# ---------------------------------------------------------------------------
+# Phase 4: flash_attention against its plain version
+# ---------------------------------------------------------------------------
+
+
+def _check_flash(label, q, k, v, causal, window) -> float:
+    """The kernel against the plain version on the same input values
+    (upcast to float32, as the reference's tests hold bf16 against a
+    float32 ``attention_ref``), at the reference's tolerances."""
+    got = flash_attention(q, k, v, causal=causal, window=window)
+    want = attention_ref(q.float(), k.float(), v.float(), causal=causal,
+                         window=window)
+    torch.cuda.synchronize()
+    tol = FLASH_TOL[q.dtype]
+    err = float((got.float() - want).abs().max())
+    ok = got.dtype == q.dtype and got.shape == q.shape and bool(
+        torch.allclose(got.float(), want, rtol=tol, atol=tol))
+    emit({"phase": "flash_attention_case", "case": label,
+          "q": list(q.shape), "k": list(k.shape), "dtype": str(q.dtype),
+          "causal": causal, "window": window, "tol": tol,
+          "max_abs_err": err, "ok": ok})
+    if not ok:
+        raise SmokeFailure(f"flash_attention disagrees with its plain "
+                           f"version on {label}: max |err| {err}")
+    return err
+
+
+def phase_flash(env: dict) -> dict:
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def rand(shape, dtype):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    max_err = 0.0
+    for label, B, Sq, Skv, H, KV, d, dtype, causal, window in FLASH_CASES:
+        q, k, v = (rand((B, Sq, H, d), dtype), rand((B, Skv, KV, d), dtype),
+                   rand((B, Skv, KV, d), dtype))
+        max_err = max(max_err, _check_flash(label, q, k, v, causal, window))
+
+    cfg = ARCHS[LM_ARCH]
+    B, S, H, KV, d = LM_B, LM_S, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = rand((B, S, H, d), torch.bfloat16)
+    k, v = rand((B, S, KV, d), torch.bfloat16), rand((B, S, KV, d),
+                                                     torch.bfloat16)
+    max_err = max(max_err, _check_flash("Yi-6B", q, k, v, True, 0))
+    flush = torch.empty(64 << 20, dtype=torch.int8, device="cuda")
+    ms = _time_cold_ms(lambda: flash_attention(q, k, v, causal=True), flush)
+    plain_ms = _time_cold_ms(lambda: attention_ref(q, k, v, causal=True),
+                             flush)
+    # The yardstick: one PyTorch call of the same function, K/V heads
+    # repeated and every operand permuted to [B,H,S,d] outside the timed
+    # call. The port never calls it.
+    qh = q.permute(0, 2, 1, 3)
+    kh, vh = (t.repeat_interleave(H // KV, dim=2).permute(0, 2, 1, 3)
+              for t in (k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    library_ms, library_note = None, None
+    try:
+        lib_out = sdpa(qh, kh, vh, is_causal=True).permute(0, 2, 1, 3)
+        library_note = "max |diff| vs kernel %.3g" % float(
+            (lib_out.float() - flash_attention(q, k, v).float()).abs().max())
+        library_ms = _time_cold_ms(lambda: sdpa(qh, kh, vh, is_causal=True),
+                                   flush)
+    except RuntimeError as e:           # a yardstick, not the port
+        library_note = f"scaled_dot_product_attention refused: {e}"[:200]
+    del flush
+    _, _, peak_bf16, peak_bytes = card_peaks(env["device"])
+    flops = 4 * B * H * S * S * d // 2           # causal: half of QK^T + PV
+    nbytes = 2 * B * S * d * (2 * H + 2 * KV)    # q, k, v, o once, bf16
+    t_ops, t_bytes = flops / peak_bf16 * 1e3, nbytes / peak_bytes * 1e3
+    row = {"phase": "flash_attention_yi6b", "shape": [B, S, H, KV, d],
+           "dtype": "bfloat16", "causal": True, "flops": flops,
+           "bytes": nbytes, "ms": ms, "plain_ms": plain_ms,
+           "library_ms": library_ms, "library": library_note,
+           "bound_ms": max(t_ops, t_bytes),
+           "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+           "tflops": flops / ms / 1e9}
+    emit(row)
+    return {"max_abs_err": max_err, **{k: row[k] for k in (
+        "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}}
+
+
+# ---------------------------------------------------------------------------
+# Phase 5: Yi-6B at full width, the cache-less forward
+# ---------------------------------------------------------------------------
+
+
+def _to(node, dtype):
+    if isinstance(node, dict):
+        return {k: _to(v, dtype) for k, v in node.items()}
+    if isinstance(node, list):
+        return [_to(v, dtype) for v in node]
+    return node.to(dtype)
+
+
+def _forward(params, cfg, tokens, impl):
+    L.set_attention_impl(impl)
+    try:
+        return T.forward(params, cfg, {"tokens": tokens})[0]
+    finally:
+        L.set_attention_impl(None)
+
+
+def _close(a, b) -> dict:
+    """How far bf16 logits ``a`` are from ``b``: max |diff|, and whether
+    they meet the reference's model tolerance (rtol 6e-2, atol 8e-2)."""
+    a, b = a.float(), b.float()
+    return {"max_abs_diff": float((a - b).abs().max()),
+            "allclose_6e-2_8e-2": bool(torch.allclose(a, b, rtol=6e-2,
+                                                      atol=8e-2))}
+
+
+def _is_matmul(kernel_name: str) -> bool:
+    """cuBLAS's and CUTLASS's GEMM kernels, by name."""
+    return any(tag in kernel_name.lower()
+               for tag in ("gemm", "nvjet", "cutlass", "xmma"))
+
+
+def phase_lm_forward() -> dict:
+    cfg = ARCHS[LM_ARCH]
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab, (LM_B, LM_S), generator=gen,
+                           device="cuda")
+
+    # The main path: counts at 0 just before, read just after.
+    reset_launches()
+    logits_k = _forward(params, cfg, tokens, "kernel")
+    torch.cuda.synchronize()
+    launches = flash_attention.launches
+    emit({"phase": "lm_forward", "arch": LM_ARCH,
+          "params": T.param_count(cfg), "init_s": init_s,
+        "tokens": [LM_B, LM_S], "impl": "kernel",
+        "flash_attention_launches": launches,
+        "expected_launches": cfg.n_layers,
+        "gemm_int8_launches": gemm_int8.launches,
+        "logits_shape": list(logits_k.shape),
+        "finite": bool(torch.isfinite(logits_k).all())})
+    if launches != cfg.n_layers or gemm_int8.launches:
+        raise SmokeFailure(f"the Yi-6B forward launched flash_attention "
+                           f"{launches} times, expected {cfg.n_layers}")
+    if not torch.isfinite(logits_k).all():
+        raise SmokeFailure("the Yi-6B forward gave non-finite logits")
+
+    # Wall time of a warm forward, and its device time by kernel.
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _forward(params, cfg, tokens, "kernel")
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        _forward(params, cfg, tokens, "kernel")
+        torch.cuda.synchronize()
+    ops = sorted(((e.key, _device_us(e), e.count)
+                  for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and _device_us(e) > 0
+                  and not e.key.startswith("Activity Buffer")),
+                 key=lambda kv: -kv[1])
+    device_ms = sum(us for _, us, _ in ops) / 1e3
+    flash_ms = sum(us for k, us, _ in ops if "flash_fwd" in k) / 1e3
+    matmul = [(us, n) for k, us, n in ops if _is_matmul(k)]
+    emit({"phase": "lm_forward_time", "wall_ms": wall_ms,
+          "device_busy_ms": device_ms, "flash_attention_ms": flash_ms,
+          "matmul_ms": sum(us for us, _ in matmul) / 1e3,
+          "matmul_launches": sum(n for _, n in matmul),
+          "other_ms": device_ms - flash_ms
+          - sum(us for us, _ in matmul) / 1e3,
+          "device_idle_share": max(0.0, 1.0 - device_ms / wall_ms),
+          "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "top_device_ops_us_count": [[k[:60], round(us, 1), n]
+                                      for k, us, n in ops[:8]]})
+
+    # The torch impl on the same tokens, and both against float32 on the
+    # last positions of a 512-token slice of the first sequence (causal,
+    # so the bf16 logits there are those of the same 512 tokens).
+    logits_t = _forward(params, cfg, tokens, "torch")
+    p32 = _to(params, torch.float32)
+    logits_32 = _forward(p32, cfg, tokens[:1, :F32_S], "torch")
+    del p32
+    torch.cuda.empty_cache()
+    sl = (slice(0, 1), slice(F32_S - F32_LAST, F32_S))
+    ref = logits_32[:, F32_S - F32_LAST:]
+    kernel_vs_f32 = _close(logits_k[sl], ref)
+    torch_vs_f32 = _close(logits_t[sl], ref)
+    routes = _close(logits_k, logits_t)
+    top1 = float((logits_k.argmax(-1) == logits_t.argmax(-1)).float().mean())
+    check = {"phase": "lm_routes", "kernel_vs_torch": routes,
+             "top1_agreement": top1,
+             "f32_slice": [1, F32_S], "f32_positions_compared": F32_LAST,
+             "f32_logits_max_abs": float(ref.abs().max()),
+             "kernel_vs_f32": kernel_vs_f32, "torch_vs_f32": torch_vs_f32,
+             "kernel_minus_torch_err_vs_f32":
+                 kernel_vs_f32["max_abs_diff"] - torch_vs_f32["max_abs_diff"],
+             "finite": bool(torch.isfinite(logits_t).all()
+                            and torch.isfinite(logits_32).all())}
+    f32_max = check["f32_logits_max_abs"]
+    margin = 2.0 ** (math.floor(math.log2(f32_max)) - 7)   # one bf16 ulp
+    check.update(route_tol=LM_ROUTE_TOL, f32_margin=margin)
+    emit(check)
+    if not (check["finite"]
+            and routes["max_abs_diff"] <= LM_ROUTE_TOL
+            and kernel_vs_f32["max_abs_diff"]
+            <= torch_vs_f32["max_abs_diff"] + margin):
+        raise SmokeFailure(f"Yi-6B logits out of tolerance: {check}")
+    return {"params": params, "tokens": tokens, "logits_k": logits_k,
+            "launches": launches}
+
+
+# ---------------------------------------------------------------------------
+# Phase 6: Yi-6B served, and the cache against the kernel forward
+# ---------------------------------------------------------------------------
+
+
+def phase_lm_serve(lm: dict) -> None:
+    cfg = ARCHS[LM_ARCH]
+    reset_launches()
+    result = lm_serve.main(SERVE_ARGS)
+    torch.cuda.synchronize()
+    ids = np.asarray(result.pop("ids"))
+    row = {"phase": "lm_serve", **result,
+           "flash_attention_launches": flash_attention.launches,
+           "ids_shape": list(ids.shape),
+           "ids_in_vocab": bool(((ids >= 0) & (ids < cfg.vocab)).all()),
+           "sample_ids": ids[0, :8].tolist()}
+    emit(row)
+    if ids.shape != (4, 32) or not row["ids_in_vocab"]:
+        raise SmokeFailure(f"serve gave ids of shape {ids.shape}")
+    if flash_attention.launches:
+        raise SmokeFailure("prefill/decode launched flash_attention: the "
+                           "kernel's path is the cache-less forward")
+
+    # Teacher-forced: prefill TF_PROMPT tokens, decode the next TF_STEPS
+    # over the cache, and hold the logits of positions TF_PROMPT - 1 ..
+    # TF_PROMPT + TF_STEPS - 1 against the kernel forward's.
+    params, tokens = lm["params"], lm["tokens"]
+    # One slot more than the check needs: the decode breakdown's step.
+    cache = T.init_cache(cfg, LM_B, TF_PROMPT + TF_STEPS + 1, device="cuda")
+    logits_p, cache, _ = T.forward(params, cfg,
+                                   {"tokens": tokens[:, :TF_PROMPT]},
+                                   cache=cache)
+    outs = [logits_p[:, -1]]
+    for t in range(TF_PROMPT, TF_PROMPT + TF_STEPS):
+        lg, cache, _ = T.forward(params, cfg,
+                                 {"tokens": tokens[:, t:t + 1]}, cache=cache)
+        outs.append(lg[:, 0])
+    got = torch.stack(outs, 1)
+    want = lm["logits_k"][:, TF_PROMPT - 1:TF_PROMPT + TF_STEPS]
+    check = {"phase": "lm_teacher_forced", "prompt": TF_PROMPT,
+             "steps": TF_STEPS, "vs_kernel_forward": _close(got, want),
+             "top1_agreement": float((got.argmax(-1) == want.argmax(-1))
+                                     .float().mean()),
+             "finite": bool(torch.isfinite(got).all()),
+             "route_tol": LM_ROUTE_TOL}
+    emit(check)
+    if not (check["finite"] and check["vs_kernel_forward"]["max_abs_diff"]
+            <= LM_ROUTE_TOL):
+        raise SmokeFailure(f"teacher-forced decode disagrees with the "
+                           f"kernel forward: {check}")
+    phase_decode_breakdown(params, cache, tokens[:, :1])
+
+
+def phase_decode_breakdown(params, cache, tok) -> None:
+    """Where a warm decode step's time goes at full width: wall time of
+    single synchronised steps, the host's enqueue time of a run of steps,
+    and one profiled step's device time by kernel. Every step is given
+    the same cache, so each writes the same slot and attends over the
+    same length."""
+    cfg = ARCHS[LM_ARCH]
+    decode = lm_steps.make_serve_step(cfg)
+    pos = cache["_pos"]
+
+    def step():
+        decode(params, cache, {"tokens": tok})
+
+    n = 8
+    step()
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    t0 = time.perf_counter()
+    for _ in range(n):
+        step()
+    enqueue_ms = (time.perf_counter() - t0) / n * 1e3
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        step()
+        torch.cuda.synchronize()
+    ops = sorted(((e.key, _device_us(e), e.count)
+                  for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and _device_us(e) > 0
+                  and not e.key.startswith("Activity Buffer")),
+                 key=lambda kv: -kv[1])
+    device_ms = sum(us for _, us, _ in ops) / 1e3
+    wall_ms = float(np.median(walls))
+    param_bytes = T.param_count(cfg) * params["embed"].element_size()
+    _, _, _, peak_bytes = card_peaks(torch.cuda.get_device_name(0))
+    emit({"phase": "lm_decode_breakdown", "batch": tok.shape[0],
+          "cache_len": pos, "wall_ms_median": wall_ms,
+          "wall_ms_min": min(walls), "host_enqueue_ms": enqueue_ms,
+          "device_busy_ms": device_ms,
+          "device_idle_share": max(0.0, 1.0 - device_ms / wall_ms),
+          "weight_read_bound_ms": param_bytes / peak_bytes * 1e3,
+          "kernels": sum(c for _, _, c in ops),
+          "top_device_ops_us_count": [[k[:60], round(us, 1), c]
+                                      for k, us, c in ops[:8]]})
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     try:
         env = phase_environment()
         gemm = phase_gemm(env)
         main_path = phase_main_path()
+        flash = phase_flash(env)
+        lm = phase_lm_forward()
+        phase_lm_serve(lm)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -512,7 +921,15 @@ def main() -> int:
         "plain_ms": gemm["plain_ms"], "bound_ms": gemm["bound_ms"],
         "bound_by": gemm["bound_by"], "library_ms": gemm["library_ms"],
         "per": f"one AlexNet batch of {SERVE_BATCH}: the sum over its 11 "
-               f"launches"}]
+               f"launches"}, {
+        "name": "flash_attention", "route": "cuda", "source": FLASH_SOURCE,
+        "replaces": FLASH_REPLACES, "launches": lm["launches"],
+        "max_abs_err": flash["max_abs_err"], "ms": flash["ms"],
+        "plain_ms": flash["plain_ms"], "bound_ms": flash["bound_ms"],
+        "bound_by": flash["bound_by"], "library_ms": flash["library_ms"],
+        "per": f"one launch at the Yi-6B shape (B {LM_B}, S {LM_S}, H 32, "
+               f"KV 4, d 128, bf16, causal); one per layer of a forward"}]
+    emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(env["nvidia_smi"], flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -1,2 +1,3 @@
-"""PyTorch / CUDA port of the int8 layer-pipelined CNN engine for one
-NVIDIA H100, beside the JAX reference package ``repro``."""
+"""PyTorch / CUDA port, for one NVIDIA H100, of the int8 layer-pipelined
+CNN engine and the LM substrate's dense decoders, beside the JAX
+reference package ``repro``."""

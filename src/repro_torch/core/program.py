@@ -69,6 +69,8 @@ DEFAULT_BW = 4.2e9
 DEFAULT_FREQ = 200e6
 
 ROUTES = ("f32", "oracle", "kernel")
+# ln 2 as XLA's float32 exp2 lowering multiplies by it.
+LN2_F32 = 0.6931472
 
 
 def resolve_device(device=None) -> torch.device:
@@ -539,16 +541,26 @@ def compile_model(model: CNNModel, params: Params | None = None, *,
     return prog
 
 
+def ref_exp2(x) -> torch.Tensor:
+    """The reference's ``jnp.exp2(x)`` for integer ``x`` as float32:
+    ``exp(0.6931472 * x)`` evaluated in float32 by torch on the CPU. It
+    equals XLA's value for every integer in -60..60 except 32, and differs
+    from the exact power of two for |x| >= 13 (any later port of a
+    ``jnp.exp2`` site takes its scale from here)."""
+    x = torch.as_tensor(np.asarray(x, np.float32))
+    return torch.exp(torch.tensor(LN2_F32) * x)
+
+
 @torch.no_grad()
 def _lower(model: CNNModel, params: Params, amax: dict[str, float],
            e_input: int, bits: int) -> list[EngineStep]:
     """Freeze every engine's formats and quantize its weights once.
 
-    The weight scale ``2^-e_w`` is an exact power of two here. The
-    reference computes it with ``jnp.exp2``, which XLA lowers to
-    ``exp(ln2 * x)`` in float32 and which is exact only for |x| <= 12; the
-    two agree wherever every ``|e_w| <= 12``, as on AlexNet
-    (``tests/test_torch_program.py`` pins its lowering)."""
+    The weight scale ``2^-e_w`` is the reference's ``jnp.exp2``, which XLA
+    lowers to ``exp(ln2 * x)`` in float32: off the exact power of two for
+    |x| >= 13. ``ref_exp2`` computes the same float32 value on the host,
+    so the two lowerings agree for every exponent
+    (``tests/test_torch_program.py``)."""
     steps: list[EngineStep] = []
     compute = [l for l in model.layers if l.kind != "pool"]
     last = compute[-1]
@@ -582,8 +594,7 @@ def _lower(model: CNNModel, params: Params, amax: dict[str, float],
         # Quantize weights once onto the (possibly floored) formats, with
         # the reference's float32 multiply.
         qmax = 2 ** (bits - 1) - 1
-        scale = torch.as_tensor(np.exp2(-e_w.astype(np.float32)),
-                                device=w.device).reshape(
+        scale = ref_exp2(-e_w).to(w.device).reshape(
             (1,) * (w.ndim - 1) + (-1,))
         wq = torch.clamp(torch.round(w * scale), -qmax - 1, qmax).to(
             torch.int8)

@@ -1,0 +1,101 @@
+"""Serving launcher for the LM substrate: batched prefill + greedy decode
+over the KV cache. The port of ``repro/launch/serve.py`` for the dense
+decoder family; the embedding-input (``frontend_stub``) and
+encoder-decoder branches are refused until their slices.
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b \\
+      --batch 4 --prompt-len 512 --gen 32
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b --reduced \\
+      --device cpu
+
+Prefill writes the prompt into the cache and attends through the plain
+core with the cache's valid length (as the reference does), so it
+launches no ``flash_attention``; the kernel runs on the cache-less
+full-sequence forward.
+
+``main`` returns its numbers: prefill seconds, decode seconds and tokens
+per second (the ``gen - 1`` decode steps' tokens over their time; the
+reference divides ``gen`` steps' worth by the same time), and the ids.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import time
+
+import torch
+
+from repro_torch.configs import get as get_arch
+from repro_torch.configs.base import reduced as reduce_cfg
+from repro_torch.launch import steps as STEPS
+from repro_torch.models import transformer as T
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def main(argv=None) -> dict:
+    ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--gen", type=int, default=16)
+    ap.add_argument("--seed", type=int, default=0,
+                    help="weights seed; the prompt uses seed + 1")
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: cuda; refuses to run "
+                         "without one unless --device cpu)")
+    args = ap.parse_args(argv)
+
+    cfg = get_arch(args.arch)
+    if args.reduced:
+        cfg = reduce_cfg(cfg)
+    if cfg.frontend_stub or cfg.family == "enc_dec":
+        raise NotImplementedError(f"{cfg.name}: embedding-input and "
+                                  f"encoder-decoder serving come with their "
+                                  f"slices (ROADMAP A)")
+    device = T._device(args.device)
+    params = T.init_params(cfg, seed=args.seed, device=device)
+    cache = T.init_cache(cfg, args.batch, args.prompt_len + args.gen,
+                         device=device)
+    prefill = STEPS.make_prefill_step(cfg)
+    decode = STEPS.make_serve_step(cfg)
+    gen = torch.Generator(device=device).manual_seed(args.seed + 1)
+    batch = {"tokens": torch.randint(0, cfg.vocab,
+                                     (args.batch, args.prompt_len),
+                                     generator=gen, device=device)}
+
+    _sync(device)
+    t0 = time.perf_counter()
+    logits_last, cache = prefill(params, cache, batch)
+    tok = logits_last.float().argmax(dim=-1)[:, None]
+    _sync(device)
+    t1 = time.perf_counter()
+    outs = [tok]
+    for _ in range(args.gen - 1):
+        nxt, cache = decode(params, cache, {"tokens": tok})
+        tok = nxt[:, None]
+        outs.append(tok)
+    toks = torch.cat(outs, dim=1)
+    _sync(device)
+    dt = time.perf_counter() - t1
+    steps = args.gen - 1
+    result = {"arch": cfg.name, "reduced": args.reduced,
+              "device": str(device), "batch": args.batch,
+              "prompt_len": args.prompt_len, "gen": args.gen,
+              "prefill_s": t1 - t0, "decode_s": dt,
+              "decode_tok_s": steps * args.batch / dt if steps else None,
+              "ids": toks.cpu().tolist()}
+    print(f"[serve] {cfg.name}: prefill {args.prompt_len} tok x "
+          f"{args.batch} in {t1 - t0:.3f}s; decoded {steps} steps x "
+          f"{args.batch} seqs in {dt:.3f}s")
+    print("[serve] sample token ids:", result["ids"][0][:8])
+    return result
+
+
+if __name__ == "__main__":
+    print(json.dumps({k: v for k, v in main().items() if k != "ids"}))

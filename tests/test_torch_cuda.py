@@ -1,7 +1,9 @@
-"""The Hopper ``gemm_int8`` kernel on the card, against its plain version
-on the same CUDA tensors, bit for bit. The CUDA kernel has no CPU mode, so
-these tests are marked ``cuda`` and skip without a GPU; on a machine with
-one (and ``nvcc``) run them with
+"""The Hopper kernels on the card, against their plain versions on the
+same CUDA tensors: ``gemm_int8`` bit for bit, ``flash_attention`` within
+the reference's tolerances (2e-5 in float32, 3e-2 in bfloat16, as
+``tests/test_kernels.py`` states them). The CUDA kernels have no CPU mode,
+so these tests are marked ``cuda`` and skip without a GPU; on a machine
+with one (and ``nvcc``) run them with
 
     python -m pytest -m cuda tests/test_torch_cuda.py
 
@@ -12,6 +14,8 @@ import torch
 
 from repro_torch.kernels.conv2d_int8 import ops, ref
 from repro_torch.kernels.conv2d_int8.kernel import gemm_int8
+from repro_torch.kernels.flash_attention.kernel import flash_attention
+from repro_torch.kernels.flash_attention.ref import attention_ref
 
 pytestmark = pytest.mark.cuda
 
@@ -74,3 +78,61 @@ def test_grouped_conv_launches_once_per_group(gen):
     torch.cuda.synchronize()
     assert gemm_int8.launches == before + 2
     assert torch.equal(got, want)
+
+
+# (B, Sq, Skv, H, KV, d, causal, window): the reference's test shapes, a
+# query block shorter than the keys and one longer, GQA and MQA, ragged
+# lengths that fill no tile, every head dim the kernel takes.
+ATTN_CASES = [
+    (1, 64, 64, 1, 1, 32, False, 0),
+    (2, 128, 128, 2, 2, 64, True, 0),
+    (1, 256, 256, 2, 2, 64, True, 64),
+    (2, 64, 192, 4, 2, 64, True, 0),
+    (1, 96, 40, 2, 1, 32, True, 0),
+    (2, 100, 100, 8, 2, 128, True, 0),
+    (1, 77, 77, 4, 4, 16, False, 16),
+    (1, 300, 300, 8, 1, 128, True, 100),
+    (2, 130, 130, 4, 2, 128, False, 0),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Sq,Skv,H,KV,d,causal,window", ATTN_CASES)
+def test_flash_attention_matches_plain_version(gen, dtype, B, Sq, Skv, H,
+                                               KV, d, causal, window):
+    q = torch.randn((B, Sq, H, d), generator=gen, device="cuda").to(dtype)
+    k = torch.randn((B, Skv, KV, d), generator=gen, device="cuda").to(dtype)
+    v = torch.randn((B, Skv, KV, d), generator=gen, device="cuda").to(dtype)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=causal, window=window)
+    want = attention_ref(q.float(), k.float(), v.float(), causal=causal,
+                         window=window)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert got.dtype == dtype and got.shape == (B, Sq, H, d)
+    tol = 2e-5 if dtype == torch.float32 else 3e-2
+    torch.testing.assert_close(got.float(), want, rtol=tol, atol=tol)
+
+
+def test_flash_attention_reads_strided_views(gen):
+    """q/k/v as views into one fused [B,S,3,H,d] projection: the kernel
+    reads them through their strides, with no copy."""
+    qkv = torch.randn((2, 128, 3, 4, 64), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    q, k, v = qkv.unbind(2)
+    got = flash_attention(q, k, v, causal=True)
+    want = attention_ref(q.float(), k.float(), v.float(), causal=True)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want, rtol=3e-2, atol=3e-2)
+
+
+def test_flash_attention_refuses_what_it_cannot_take(gen):
+    q = torch.randn((1, 64, 2, 48), generator=gen, device="cuda")
+    with pytest.raises(ValueError, match="head dims"):
+        flash_attention(q, q, q)
+    q = torch.randn((1, 64, 2, 66), generator=gen, device="cuda")[..., :64]
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_attention(q, q, q)
+    q = torch.randn((1, 64, 2, 64), generator=gen, device="cuda")
+    with pytest.raises(ValueError, match="float32 or all bfloat16"):
+        flash_attention(q.half(), q.half(), q.half())

@@ -38,7 +38,8 @@ def test_port_imports_neither_jax_nor_the_reference(path):
 
 
 def test_launcher_import_leaves_jax_out():
-    code = ("import sys, repro_torch.launch.serve_cnn, chip_smoke; "
+    code = ("import sys, repro_torch.launch.serve_cnn, "
+            "repro_torch.launch.serve, chip_smoke; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')); print(bad); "
             "sys.exit(1 if bad else 0)")
@@ -66,3 +67,23 @@ def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         cnn.init_params(m)
     assert compile_model(m, device="cpu").device.type == "cpu"
+
+
+def test_lm_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
+    from repro_torch.configs import ARCHS, reduced
+    from repro_torch.launch import serve as lm_serve
+    from repro_torch.models import transformer as T
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = reduced(ARCHS["yi-6b"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        T.init_params(cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        T.params_from_numpy({"embed": np.zeros((4, 2), np.float32)})
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        T.init_cache(cfg, 1, 8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        lm_serve.main(["--arch", "yi-6b", "--reduced"])
+    params = T.init_params(cfg, device="cpu")
+    assert params["embed"].device.type == "cpu"
+    assert T.params_from_numpy({"embed": np.zeros((4, 2), np.float32)},
+                               "cpu")["embed"].device.type == "cpu"

@@ -172,16 +172,47 @@ def test_full_width_lowering_matches_reference(name):
 
 
 def test_reference_exp2_exact_only_near_zero():
-    """Why ``_lower`` may scale by an exact power of two and still match
-    the reference: XLA's ``jnp.exp2`` (``exp(ln2 * x)`` in float32) is
-    exact for integer |x| <= 12, and AlexNet's weight exponents stay inside
-    that range; at |x| = 13 it is not, and there the two would differ."""
+    """XLA's ``jnp.exp2`` (``exp(ln2 * x)`` in float32) is the exact power
+    of two for integer |x| <= 12 and not beyond (x = 13 is one ulp high).
+    The port's scale, ``ref_exp2``, equals XLA's value on -40..40 except
+    at x = 32 (a weight exponent of -32, a column whose largest |w| is
+    below 2^-25), where the two float32 ``exp`` implementations differ."""
     e = np.arange(-12, 13, dtype=np.float32)
     np.testing.assert_array_equal(np.asarray(jnp.exp2(jnp.asarray(e))),
                                   np.exp2(e))
     far = np.float32([13.0, -13.0])
     assert not np.array_equal(np.asarray(jnp.exp2(jnp.asarray(far))),
                               np.exp2(far))
+    x = np.arange(-40, 41, dtype=np.float32)
+    want = np.asarray(jnp.exp2(jnp.asarray(x)))
+    got = prog_t.ref_exp2(x).numpy()
+    assert got.dtype == np.float32
+    differ = x[got != want]
+    np.testing.assert_array_equal(differ, [32.0])
+    ok = x != 32
+    np.testing.assert_array_equal(got[ok], want[ok])
+
+
+def test_lowering_matches_reference_at_weight_exponents_13_and_14():
+    """fc2's first two columns hold weights of (n + 1/2) / 2^13 and
+    (n + 1/2) / 2^14, which put e_w at -13 and -14 and sit exactly on
+    rounding ties under the exact power of two. The reference's float32
+    exp2(13) is one ulp above 8192, so its ties round away from even;
+    the port's lowering gives the same wq, where the exact power of two
+    would not."""
+    mj, mt, params, calib, _ = _tiny()
+    n = np.arange(4, 127, 8, dtype=np.float32)[:16] + 0.5   # 4.5 .. 124.5
+    n[-1] = 126.5
+    w = params["fc2"]["w"].copy()
+    w[:, 0] = n / 2 ** 13
+    w[:, 1] = n / 2 ** 14
+    params["fc2"]["w"] = w
+    pj, pt = _compile_both(mj, mt, params, calib)
+    _assert_lowered_equal(pj, pt)
+    fc2 = pt.steps[-1]
+    assert fc2.e_w[0] == -13 and fc2.e_w[1] == -14
+    exact = np.clip(np.round(w[:, 0] * np.float32(2 ** 13)), -128, 127)
+    assert not np.array_equal(fc2.wq[:, 0].numpy(), exact)
 
 
 def test_cnn_forward_float_and_quantized_match_reference():
