@@ -8,7 +8,8 @@ line:
 
 1. environment: the card, its power limit, torch/CUDA versions, and the
    build of every CUDA source of the port with ``nvcc`` (one ``nvcc`` per
-   source, all started together, each build timed);
+   source, all started together, each build timed), beside ptxas's
+   registers and spill bytes for every kernel (``-Xptxas -v``);
 2. ``gemm_int8`` against its plain version on the card, bit for bit: the
    reference's shape sweep, ``emit_int32``/ReLU, biases near +-2^30, every
    shift in -31..31 with accumulators at the int32 rails, and the 8
@@ -32,15 +33,35 @@ line:
 6. Yi-6B served through ``repro_torch.launch.serve.main`` (batch 4,
    prompt 512, 32 generated), and a teacher-forced decode over the cache
    held against the kernel forward's logits at the same positions;
-7. the ``kernels`` line, the card's ``nvidia-smi`` name and power limit,
+7. ``linear_scan`` against its plain version on the card (2e-5): the
+   reference's test shapes, a ragged S, the h0 fold's S + 1, a long S
+   with a near 1, and the RecurrentGemma-2B forward's shape, which is
+   timed (kernel, plain version) beside its bound;
+8. ``flash_attention`` at head dim 256 against its plain version: MQA
+   10:1 with window 2048 at S 4096 and a ragged S, in float32 and bf16,
+   and the RecurrentGemma-2B shape timed (kernel, plain version, one
+   masked ``scaled_dot_product_attention`` call) beside its bound;
+9. RecurrentGemma-2B at full width (seed 0, bf16, weights drawn on the
+   card): the cache-less forward on 2 x 4096 tokens (longer than the
+   window) with its launches counted (8 ``flash_attention``, 18
+   ``linear_scan``), held against the kernel-free forward (torch
+   attention, the plain scan) and both against a float32 forward of the
+   same weights; wall time, device time by kernel, idle share, memory;
+10. RecurrentGemma-2B served through ``launch.serve.main`` (batch 4,
+   prompt 512, 32 generated: prefill launches ``linear_scan`` 18 times),
+   and a teacher-forced decode over the ring cache and the RG-LRU state,
+   past the window, held against the kernel forward's logits;
+11. the ``kernels`` line, the card's ``nvidia-smi`` name and power limit,
    and last ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import contextlib
 import json
 import math
+import re
 from concurrent.futures import ThreadPoolExecutor
 import subprocess
 import sys
@@ -66,9 +87,13 @@ from repro_torch.kernels.flash_attention import kernel as flash_kernel  # noqa
 from repro_torch.kernels.flash_attention.kernel import (  # noqa: E402
     flash_attention)
 from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa
+from repro_torch.kernels.rglru_scan import kernel as scan_kernel  # noqa
+from repro_torch.kernels.rglru_scan.kernel import linear_scan  # noqa: E402
+from repro_torch.kernels.rglru_scan.ref import linear_scan_ref  # noqa: E402
 from repro_torch.launch import serve as lm_serve  # noqa: E402
 from repro_torch.launch import steps as lm_steps  # noqa: E402
 from repro_torch.models import layers as L  # noqa: E402
+from repro_torch.models import recurrent as R  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.serving.server import (compile_for_serving,  # noqa: E402
                                         serve, synthetic_stream)
@@ -78,6 +103,8 @@ from repro_torch.serving.server import (compile_for_serving,  # noqa: E402
 PEAKS = {"H100 SXM": (1979e12, 989e12, 3.35e12),
          "H100 PCIe": (1513e12, 756e12, 2.0e12),
          "H200": (1979e12, 989e12, 4.8e12)}
+# float32 FMA op/s outside the tensor cores (the same data sheets).
+F32_PEAKS = {"H100 SXM": 67e12, "H100 PCIe": 51e12, "H200": 67e12}
 
 # AlexNet at batch 16 on the main path: (engine, N, K, M, launches per
 # batch, groups, emits int32). A grouped engine's weights are a view of
@@ -137,6 +164,58 @@ TF_PROMPT, TF_STEPS = 504, 8
 #   (2^-5 for magnitudes in [4, 8)): the kernel may not make the model
 #   measurably worse than the plain attention does.
 LM_ROUTE_TOL = 0.25
+SCAN_SOURCE = "src/repro_torch/kernels/rglru_scan/csrc/linear_scan.cu"
+SCAN_REPLACES = "src/repro/kernels/rglru_scan/kernel.py:50"
+SCAN_TOL = 2e-5       # the reference's (tests/test_kernels.py)
+# linear_scan against its plain version: (label, B, S, D, a's range). The
+# first four are the reference's test shapes; then a ragged S, the S + 1
+# of the RG-LRU's h0 fold at the served prefill, a long S with a near 1,
+# and the RecurrentGemma-2B forward's shape (the timed one).
+SCAN_CASES = [
+    ("reference 1x64x8", 1, 64, 8, (0.7, 0.999)),
+    ("reference 2x128x32", 2, 128, 32, (0.7, 0.999)),
+    ("reference 3x96x16", 3, 96, 16, (0.7, 0.999)),
+    ("reference 1x256x128", 1, 256, 128, (0.7, 0.999)),
+    ("ragged S", 2, 77, 100, (0.7, 0.999)),
+    ("h0 fold, served prefill", 4, 513, 2560, (0.7, 0.999)),
+    ("near-1 decay, long S", 2, 4096, 2560, (0.99, 0.9999)),
+    ("RecurrentGemma-2B forward", 2, 4096, 2560, (0.7, 0.999)),
+]
+# RecurrentGemma-2B at full width: the forward's batch and length (twice
+# the window: the flash kernel's timed shape), the float32 reference's
+# slice (longer than the window), the served batch, the teacher-forced
+# decode (a ring of 2048 slots that wraps after the prefill).
+RG_ARCH = "recurrentgemma-2b"
+RG_B, RG_S = 2, 4096
+RG_F32_S, RG_F32_LAST = 3072, 64
+RG_SERVE_ARGS = ["--arch", RG_ARCH, "--batch", "4", "--prompt-len", "512",
+                 "--gen", "32", "--seed", "0"]
+RG_TF_PROMPT, RG_TF_STEPS = 2040, 16
+# flash_attention at head dim 256 against its plain version: MQA 10:1,
+# causal with RecurrentGemma's window; the first is the timed shape.
+FLASH_RG_CASES = [
+    ("RecurrentGemma-2B bf16", 2, 4096, 10, 1, torch.bfloat16, 2048),
+    ("RecurrentGemma-2B f32", 2, 4096, 10, 1, torch.float32, 2048),
+    ("d 256 ragged S bf16", 2, 1000, 10, 1, torch.bfloat16, 300),
+    ("d 256 ragged S f32", 1, 1000, 10, 1, torch.float32, 300),
+]
+# Tolerance of the full-width RecurrentGemma-2B checks, on bf16 logits
+# whose largest magnitude is about 5.5 (the float32 forward's, measured by
+# this script on an NVIDIA H100 80GB HBM3 at 700 W). `linear_scan` equals
+# its plain version bit for bit, so the kernel and kernel-free forwards
+# differ only where attention rounds (the kernel keeps QK^T in fp32, the
+# torch impl rounds it to bf16 first), and that rounding noise, carried
+# through 26 bf16 layers, sets how far apart they land. Measured: kernel
+# vs kernel-free forward 0.193 max |diff| over all 2 x 4096 x 256000
+# logits; the teacher-forced decode over the ring cache and the RG-LRU
+# state vs the kernel forward 0.180; kernel vs float32 0.323 and
+# kernel-free vs float32 0.299 on the compared slice.
+# * RG_ROUTE_TOL bounds |kernel - kernel-free| and |teacher-forced -
+#   kernel forward|: twice the largest measured spread.
+# * The kernel forward's error against float32 may exceed the kernel-free
+#   forward's by at most one bf16 ulp at the float32 logits' largest
+#   magnitude, as for Yi-6B.
+RG_ROUTE_TOL = 0.4
 
 
 class SmokeFailure(Exception):
@@ -157,11 +236,66 @@ def card_peaks(name: str) -> tuple[str, float, float, float]:
 def reset_launches() -> None:
     gemm_int8.launches = 0
     flash_attention.launches = 0
+    linear_scan.launches = 0
+
+
+def launches() -> dict:
+    return {"gemm_int8": gemm_int8.launches,
+            "flash_attention": flash_attention.launches,
+            "linear_scan": linear_scan.launches}
 
 
 # ---------------------------------------------------------------------------
 # Phase 1: environment and build
 # ---------------------------------------------------------------------------
+
+
+def _kernel_name(mangled: str) -> str:
+    """A readable name for a mangled kernel of the port: its base name and
+    template arguments (Li256E: 256; f: float; 13__nv_bfloat16 or S1_,
+    its repeat: bf16)."""
+    m = re.search(r"(flash_fwd_bf16|flash_fwd_f32|linear_scan_kernel|"
+                  r"gemm_int8_kernel)(I.*?EE)?", mangled)
+    if not m:
+        return mangled
+    args = [t.group(1) or ("float" if t.group(0) == "f" else "bf16")
+            for t in re.finditer(r"Li(\d+)E|13__nv_bfloat16|S\d*_|f",
+                                 m.group(2) or "")]
+    return f"{m.group(1)}<{', '.join(args)}>" if args else m.group(1)
+
+
+def ptxas_report(source: Path) -> list:
+    """Registers and spill bytes of every kernel in ``source``, from
+    ``nvcc -Xptxas -v`` with the build's own flags (device code only)."""
+    out = Path(_build.BUILD_DIR) / f"{source.stem}.ptxas.cubin"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    flags = [f for f in _build.NVCC_FLAGS
+             if f not in ("-shared", "-Xcompiler", "-fPIC")]
+    proc = subprocess.run([_build._nvcc(), *flags, "-cubin", "-Xptxas", "-v",
+                           "-o", str(out), str(source)], capture_output=True,
+                          text=True, timeout=600)
+    if proc.returncode != 0:
+        raise SmokeFailure(f"nvcc -Xptxas -v failed on {source.name}: "
+                           f"{proc.stderr[-2000:]}")
+    rows, name = [], None
+    for line in (proc.stdout + proc.stderr).splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?(\w+)'?", line)
+        if m:
+            name = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name:
+            rows.append({"kernel": _kernel_name(name), "source": source.name,
+                         "spill_stores": int(m.group(1)),
+                         "spill_loads": int(m.group(2))})
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            for r in rows:
+                if r["kernel"] == _kernel_name(name):
+                    r["registers"] = int(m.group(1))
+    return rows
 
 
 def phase_environment() -> dict:
@@ -185,14 +319,20 @@ def phase_environment() -> dict:
         _build.load(source)
         return round(time.perf_counter() - t0, 3)
 
-    sources = [gemm_kernel.SOURCE, flash_kernel.SOURCE]
-    with ThreadPoolExecutor(len(sources)) as pool:   # one nvcc per source
-        build_s = dict(zip((src.name for src in sources),
-                           pool.map(timed_build, sources)))
+    sources = [gemm_kernel.SOURCE, flash_kernel.SOURCE, scan_kernel.SOURCE]
+    # One nvcc per source for the build and one per source for ptxas's
+    # report, all started together.
+    with ThreadPoolExecutor(2 * len(sources)) as pool:
+        builds = [pool.submit(timed_build, src) for src in sources]
+        reports = [pool.submit(ptxas_report, src) for src in sources]
+        build_s = {src.name: f.result() for src, f in zip(sources, builds)}
+        ptxas = [row for f in reports for row in f.result()]
     env = {"phase": "environment", "device": name, "nvidia_smi": smi_line,
            "peaks_of": card_peaks(name)[0], "torch": torch.__version__,
            "cuda": torch.version.cuda, "python": sys.version.split()[0],
-           "kernel_build_s": build_s}
+           "kernel_build_s": build_s, "ptxas": ptxas,
+           "spill_bytes": sum(r["spill_stores"] + r["spill_loads"]
+                              for r in ptxas)}
     emit(env)
     return env
 
@@ -499,6 +639,24 @@ def _device_us(evt) -> float:
                          getattr(evt, "self_cuda_time_total", 0.0)))
 
 
+def _device_ops(fn) -> list:
+    """(kernel name, device µs, launches) of one profiled, synchronised
+    call of ``fn``, largest first. Kernels only: an aten op's own row
+    repeats the device time of the kernels it launched, so summing every
+    row would count them twice."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sorted(((e.key, _device_us(e), e.count)
+                   for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and _device_us(e) > 0
+                   and not e.key.startswith("Activity Buffer")),
+                  key=lambda kv: -kv[1])
+
+
 def phase_breakdown(prog, frames) -> None:
     """Where one batch's time goes on the default route: a warm
     ``EngineExecutor``'s time per batch over 16 batches, beside the host's
@@ -548,20 +706,9 @@ def phase_breakdown(prog, frames) -> None:
         gemm_int8(x8, fc8.wq, fc8.shift, fc8.bias_q, emit_int32=True)
     gemm_host_us = (time.perf_counter() - t0) / n * 1e6
     torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        runner(xq)
-        torch.cuda.synchronize()
-    # Kernels only: an aten op's own row repeats the device time of the
-    # kernels it launched, so summing every row would count them twice.
-    ops = sorted(((e.key, _device_us(e)) for e in prof.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CUDA
-                  and _device_us(e) > 0
-                  and not e.key.startswith("Activity Buffer")),
-                 key=lambda kv: -kv[1])
-    device_ms = sum(us for _, us in ops) / 1e3
-    gemm_ms = sum(us for k, us in ops if "gemm_int8" in k) / 1e3
+    ops = _device_ops(lambda: runner(xq))
+    device_ms = sum(us for _, us, _ in ops) / 1e3
+    gemm_ms = sum(us for k, us, _ in ops if "gemm_int8" in k) / 1e3
     emit({"phase": "breakdown", "route": runner.route, "batch": len(frames),
           "executor_ms_per_batch": executor_ms,
           "executor_steady_fps": ex.stats.steady_fps,
@@ -575,7 +722,8 @@ def phase_breakdown(prog, frames) -> None:
           "device_busy_ms": device_ms, "gemm_int8_ms": gemm_ms,
           "other_device_ms": device_ms - gemm_ms,
           "device_idle_share": max(0.0, 1.0 - device_ms / wall_ms),
-          "top_device_ops_us": [[k[:60], round(us, 1)] for k, us in ops[:6]]})
+          "top_device_ops_us": [[k[:60], round(us, 1)]
+                                for k, us, _ in ops[:6]]})
 
 
 # ---------------------------------------------------------------------------
@@ -682,10 +830,13 @@ def _forward(params, cfg, tokens, impl):
 
 
 def _close(a, b) -> dict:
-    """How far bf16 logits ``a`` are from ``b``: max |diff|, and whether
-    they meet the reference's model tolerance (rtol 6e-2, atol 8e-2)."""
+    """How far bf16 logits ``a`` are from ``b``: max and mean |diff|, and
+    whether they meet the reference's model tolerance (rtol 6e-2, atol
+    8e-2)."""
     a, b = a.float(), b.float()
-    return {"max_abs_diff": float((a - b).abs().max()),
+    diff = (a - b).abs()
+    return {"max_abs_diff": float(diff.max()),
+            "mean_abs_diff": float(diff.mean()),
             "allclose_6e-2_8e-2": bool(torch.allclose(a, b, rtol=6e-2,
                                                       atol=8e-2))}
 
@@ -731,17 +882,7 @@ def phase_lm_forward() -> dict:
     _forward(params, cfg, tokens, "kernel")
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        _forward(params, cfg, tokens, "kernel")
-        torch.cuda.synchronize()
-    ops = sorted(((e.key, _device_us(e), e.count)
-                  for e in prof.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CUDA
-                  and _device_us(e) > 0
-                  and not e.key.startswith("Activity Buffer")),
-                 key=lambda kv: -kv[1])
+    ops = _device_ops(lambda: _forward(params, cfg, tokens, "kernel"))
     device_ms = sum(us for _, us, _ in ops) / 1e3
     flash_ms = sum(us for k, us, _ in ops if "flash_fwd" in k) / 1e3
     matmul = [(us, n) for k, us, n in ops if _is_matmul(k)]
@@ -842,16 +983,15 @@ def phase_lm_serve(lm: dict) -> None:
             <= LM_ROUTE_TOL):
         raise SmokeFailure(f"teacher-forced decode disagrees with the "
                            f"kernel forward: {check}")
-    phase_decode_breakdown(params, cache, tokens[:, :1])
+    phase_decode_breakdown(cfg, params, cache, tokens[:, :1])
 
 
-def phase_decode_breakdown(params, cache, tok) -> None:
+def phase_decode_breakdown(cfg, params, cache, tok) -> None:
     """Where a warm decode step's time goes at full width: wall time of
     single synchronised steps, the host's enqueue time of a run of steps,
     and one profiled step's device time by kernel. Every step is given
     the same cache, so each writes the same slot and attends over the
     same length."""
-    cfg = ARCHS[LM_ARCH]
     decode = lm_steps.make_serve_step(cfg)
     pos = cache["_pos"]
 
@@ -872,22 +1012,13 @@ def phase_decode_breakdown(params, cache, tok) -> None:
         step()
     enqueue_ms = (time.perf_counter() - t0) / n * 1e3
     torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        step()
-        torch.cuda.synchronize()
-    ops = sorted(((e.key, _device_us(e), e.count)
-                  for e in prof.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CUDA
-                  and _device_us(e) > 0
-                  and not e.key.startswith("Activity Buffer")),
-                 key=lambda kv: -kv[1])
+    ops = _device_ops(step)
     device_ms = sum(us for _, us, _ in ops) / 1e3
     wall_ms = float(np.median(walls))
     param_bytes = T.param_count(cfg) * params["embed"].element_size()
     _, _, _, peak_bytes = card_peaks(torch.cuda.get_device_name(0))
-    emit({"phase": "lm_decode_breakdown", "batch": tok.shape[0],
+    emit({"phase": "lm_decode_breakdown", "arch": cfg.name,
+          "batch": tok.shape[0],
           "cache_len": pos, "wall_ms_median": wall_ms,
           "wall_ms_min": min(walls), "host_enqueue_ms": enqueue_ms,
           "device_busy_ms": device_ms,
@@ -898,6 +1029,357 @@ def phase_decode_breakdown(params, cache, tok) -> None:
                                       for k, us, c in ops[:8]]})
 
 
+# ---------------------------------------------------------------------------
+# Phase 7: linear_scan against its plain version
+# ---------------------------------------------------------------------------
+
+
+def _plain_scan(a, b):
+    """``linear_scan``'s plain version with the kernel's output dtype."""
+    return linear_scan_ref(a, b).to(b.dtype)
+
+
+def phase_scan(env: dict) -> dict:
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    max_err = 0.0
+    for label, B, S, D, (lo, hi) in SCAN_CASES:
+        a = torch.rand((B, S, D), generator=gen, device="cuda") * (hi - lo) \
+            + lo
+        b = torch.randn((B, S, D), generator=gen, device="cuda")
+        got = linear_scan(a, b)
+        want = linear_scan_ref(a, b)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        ok = got.dtype == b.dtype and got.shape == b.shape and bool(
+            torch.allclose(got, want, rtol=SCAN_TOL, atol=SCAN_TOL))
+        emit({"phase": "linear_scan_case", "case": label,
+              "shape": [B, S, D], "a_range": [lo, hi], "tol": SCAN_TOL,
+              "max_abs_err": err, "max_abs_h": float(want.abs().max()),
+              "ok": ok})
+        if not ok:
+            raise SmokeFailure(f"linear_scan disagrees with its plain "
+                               f"version on {label}: max |err| {err}")
+        max_err = max(max_err, err)
+    # The last case is the forward's shape: timed.
+    flush = torch.empty(64 << 20, dtype=torch.int8, device="cuda")
+    ms = _time_cold_ms(lambda: linear_scan(a, b), flush)
+    plain_ms = _time_cold_ms(lambda: linear_scan_ref(a, b), flush, iters=3)
+    del flush
+    key, _, _, peak_bytes = card_peaks(env["device"])
+    flops = 2 * B * S * D
+    nbytes = 3 * 4 * B * S * D                 # a, b read, h written, fp32
+    t_ops, t_bytes = flops / F32_PEAKS[key] * 1e3, nbytes / peak_bytes * 1e3
+    row = {"phase": "linear_scan_recurrentgemma", "shape": [B, S, D],
+           "dtype": "float32", "flops": flops, "bytes": nbytes, "ms": ms,
+           "plain_ms": plain_ms, "library_ms": None,
+           "library": "none: no single PyTorch call computes h_t = a_t "
+                      "h_{t-1} + b_t; a cumprod/cumsum form under- or "
+                      "overflows once prod(a) leaves float32's range",
+           "bound_ms": max(t_ops, t_bytes),
+           "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+           "gb_per_s": nbytes / ms / 1e6}
+    emit(row)
+    return {"max_abs_err": max_err, **{k: row[k] for k in (
+        "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}}
+
+
+# ---------------------------------------------------------------------------
+# Phase 8: flash_attention at head dim 256
+# ---------------------------------------------------------------------------
+
+
+def _window_pairs(S: int, window: int) -> int:
+    """Query-key pairs a causal, windowed attention over S tokens computes
+    (each query sees min(i + 1, window) keys)."""
+    return sum(min(i + 1, window) for i in range(S))
+
+
+def _sdpa_backend(fn) -> str:
+    """The name of the device kernel that takes most of one call of
+    ``fn``: which backend PyTorch's dispatcher picked. A CUDA-only
+    profile, every row kept: ``_device_ops`` (CPU and CUDA activity,
+    CUDA-typed rows only) found no row for cuDNN's attention kernel."""
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = sorted(((e.key, _device_us(e)) for e in prof.key_averages()
+                   if _device_us(e) > 0), key=lambda kv: -kv[1])
+    return rows[0][0][:100] if rows else "unknown"
+
+
+def phase_flash_rg(env: dict) -> dict:
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    d = ARCHS[RG_ARCH].head_dim
+    max_err = 0.0
+    timed = None
+    for label, B, S, H, KV, dtype, window in FLASH_RG_CASES:
+        q = torch.randn((B, S, H, d), generator=gen, device="cuda").to(dtype)
+        k = torch.randn((B, S, KV, d), generator=gen, device="cuda").to(dtype)
+        v = torch.randn((B, S, KV, d), generator=gen, device="cuda").to(dtype)
+        max_err = max(max_err, _check_flash(label, q, k, v, True, window))
+        if timed is None:
+            timed = (q, k, v, window)
+    q, k, v, window = timed
+    B, S, H, _ = q.shape
+    KV = k.shape[2]
+    flush = torch.empty(64 << 20, dtype=torch.int8, device="cuda")
+    ms = _time_cold_ms(lambda: flash_attention(q, k, v, causal=True,
+                                               window=window), flush)
+    plain_ms = _time_cold_ms(lambda: attention_ref(q, k, v, causal=True,
+                                                   window=window), flush)
+    # The yardstick: one PyTorch call of the same function with the
+    # equivalent boolean mask (True = attend), K/V heads repeated and every
+    # operand permuted to [B,H,S,d] outside the timed call.
+    i = torch.arange(S, device="cuda")
+    mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
+    qh = q.permute(0, 2, 1, 3)
+    kh, vh = (t.repeat_interleave(H // KV, dim=2).permute(0, 2, 1, 3)
+              for t in (k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    library_ms, library_note, backend = None, None, None
+    try:
+        library_note = "max |diff| vs kernel %.3g" % float(
+            (sdpa(qh, kh, vh, attn_mask=mask).permute(0, 2, 1, 3).float()
+             - flash_attention(q, k, v, causal=True,
+                               window=window).float()).abs().max())
+        library_ms = _time_cold_ms(lambda: sdpa(qh, kh, vh, attn_mask=mask),
+                                   flush)
+        backend = _sdpa_backend(lambda: sdpa(qh, kh, vh, attn_mask=mask))
+    except RuntimeError as e:           # a yardstick, not the port
+        library_note = f"scaled_dot_product_attention refused: {e}"[:200]
+    del flush
+    _, _, peak_bf16, peak_bytes = card_peaks(env["device"])
+    pairs = _window_pairs(S, window)
+    flops = 4 * d * pairs * B * H                # QK^T and PV
+    nbytes = 2 * B * S * d * (2 * H + 2 * KV)    # q, k, v, o once, bf16
+    t_ops, t_bytes = flops / peak_bf16 * 1e3, nbytes / peak_bytes * 1e3
+    row = {"phase": "flash_attention_recurrentgemma",
+           "shape": [B, S, H, KV, d], "dtype": "bfloat16", "causal": True,
+           "window": window, "pairs_per_head": pairs, "flops": flops,
+           "bytes": nbytes, "ms": ms, "plain_ms": plain_ms,
+           "library_ms": library_ms, "library": library_note,
+           "library_backend": backend, "bound_ms": max(t_ops, t_bytes),
+           "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+           "tflops": flops / ms / 1e9}
+    emit(row)
+    return {"max_abs_err": max_err, **{k: row[k] for k in (
+        "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}}
+
+
+# ---------------------------------------------------------------------------
+# Phase 9: RecurrentGemma-2B at full width, the cache-less forward
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def _kernel_free():
+    """For this block only: the torch attention impl and the plain scan in
+    ``models.recurrent`` (the package has no public switch for the scan,
+    as the reference has none)."""
+    L.set_attention_impl("torch")
+    R.linear_scan = _plain_scan
+    try:
+        yield
+    finally:
+        R.linear_scan = linear_scan
+        L.set_attention_impl(None)
+
+
+def _close_chunked(a, b, chunk: int = 512) -> dict:
+    """``_close`` over sequence chunks of [B,S,V] logits, so no float32
+    copy of the whole tensor is made."""
+    diff, total, ok = 0.0, 0.0, True
+    for s in range(0, a.shape[1], chunk):
+        c = _close(a[:, s:s + chunk], b[:, s:s + chunk])
+        diff = max(diff, c["max_abs_diff"])
+        total += c["mean_abs_diff"] * a[:, s:s + chunk].numel()
+        ok = ok and c["allclose_6e-2_8e-2"]
+    return {"max_abs_diff": diff, "mean_abs_diff": total / a.numel(),
+            "allclose_6e-2_8e-2": ok}
+
+
+def _top1_agreement(a, b, chunk: int = 512) -> float:
+    same = sum(int((a[:, s:s + chunk].argmax(-1)
+                    == b[:, s:s + chunk].argmax(-1)).sum())
+               for s in range(0, a.shape[1], chunk))
+    return same / (a.shape[0] * a.shape[1])
+
+
+def _finite(x, chunk: int = 512) -> bool:
+    return all(bool(torch.isfinite(x[:, s:s + chunk]).all())
+               for s in range(0, x.shape[1], chunk))
+
+
+def phase_rg_forward() -> dict:
+    cfg = ARCHS[RG_ARCH]
+    kinds = cfg.layer_kinds()
+    n_attn, n_rec = kinds.count("attn_local"), kinds.count("rglru")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab, (RG_B, RG_S), generator=gen,
+                           device="cuda")
+
+    # The main path: counts at 0 just before, read just after.
+    reset_launches()
+    logits_k = _forward(params, cfg, tokens, "kernel")
+    torch.cuda.synchronize()
+    counts = launches()
+    row = {"phase": "rg_forward", "arch": RG_ARCH,
+           "params": T.param_count(cfg), "init_s": init_s,
+           "tokens": [RG_B, RG_S], "window": cfg.window, "impl": "kernel",
+           "launches": counts,
+           "expected": {"flash_attention": n_attn, "linear_scan": n_rec},
+           "logits_shape": list(logits_k.shape), "finite": _finite(logits_k)}
+    emit(row)
+    if counts != {"gemm_int8": 0, "flash_attention": n_attn,
+                  "linear_scan": n_rec}:
+        raise SmokeFailure(f"the RecurrentGemma-2B forward launched "
+                           f"{counts}, expected {n_attn} flash_attention "
+                           f"and {n_rec} linear_scan")
+    if not row["finite"]:
+        raise SmokeFailure("the RecurrentGemma-2B forward gave non-finite "
+                           "logits")
+
+    # Wall time of a warm forward, and its device time by kernel.
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _forward(params, cfg, tokens, "kernel")
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    ops = _device_ops(lambda: _forward(params, cfg, tokens, "kernel"))
+    device_ms = sum(us for _, us, _ in ops) / 1e3
+    flash_ms = sum(us for k, us, _ in ops if "flash_fwd" in k) / 1e3
+    scan_ms = sum(us for k, us, _ in ops if "linear_scan" in k) / 1e3
+    matmul_ms = sum(us for k, us, _ in ops if _is_matmul(k)) / 1e3
+    emit({"phase": "rg_forward_time", "wall_ms": wall_ms,
+          "device_busy_ms": device_ms, "flash_attention_ms": flash_ms,
+          "linear_scan_ms": scan_ms, "matmul_ms": matmul_ms,
+          "matmul_launches": sum(n for k, _, n in ops if _is_matmul(k)),
+          "other_ms": device_ms - flash_ms - scan_ms - matmul_ms,
+          "device_idle_share": max(0.0, 1.0 - device_ms / wall_ms),
+          "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "top_device_ops_us_count": [[k[:60], round(us, 1), n]
+                                      for k, us, n in ops[:12]]})
+
+    # The kernel-free forward on the same tokens, and both against float32
+    # (kernel-free too) on the last positions of a slice of the first
+    # sequence longer than the window (causal, so the bf16 logits there
+    # are those of the same tokens).
+    reset_launches()
+    with _kernel_free():
+        logits_t = _forward(params, cfg, tokens, "torch")
+        torch.cuda.synchronize()
+        plain_counts = launches()
+        p32 = _to(params, torch.float32)
+        logits_32 = _forward(p32, cfg, tokens[:1, :RG_F32_S], "torch")[
+            :, RG_F32_S - RG_F32_LAST:].clone()
+        del p32
+    torch.cuda.empty_cache()
+    if any(plain_counts.values()):
+        raise SmokeFailure(f"the kernel-free forward launched {plain_counts}")
+    sl = (slice(0, 1), slice(RG_F32_S - RG_F32_LAST, RG_F32_S))
+    kernel_vs_f32 = _close(logits_k[sl], logits_32)
+    torch_vs_f32 = _close(logits_t[sl], logits_32)
+    routes = _close_chunked(logits_k, logits_t)
+    check = {"phase": "rg_routes", "kernel_vs_kernel_free": routes,
+             "top1_agreement": _top1_agreement(logits_k, logits_t),
+             "f32_slice": [1, RG_F32_S], "f32_positions_compared":
+                 RG_F32_LAST,
+             "f32_logits_max_abs": float(logits_32.abs().max()),
+             "kernel_vs_f32": kernel_vs_f32,
+             "kernel_free_vs_f32": torch_vs_f32,
+             "kernel_minus_kernel_free_err_vs_f32":
+                 kernel_vs_f32["max_abs_diff"] - torch_vs_f32["max_abs_diff"],
+             "finite": _finite(logits_t) and bool(
+                 torch.isfinite(logits_32).all())}
+    del logits_t
+    torch.cuda.empty_cache()
+    f32_max = check["f32_logits_max_abs"]
+    margin = 2.0 ** (math.floor(math.log2(f32_max)) - 7)   # one bf16 ulp
+    check.update(route_tol=RG_ROUTE_TOL, f32_margin=margin)
+    emit(check)
+    if not (check["finite"]
+            and routes["max_abs_diff"] <= RG_ROUTE_TOL
+            and kernel_vs_f32["max_abs_diff"]
+            <= torch_vs_f32["max_abs_diff"] + margin):
+        raise SmokeFailure(f"RecurrentGemma-2B logits out of tolerance: "
+                           f"{check}")
+    return {"params": params, "tokens": tokens, "logits_k": logits_k,
+            "launches": counts}
+
+
+# ---------------------------------------------------------------------------
+# Phase 10: RecurrentGemma-2B served, and the ring cache and the RG-LRU
+# state against the kernel forward
+# ---------------------------------------------------------------------------
+
+
+def phase_rg_serve(rg: dict) -> dict:
+    cfg = ARCHS[RG_ARCH]
+    n_rec = cfg.layer_kinds().count("rglru")
+    reset_launches()
+    result = lm_serve.main(RG_SERVE_ARGS)
+    torch.cuda.synchronize()
+    counts = launches()
+    ids = np.asarray(result.pop("ids"))
+    row = {"phase": "rg_serve", **result, "launches": counts,
+           "ids_shape": list(ids.shape),
+           "ids_in_vocab": bool(((ids >= 0) & (ids < cfg.vocab)).all()),
+           "sample_ids": ids[0, :8].tolist()}
+    emit(row)
+    if ids.shape != (4, 32) or not row["ids_in_vocab"]:
+        raise SmokeFailure(f"serve gave ids of shape {ids.shape}")
+    # Prefill runs each RG-LRU layer's scan once; decode steps take
+    # rglru_step and the ring cache's direct core, and no kernel.
+    if counts != {"gemm_int8": 0, "flash_attention": 0,
+                  "linear_scan": n_rec}:
+        raise SmokeFailure(f"serve launched {counts}, expected "
+                           f"{n_rec} linear_scan (prefill) and nothing else")
+
+    # Teacher-forced: prefill RG_TF_PROMPT tokens into a ring of the
+    # window's 2048 slots, decode the next RG_TF_STEPS (the ring wraps
+    # and the window cuts), and hold the logits of positions
+    # RG_TF_PROMPT - 1 .. RG_TF_PROMPT + RG_TF_STEPS - 1 against the
+    # kernel forward's.
+    params, tokens = rg["params"], rg["tokens"]
+    cache = T.init_cache(cfg, RG_B, RG_TF_PROMPT + RG_TF_STEPS + 1,
+                         device="cuda")
+    ring = min(cfg.window, RG_TF_PROMPT + RG_TF_STEPS + 1)
+    reset_launches()
+    logits_p, cache, _ = T.forward(params, cfg,
+                                   {"tokens": tokens[:, :RG_TF_PROMPT]},
+                                   cache=cache)
+    prefill_counts = launches()
+    outs = [logits_p[:, -1]]
+    for t in range(RG_TF_PROMPT, RG_TF_PROMPT + RG_TF_STEPS):
+        lg, cache, _ = T.forward(params, cfg,
+                                 {"tokens": tokens[:, t:t + 1]}, cache=cache)
+        outs.append(lg[:, 0])
+    got = torch.stack(outs, 1)
+    want = rg["logits_k"][:, RG_TF_PROMPT - 1:RG_TF_PROMPT + RG_TF_STEPS]
+    check = {"phase": "rg_teacher_forced", "prompt": RG_TF_PROMPT,
+             "steps": RG_TF_STEPS, "ring_slots": ring,
+             "wrapped": RG_TF_PROMPT + RG_TF_STEPS > ring,
+             "prefill_launches": prefill_counts,
+             "vs_kernel_forward": _close(got, want),
+             "top1_agreement": float((got.argmax(-1) == want.argmax(-1))
+                                     .float().mean()),
+             "finite": bool(torch.isfinite(got).all()),
+             "route_tol": RG_ROUTE_TOL}
+    emit(check)
+    if not (check["finite"] and check["wrapped"]
+            and prefill_counts["linear_scan"] == n_rec
+            and check["vs_kernel_forward"]["max_abs_diff"] <= RG_ROUTE_TOL):
+        raise SmokeFailure(f"teacher-forced decode over the ring cache "
+                           f"disagrees with the kernel forward: {check}")
+    phase_decode_breakdown(cfg, params, cache, tokens[:, :1])
+    return {"launches": counts}
+
 def main() -> int:
     t_start = time.perf_counter()
     try:
@@ -907,6 +1389,15 @@ def main() -> int:
         flash = phase_flash(env)
         lm = phase_lm_forward()
         phase_lm_serve(lm)
+        yi_launches = lm["launches"]
+        del lm
+        torch.cuda.empty_cache()
+        scan = phase_scan(env)
+        flash_rg = phase_flash_rg(env)
+        rg = phase_rg_forward()
+        phase_rg_serve(rg)
+        rg_launches = rg["launches"]
+        del rg
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -914,6 +1405,7 @@ def main() -> int:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
         return 1
+    rg_cfg = ARCHS[RG_ARCH]
     kernels = [{
         "name": "gemm_int8", "route": "cuda", "source": GEMM_SOURCE,
         "replaces": GEMM_REPLACES, "launches": main_path["launches"],
@@ -923,12 +1415,34 @@ def main() -> int:
         "per": f"one AlexNet batch of {SERVE_BATCH}: the sum over its 11 "
                f"launches"}, {
         "name": "flash_attention", "route": "cuda", "source": FLASH_SOURCE,
-        "replaces": FLASH_REPLACES, "launches": lm["launches"],
+        "replaces": FLASH_REPLACES, "launches": yi_launches,
         "max_abs_err": flash["max_abs_err"], "ms": flash["ms"],
         "plain_ms": flash["plain_ms"], "bound_ms": flash["bound_ms"],
         "bound_by": flash["bound_by"], "library_ms": flash["library_ms"],
+        "path": LM_ARCH,
         "per": f"one launch at the Yi-6B shape (B {LM_B}, S {LM_S}, H 32, "
-               f"KV 4, d 128, bf16, causal); one per layer of a forward"}]
+               f"KV 4, d 128, bf16, causal); one per layer of a forward"}, {
+        "name": "flash_attention", "route": "cuda", "source": FLASH_SOURCE,
+        "replaces": FLASH_REPLACES,
+        "launches": rg_launches["flash_attention"],
+        "max_abs_err": flash_rg["max_abs_err"], "ms": flash_rg["ms"],
+        "plain_ms": flash_rg["plain_ms"], "bound_ms": flash_rg["bound_ms"],
+        "bound_by": flash_rg["bound_by"],
+        "library_ms": flash_rg["library_ms"], "path": RG_ARCH,
+        "per": f"one launch at the RecurrentGemma-2B shape (B {RG_B}, "
+               f"S {RG_S}, H 10, KV 1, d 256, bf16, causal, window "
+               f"{rg_cfg.window}); one per attn_local layer of a forward"}, {
+        "name": "linear_scan", "route": "cuda", "source": SCAN_SOURCE,
+        "replaces": SCAN_REPLACES, "launches": rg_launches["linear_scan"],
+        "max_abs_err": scan["max_abs_err"], "ms": scan["ms"],
+        "plain_ms": scan["plain_ms"], "bound_ms": scan["bound_ms"],
+        "bound_by": scan["bound_by"], "library_ms": scan["library_ms"],
+        "library_note": "null: no single PyTorch call computes the "
+                        "recurrence",
+        "path": RG_ARCH,
+        "per": f"one launch at the RecurrentGemma-2B forward's shape "
+               f"(B {RG_B}, S {RG_S}, D {rg_cfg.lru_width}, fp32); one per "
+               f"RG-LRU layer of a forward or a prefill"}]
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(env["nvidia_smi"], flush=True)
     emit({"kernels": kernels})

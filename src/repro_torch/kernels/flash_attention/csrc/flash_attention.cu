@@ -29,32 +29,52 @@
 // batch/sequence/head strides (no transposes on the host). Each block takes
 // one (batch, head, query tile); the loop over key tiles runs inside it.
 //
-// Two kernels:
+// Two kernels, each for head dims 16, 32, 64, 128 and 256:
 //   * bf16: 4 warps, 64 query rows (16 a warp), 64-key tiles. QK^T and PV
 //     are mma.sync m16n8k16 bf16 products with fp32 accumulation. K/V tiles
 //     come in by cp.async into a two-stage ring in shared memory, the next
-//     tile loading while the products run on this one. Q's fragments stay
-//     in registers for the whole loop; K's and V's come from shared memory
-//     by ldmatrix (V's transposed by ldmatrix.trans, so V is staged
-//     row-major as it lies in memory); S = QK^T stays in registers and is
-//     repacked in place as the A operand of PV (the C and A fragment
+//     tile loading while the products run on this one. Up to d 128, Q's
+//     fragments stay in registers for the whole loop; K's and V's come from
+//     shared memory by ldmatrix (V's transposed by ldmatrix.trans, so V is
+//     staged row-major as it lies in memory); S = QK^T stays in registers
+//     and is repacked in place as the A operand of PV (the C and A fragment
 //     layouts line up); the output accumulator (16 x d a warp) stays in
 //     registers. Shared rows are padded by 16 bytes, so the 8-row ldmatrix
 //     reads are free of bank conflicts.
 //   * fp32: plain fp32 FMA (no TF32: the reference's tests hold fp32 to
 //     2e-5), 32 query rows x 32-key tiles, 4 threads a row.
 //
+// Head dim 256 (RecurrentGemma-2B's local attention: 10 query heads on one
+// KV head, window 2048). In bf16 a thread would hold 128 fp32 accumulator
+// words, 64 words of Q fragments and 32 of S, about 224 of the 255
+// registers a thread may have before any address: ptxas would spill. So at
+// d 256 Q's fragments are not kept in registers but read from the Q tile,
+// which sits in shared memory for the whole loop anyway, at every k-step
+// of QK^T (four 32-bit loads, free of bank conflicts: the 8 rows of a
+// fragment are 528 bytes apart, 4 banks). The key tile stays at 64 and the
+// block's shared memory is (64 + 2 stages x 2 x 64) rows x 264 x 2 bytes =
+// 168,960 bytes, under the 232,448 a block may opt into; one block an SM.
+// The fp32 kernel needs 102,784 bytes at d 256 and keeps 64 accumulator
+// words a thread. `chip_smoke.py` reports ptxas's registers and spill
+// bytes for every instantiation.
+//
 // What bounds it on the H100 at the Yi-6B shape (B 2, S 2048, H 32, KV 4,
 // d 128, bf16, causal): 6.9e10 multiply-adds x 2 against 75 MB of q/k/v/o,
-// so the tensor cores' bf16 rate, not memory, is the limit. This kernel
-// stays below that rate: mma.sync rather than wgmma (whose asynchronous
-// 64-row products are the only way to the card's full rate), the
-// softmax's exponentials and rescaling on the CUDA cores in the same warps
-// as the products (nothing overlaps them), and 64-row query tiles that
-// read each K/V tile once per 64 queries. A later design: TMA loads of K/V
-// tiles into a deeper ring with mbarriers, wgmma for QK^T and PV, a
-// producer warp and two consumer warpgroups that take turns between
-// softmax and products (warp specialisation), and 128-row query tiles.
+// so the tensor cores' bf16 rate, not memory, is the limit. At the
+// RecurrentGemma-2B shape (B 2, S 4096, H 10, KV 1, d 256, causal, window
+// 2048) each (b, h) computes 6,292,480 query-key pairs: 1.29e11 FLOP,
+// 0.130 ms at 989 TFLOP/s, again the tensor cores' rate. Tiles below the
+// window's edge are skipped and tiles crossing it masked, so a block visits
+// at most 33 key tiles. This kernel stays below that rate: mma.sync rather
+// than wgmma (whose asynchronous 64-row products are the only way to the
+// card's full rate), the softmax's exponentials and rescaling on the CUDA
+// cores in the same warps as the products (nothing overlaps them), and
+// 64-row query tiles that read each K/V tile once per 64 queries. A later
+// design: TMA loads of K/V tiles into a deeper ring with mbarriers, wgmma
+// for QK^T and PV, a producer warp and two consumer warpgroups that take
+// turns between softmax and products (warp specialisation), and 128-row
+// query tiles; at d 256 the accumulator then has to be split across two
+// consumer warpgroups by output columns.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -183,6 +203,20 @@ __device__ __forceinline__ void load_tile_async(
   }
 }
 
+// Q's A fragment of k-step kk for this thread: rows g and g + 8 of the
+// warp's 16, columns 2t, 2t + 1 and 2t + 8, 2t + 9 of the step's 16.
+template <int LD>
+__device__ __forceinline__ void load_q_frag(uint32_t a[4],
+                                            const __nv_bfloat16* Qs,
+                                            int warp, int g, int t, int kk) {
+  const __nv_bfloat16* r0 = Qs + (warp * 16 + g) * LD + 2 * t + kk * 16;
+  const __nv_bfloat16* r1 = r0 + 8 * LD;
+  a[0] = *reinterpret_cast<const uint32_t*>(r0);
+  a[1] = *reinterpret_cast<const uint32_t*>(r1);
+  a[2] = *reinterpret_cast<const uint32_t*>(r0 + 8);
+  a[3] = *reinterpret_cast<const uint32_t*>(r1 + 8);
+}
+
 template <int D>
 __global__ void __launch_bounds__(WARPS16 * 32)
 flash_fwd_bf16(Params p) {
@@ -190,6 +224,9 @@ flash_fwd_bf16(Params p) {
   constexpr int KSTEPS = D / 16;         // k-steps of QK^T
   constexpr int NT_S = BKV16 / 8;        // n-tiles of S (8 keys each)
   constexpr int NT_O = D / 8;            // n-tiles of O (8 dims each)
+  // Q's fragments in registers for the whole loop up to d 128; at d 256
+  // they would spill, and come from the shared Q tile at every k-step.
+  constexpr bool Q_IN_REGS = D <= 128;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   __nv_bfloat16* Ks = Qs + BQ16 * LD;                 // [STAGES16][BKV16][LD]
@@ -225,7 +262,7 @@ flash_fwd_bf16(Params p) {
   float o[NT_O][4];
 #pragma unroll
   for (int n = 0; n < NT_O; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
-  uint32_t qf[KSTEPS][4];
+  uint32_t qf[Q_IN_REGS ? KSTEPS : 1][4];
 
   // ldmatrix lane offsets (elements) within a 16-row slab: K as the
   // non-transposed B operand (matrices: keys 0-7/d 0-7, keys 0-7/d 8-15,
@@ -250,15 +287,11 @@ flash_fwd_bf16(Params p) {
       cp_async_wait<0>();
     }
     __syncthreads();
-    if (kt == t0) {                // Q's A fragments, once
-      const __nv_bfloat16* r0 = Qs + (warp * 16 + g) * LD + 2 * t;
-      const __nv_bfloat16* r1 = r0 + 8 * LD;
+    if constexpr (Q_IN_REGS) {
+      if (kt == t0) {              // Q's A fragments, once
 #pragma unroll
-      for (int kk = 0; kk < KSTEPS; ++kk) {
-        qf[kk][0] = *reinterpret_cast<const uint32_t*>(r0 + kk * 16);
-        qf[kk][1] = *reinterpret_cast<const uint32_t*>(r1 + kk * 16);
-        qf[kk][2] = *reinterpret_cast<const uint32_t*>(r0 + kk * 16 + 8);
-        qf[kk][3] = *reinterpret_cast<const uint32_t*>(r1 + kk * 16 + 8);
+        for (int kk = 0; kk < KSTEPS; ++kk)
+          load_q_frag<LD>(qf[kk], Qs, warp, g, t, kk);
       }
     }
     const __nv_bfloat16* Kst = Ks + stage * BKV16 * LD;
@@ -271,12 +304,21 @@ flash_fwd_bf16(Params p) {
     for (int j = 0; j < NT_S; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
 #pragma unroll
     for (int kk = 0; kk < KSTEPS; ++kk) {
+      uint32_t qa[4];
+      if constexpr (Q_IN_REGS) {
+        qa[0] = qf[kk][0];
+        qa[1] = qf[kk][1];
+        qa[2] = qf[kk][2];
+        qa[3] = qf[kk][3];
+      } else {
+        load_q_frag<LD>(qa, Qs, warp, g, t, kk);
+      }
 #pragma unroll
       for (int j = 0; j < NT_S; j += 2) {
         uint32_t bk[4];
         ldmatrix_x4(bk, smem_addr(Kst + j * 8 * LD + kk * 16 + k_lane));
-        mma_bf16(s[j], qf[kk], bk[0], bk[1]);
-        mma_bf16(s[j + 1], qf[kk], bk[2], bk[3]);
+        mma_bf16(s[j], qa, bk[0], bk[1]);
+        mma_bf16(s[j + 1], qa, bk[2], bk[3]);
       }
     }
 
@@ -549,6 +591,7 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
     case 32: err = dispatch<32>(p, B, bf16, stream); break;
     case 64: err = dispatch<64>(p, B, bf16, stream); break;
     case 128: err = dispatch<128>(p, B, bf16, stream); break;
+    case 256: err = dispatch<256>(p, B, bf16, stream); break;
     default: err = cudaErrorInvalidValue;
   }
   return (int)err;

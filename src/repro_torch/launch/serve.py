@@ -1,17 +1,22 @@
 """Serving launcher for the LM substrate: batched prefill + greedy decode
-over the KV cache. The port of ``repro/launch/serve.py`` for the dense
-decoder family; the embedding-input (``frontend_stub``) and
+over the KV cache. The port of ``repro/launch/serve.py`` for the dense and
+hybrid decoder families; the embedding-input (``frontend_stub``) and
 encoder-decoder branches are refused until their slices.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b \\
+      --batch 4 --prompt-len 512 --gen 32
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-2b \\
       --batch 4 --prompt-len 512 --gen 32
   PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b --reduced \\
       --device cpu
 
 Prefill writes the prompt into the cache and attends through the plain
-core with the cache's valid length (as the reference does), so it
+core with the cache's valid length (or, for RecurrentGemma's windowed
+layers, the ring cache's slot positions), as the reference does, so it
 launches no ``flash_attention``; the kernel runs on the cache-less
-full-sequence forward.
+full-sequence forward. A hybrid model's prefill runs each RG-LRU layer's
+recurrence through ``linear_scan`` once (the state folded in as step 0);
+its decode steps take the RG-LRU's single-step path and launch no kernel.
 
 ``main`` returns its numbers: prefill seconds, decode seconds and tokens
 per second (the ``gen - 1`` decode steps' tokens over their time; the

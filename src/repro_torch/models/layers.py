@@ -1,15 +1,17 @@
-"""Transformer building blocks for the dense decoder family: norms, RoPE,
-the attention cores and their dispatch, GQA attention with a linear KV
-cache, and the MLPs. The port of the part of ``repro/models/layers.py``
-that the dense decoders (GQA/MQA, optional QKV bias and qk_norm) run.
+"""Transformer building blocks for the dense and hybrid decoder families:
+norms, RoPE, the attention cores and their dispatch, GQA attention with a
+linear KV cache or, for windowed layers, a ring cache, and the MLPs. The
+port of the part of ``repro/models/layers.py`` that the dense decoders
+(GQA/MQA, optional QKV bias and qk_norm) and RecurrentGemma's local
+attention run.
 
 Plain functions over parameter dicts, as in the reference, so the two
 parameter trees compare leaf for leaf. Mixed dtypes promote as in JAX:
 bf16 x f32 tensors compute in f32, Python scalars take the tensor's dtype.
 
-Left for later slices: the ring cache of ``attn_local`` (hybrid slice),
-M-RoPE (VLM slice), MLA and MoE, and the int8 weight-only branch of
-``apply_dense`` (reached only through ``quantize_params_int8``).
+Left for later slices: M-RoPE (VLM slice), MLA and MoE, and the int8
+weight-only branch of ``apply_dense`` (reached only through
+``quantize_params_int8``).
 """
 
 from __future__ import annotations
@@ -259,13 +261,37 @@ def gqa_init(gen, cfg, dtype, device) -> Params:
     return p
 
 
+def _ring_write(buf: torch.Tensor, x: torch.Tensor, start: int,
+                dim: int) -> None:
+    """Write x into buf along ``dim`` at slots start, start + 1, ...
+    modulo buf's length there, in place: at most two slice copies, with
+    host-int bounds (no index tensor, nothing read back from the card)."""
+    size, n = buf.shape[dim], x.shape[dim]
+    s0 = start % size
+    n1 = min(n, size - s0)
+    buf.narrow(dim, s0, n1).copy_(x.narrow(dim, 0, n1))
+    if n > n1:
+        buf.narrow(dim, 0, n - n1).copy_(x.narrow(dim, n1, n - n1))
+
+
 def gqa_apply(p: Params, cfg, x, positions, *, cache: Params | None = None,
               window: int = 0, causal: bool = True):
-    """Returns (out [B,S,D], new_cache). cache = {"k", "v", "idx"}, a
-    linear cache: this call's keys and values are written into its
-    tensors in place at [idx, idx + S), and the returned cache holds the
-    same tensors with idx + S (a host int, so a decode step never waits
-    on the card to learn it)."""
+    """Returns (out [B,S,D], new_cache).
+
+    cache = {"k", "v", "idx"}, a linear cache: this call's keys and values
+    are written into its tensors in place at [idx, idx + S), and the
+    returned cache holds the same tensors with idx + S (a host int, so a
+    decode step never waits on the card to learn it).
+
+    With a window and a cache no longer than it, the cache is a ring,
+    {"k", "v", "slot_pos", "idx"}: it holds the last ``size`` keys, each in
+    slot position % size, and ``slot_pos`` (an int32 tensor on the cache's
+    device) the absolute position of each slot's key, -1e9 while empty;
+    the causal and window masks read it. Keys, values and slot_pos are
+    written in place. A prefill longer than the ring (S > size) keeps only
+    its last ``size`` keys, as the reference does: its earlier queries then
+    find no valid key and average all values (a fault of the reference,
+    ROADMAP C, which the port reproduces)."""
     B, S, D = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     G = H // KV
@@ -283,12 +309,25 @@ def gqa_apply(p: Params, cfg, x, positions, *, cache: Params | None = None,
     kv_len = None
     q_offset = 0
     if cache is not None:
-        if window > 0 and cache["k"].shape[1] <= window:
-            raise NotImplementedError("the ring cache of windowed layers "
-                                      "comes with the hybrid slice "
-                                      "(ROADMAP A)")
         idx = int(cache["idx"])
         size = cache["k"].shape[1]
+        if window > 0 and size <= window:
+            # RoPE is applied before caching, so slot order is irrelevant.
+            if S > size:
+                k, v = k[:, -size:], v[:, -size:]
+            s_eff = min(S, size)
+            start = idx + (S - s_eff)
+            _ring_write(cache["k"], k.to(cache["k"].dtype), start, 1)
+            _ring_write(cache["v"], v.to(cache["v"].dtype), start, 1)
+            _ring_write(cache["slot_pos"], torch.arange(
+                start, start + s_eff, dtype=cache["slot_pos"].dtype,
+                device=cache["slot_pos"].device), start, 0)
+            new_cache = {"k": cache["k"], "v": cache["v"], "idx": idx + S,
+                         "slot_pos": cache["slot_pos"]}
+            out = sdpa(q, cache["k"], cache["v"], causal=causal,
+                       window=window, q_offset=idx, kpos=cache["slot_pos"])
+            out = out.reshape(B, S, H * hd)
+            return apply_dense(p["wo"], out), new_cache
         if idx + S > size:
             raise ValueError(f"cache of {size} positions cannot take {S} "
                              f"more at {idx}")

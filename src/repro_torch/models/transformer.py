@@ -1,14 +1,16 @@
-"""Model assembly for the dense decoder family, the port of the part of
-``repro/models/transformer.py`` that it runs: layer kinds, segments,
-parameter and cache init, the forward and the parameter count.
+"""Model assembly for the dense and hybrid decoder families, the port of
+the part of ``repro/models/transformer.py`` that they run: layer kinds,
+segments, parameter and cache init, the forward and the parameter count.
 
 The reference stacks each segment's layers on a leading axis and scans
 them; the port keeps one parameter dict per layer in a list per segment
 (``params["seg0"][i]``) and loops. ``params_from_numpy`` carries the
 reference's stacked tree across.
 
-Families other than ``dense`` (MoE, MLA, encoder-decoder, the hybrid
-recurrent and RWKV blocks, the VLM's M-RoPE frontend) load as configs but
+Layer kinds: ``attn`` (GQA with a linear cache), ``attn_local`` (windowed
+GQA with a ring cache) and ``rglru`` (the RG-LRU recurrent block, whose
+cache is its state). Families other than ``dense`` and ``hybrid`` (MoE,
+MLA, encoder-decoder, RWKV, the VLM's M-RoPE frontend) load as configs but
 are refused here with ``NotImplementedError``: they come with later
 slices (ROADMAP A).
 """
@@ -24,10 +26,12 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models import recurrent as R
 
 Params = dict[str, Any]
 
-PORTED_KINDS = ("attn",)
+PORTED_KINDS = ("attn", "attn_local", "rglru")
+PORTED_FAMILIES = ("dense", "hybrid")
 
 
 def _device(device) -> torch.device:
@@ -45,13 +49,13 @@ def check_ported(cfg: ModelConfig) -> None:
     """Refuse a configuration this slice does not run, naming the slice
     that brings it."""
     unported = sorted(set(cfg.layer_kinds()) - set(PORTED_KINDS))
-    if cfg.family != "dense" or unported or cfg.mrope or cfg.frontend_stub \
-            or cfg.n_enc_layers:
+    if cfg.family not in PORTED_FAMILIES or unported or cfg.mrope \
+            or cfg.frontend_stub or cfg.n_enc_layers:
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} (layer kinds "
-            f"{sorted(set(cfg.layer_kinds()))}) is not ported yet; only the "
-            f"dense decoder family runs in this slice. The hybrid family "
-            f"comes next, then MoE/MLA, enc-dec, VLM and RWKV (ROADMAP A)")
+            f"{sorted(set(cfg.layer_kinds()))}) is not ported yet; the "
+            f"dense and hybrid decoder families run. MoE/MLA, enc-dec, VLM "
+            f"and RWKV come with later slices (ROADMAP A)")
 
 
 # ---------------------------------------------------------------------------
@@ -85,34 +89,52 @@ def segments(cfg: ModelConfig) -> list[Segment]:
 
 
 def _layer_init(kind: str, cfg: ModelConfig, gen, dtype, device) -> Params:
-    if kind != "attn":
+    if kind not in PORTED_KINDS:
         raise NotImplementedError(f"layer kind {kind!r} is not ported yet")
     d = cfg.d_model
-    return {"ln1": L.rms_norm_init(d, dtype, device),
-            "ln2": L.rms_norm_init(d, dtype, device),
-            "attn": L.gqa_init(gen, cfg, dtype, device),
-            "mlp": L.mlp_init(gen, d, cfg.d_ff, cfg.mlp_kind, dtype, device)}
+    p: Params = {"ln1": L.rms_norm_init(d, dtype, device),
+                 "ln2": L.rms_norm_init(d, dtype, device)}
+    if kind == "rglru":
+        p["rec"] = R.rglru_block_init(gen, cfg, dtype, device)
+    else:
+        p["attn"] = L.gqa_init(gen, cfg, dtype, device)
+    p["mlp"] = L.mlp_init(gen, d, cfg.d_ff, cfg.mlp_kind, dtype, device)
+    return p
 
 
 def _layer_cache(kind: str, cfg: ModelConfig, batch: int, max_len: int,
                  dtype, device) -> Params:
-    if kind != "attn":
-        raise NotImplementedError(f"layer kind {kind!r} is not ported yet")
     KV, hd = cfg.n_kv_heads, cfg.head_dim
-    return {"k": torch.zeros((batch, max_len, KV, hd), dtype=dtype,
-                             device=device),
-            "v": torch.zeros((batch, max_len, KV, hd), dtype=dtype,
-                             device=device),
-            "idx": 0}
+    if kind == "attn":
+        size = max_len
+    elif kind == "attn_local":
+        size = min(cfg.window or max_len, max_len)
+    elif kind == "rglru":
+        return R.rglru_state_init(cfg, batch, dtype, device)
+    else:
+        raise NotImplementedError(f"layer kind {kind!r} is not ported yet")
+    c = {"k": torch.zeros((batch, size, KV, hd), dtype=dtype, device=device),
+         "v": torch.zeros((batch, size, KV, hd), dtype=dtype, device=device),
+         "idx": 0}
+    if kind == "attn_local":
+        c["slot_pos"] = torch.full((size,), -(10 ** 9), dtype=torch.int32,
+                                   device=device)
+    return c
 
 
 def _layer_apply(kind: str, p: Params, cfg: ModelConfig, x, positions,
                  cache: Params | None):
     """Pre-norm residual block. Returns (x, new_cache)."""
-    if kind != "attn":
+    if kind not in PORTED_KINDS:
         raise NotImplementedError(f"layer kind {kind!r} is not ported yet")
-    h, new_cache = L.gqa_apply(p["attn"], cfg, L.rms_norm(p["ln1"], x),
-                               positions, cache=cache)
+    if kind == "rglru":
+        h, st = R.rglru_block_apply(p["rec"], cfg, L.rms_norm(p["ln1"], x),
+                                    state=cache)
+        new_cache = st if cache is not None else None
+    else:
+        h, new_cache = L.gqa_apply(
+            p["attn"], cfg, L.rms_norm(p["ln1"], x), positions, cache=cache,
+            window=cfg.window if kind == "attn_local" else 0)
     x = x + h
     h = L.mlp_apply(p["mlp"], L.rms_norm(p["ln2"], x), cfg.mlp_kind)
     return x + h, new_cache
@@ -209,9 +231,10 @@ def forward(params: Params, cfg: ModelConfig, batch: dict,
             cache: Params | None = None):
     """Returns (logits [B,S,V], new_cache, aux_loss).
 
-    batch: {"tokens" [B,S]}. With a cache, this call's keys and values are
-    written into the cache's tensors in place, and the returned cache
-    shares them with the one passed in.
+    batch: {"tokens" [B,S]}. With a cache, the attention layers' keys and
+    values (and a ring's slot positions) are written into the cache's
+    tensors in place, and the returned cache shares them with the one
+    passed in; an RG-LRU layer's state comes back as new tensors.
     """
     check_ported(cfg)
     if "tokens" not in batch:

@@ -1,9 +1,9 @@
 """The Hopper kernels on the card, against their plain versions on the
-same CUDA tensors: ``gemm_int8`` bit for bit, ``flash_attention`` within
-the reference's tolerances (2e-5 in float32, 3e-2 in bfloat16, as
-``tests/test_kernels.py`` states them). The CUDA kernels have no CPU mode,
-so these tests are marked ``cuda`` and skip without a GPU; on a machine
-with one (and ``nvcc``) run them with
+same CUDA tensors: ``gemm_int8`` bit for bit, ``flash_attention`` and
+``linear_scan`` within the reference's tolerances (2e-5 in float32, 3e-2
+in bfloat16, as ``tests/test_kernels.py`` states them). The CUDA kernels
+have no CPU mode, so these tests are marked ``cuda`` and skip without a
+GPU; on a machine with one (and ``nvcc``) run them with
 
     python -m pytest -m cuda tests/test_torch_cuda.py
 
@@ -16,6 +16,8 @@ from repro_torch.kernels.conv2d_int8 import ops, ref
 from repro_torch.kernels.conv2d_int8.kernel import gemm_int8
 from repro_torch.kernels.flash_attention.kernel import flash_attention
 from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.rglru_scan.kernel import linear_scan
+from repro_torch.kernels.rglru_scan.ref import linear_scan_ref
 
 pytestmark = pytest.mark.cuda
 
@@ -93,6 +95,9 @@ ATTN_CASES = [
     (1, 77, 77, 4, 4, 16, False, 16),
     (1, 300, 300, 8, 1, 128, True, 100),
     (2, 130, 130, 4, 2, 128, False, 0),
+    (2, 200, 200, 10, 1, 256, True, 64),
+    (1, 300, 300, 10, 1, 256, True, 128),
+    (1, 96, 160, 2, 1, 256, False, 0),
 ]
 
 
@@ -136,3 +141,53 @@ def test_flash_attention_refuses_what_it_cannot_take(gen):
     q = torch.randn((1, 64, 2, 64), generator=gen, device="cuda")
     with pytest.raises(ValueError, match="float32 or all bfloat16"):
         flash_attention(q.half(), q.half(), q.half())
+
+
+# linear_scan: the reference test's shapes, a ragged S, S + 1 (the RG-LRU's
+# h0 fold), and a long sequence with a in (0.99, 0.9999), where h grows to
+# about 50 over 4096 steps (a fused multiply-add drifted beyond 2e-5 from
+# the plain version's two roundings a step there; the kernel rounds as
+# the plain version does).
+SCAN_CASES = [(1, 64, 8, 0.7, 0.999), (2, 128, 32, 0.7, 0.999),
+              (3, 96, 16, 0.7, 0.999), (1, 256, 128, 0.7, 0.999),
+              (2, 77, 100, 0.7, 0.999), (2, 4097, 256, 0.7, 0.999),
+              (1, 4096, 512, 0.99, 0.9999)]
+
+
+@pytest.mark.parametrize("B,S,D,lo,hi", SCAN_CASES)
+def test_linear_scan_matches_plain_version(gen, B, S, D, lo, hi):
+    a = torch.rand((B, S, D), generator=gen, device="cuda") * (hi - lo) + lo
+    b = torch.randn((B, S, D), generator=gen, device="cuda")
+    before = linear_scan.launches
+    got = linear_scan(a, b)
+    want = linear_scan_ref(a, b)
+    torch.cuda.synchronize()
+    assert linear_scan.launches == before + 1
+    assert got.dtype == torch.float32 and got.shape == (B, S, D)
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+
+
+def test_linear_scan_bf16_operands(gen):
+    """bf16 a and b are widened to fp32; the output takes b's dtype."""
+    a = (torch.rand((2, 100, 64), generator=gen, device="cuda") * 0.3
+         + 0.7).to(torch.bfloat16)
+    b = torch.randn((2, 100, 64), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    got = linear_scan(a, b)
+    want = linear_scan_ref(a, b)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16
+    torch.testing.assert_close(got.float(), want, rtol=1e-2, atol=1e-2)
+    got = linear_scan(a, b.float())
+    assert got.dtype == torch.float32
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+
+
+def test_linear_scan_refuses_what_it_cannot_take(gen):
+    a = torch.rand((2, 8, 16), generator=gen, device="cuda")
+    with pytest.raises(ValueError, match="contiguous"):
+        linear_scan(a.transpose(1, 2), a.transpose(1, 2))
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        linear_scan(a.half(), a.half())
+    with pytest.raises(ValueError, match="several devices"):
+        linear_scan(a, a.cpu())

@@ -123,3 +123,30 @@ def test_wrapper_validates_before_dispatch():
     assert flash_attention.launches == before
     torch.testing.assert_close(flash_attention(q, k, v),
                                ref_t.attention_ref(q, k, v))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("S,window", [(128, 32), (256, 64)])
+def test_head_dim_256_mqa_window(S, window, dtype):
+    """RecurrentGemma-2B's local attention, small: head dim 256, 10 query
+    heads on one key/value head, causal with a window shorter than S;
+    against the reference kernel (interpret mode, on K/V repeated to the
+    query heads, as its ``_sdpa_pallas`` calls it) and ``attention_ref``
+    in float32."""
+    H = 10
+    q, k, v = _qkv(23 + S, 1, S, S, H, 1, 256)
+    tdt, jdt = getattr(torch, dtype), getattr(jnp, dtype)
+    got = attention_t(*_t(q, k, v, dtype=tdt), causal=True, window=window)
+    assert got.dtype == tdt and got.shape == (1, S, H, 256)
+    qj, kj, vj = _j(q, np.repeat(k, H, 2), np.repeat(v, H, 2), dtype=jdt)
+    kernel_j = attention_j(qj, kj, vj, causal=True, window=window,
+                           interpret=True)
+    want = ref_j.attention_ref(qj.astype(jnp.float32),
+                               kj.astype(jnp.float32),
+                               vj.astype(jnp.float32), causal=True,
+                               window=window)
+    tol = 2e-5 if dtype == "float32" else 3e-2
+    for ref in (want, kernel_j):
+        np.testing.assert_allclose(got.float().numpy(),
+                                   np.asarray(ref, np.float32), rtol=tol,
+                                   atol=tol)
