@@ -4,9 +4,11 @@ with ``ctypes``.
 Each ``csrc/*.cu`` file holds plain ``extern "C"`` entry points and no
 PyTorch headers, so it compiles in seconds. It is compiled for Hopper
 (``sm_90a``) into ``build/kernels/<stem>-<hash>.so`` at the root of the
-checkout; the hash covers the source and the flags, so an edited source
-rebuilds and an unchanged one is loaded from the cache. A failed build
-raises with ``nvcc``'s own error output. Nothing here runs at import.
+checkout; the hash covers every file under the source's ``csrc/``
+directory (the source and any header beside it) and the flags, so an
+edited source, header or flag rebuilds and an unchanged one is loaded
+from the cache. A failed build raises with ``nvcc``'s own error output.
+Nothing here runs at import.
 """
 
 from __future__ import annotations
@@ -35,13 +37,23 @@ def _nvcc() -> str:
                        "or set CUDA_HOME")
 
 
+def library_path(source: Path) -> Path:
+    """Where the library built from ``source`` lives: named by a hash of
+    every file under the source's directory and of the flags."""
+    source = Path(source).resolve()
+    h = hashlib.sha256()
+    for f in sorted(p for p in source.parent.rglob("*") if p.is_file()):
+        h.update(f.relative_to(source.parent).as_posix().encode() + b"\0")
+        h.update(f.read_bytes() + b"\0")
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{source.stem}-{h.hexdigest()[:16]}.so"
+
+
 def load(source: Path) -> ctypes.CDLL:
     """The shared library built from ``source``, compiling it first if the
     cache does not hold it yet."""
     source = Path(source).resolve()
-    digest = hashlib.sha256(source.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    lib = BUILD_DIR / f"{source.stem}-{digest[:16]}.so"
+    lib = library_path(source)
     if not lib.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = lib.with_suffix(f".{os.getpid()}.tmp")

@@ -3,79 +3,103 @@
 // library with a plain C entry point, loaded with ctypes.
 //
 // Replaces the TPU kernel repro/kernels/flash_attention/kernel.py::
-// flash_attention (Pallas body `_kernel`): out[b, i, h] = softmax over the
-// keys j of (q[b, i, h] . k[b, j, h'] / sqrt(d), masked) times v[b, j, h'],
-// with an online softmax whose running max m, denominator l and accumulator
-// stay in fp32. Causal (kpos <= qpos) and sliding-window
-// (kpos > qpos - window) masks; query i sits at qpos = i + Skv - Sq.
-// Grouped-query attention reads key/value head h' = h / (H / KV) in place:
-// the same function as the reference's jnp.repeat of K/V over the heads,
-// without materialising the repeat.
+// flash_attention (Pallas body `_kernel`, pallas_call at :80): out[b, i, h]
+// = softmax over the keys j of (q[b, i, h] . k[b, j, h'] / sqrt(d),
+// masked) times v[b, j, h'], with an online softmax whose running max m,
+// denominator l and accumulator stay in fp32. Causal (kpos <= qpos) and
+// sliding-window (kpos > qpos - window) masks; query i sits at qpos = i +
+// Skv - Sq. Grouped-query attention reads key/value head h' = h / (H / KV)
+// in place: the same function as the reference's jnp.repeat of K/V over
+// the heads, without materialising the repeat.
 //
 // Numerics, in the reference's order: logits = fp32 dot * (1/sqrt(d));
-// masked logits = -1e30 and m starts at -1e30; p = expf(logits - m_new),
-// corr = expf(m_prev - m_new), l = l * corr + sum(p); p is cast to v's
+// masked logits = -1e30 and m starts at -1e30; p = exp(logits - m_new),
+// corr = exp(m_prev - m_new), l = l * corr + sum(p); p is cast to v's
 // dtype before the PV product; out = acc / max(l, 1e-30), cast to q's
 // dtype. Keys past Skv (the ragged last tile) are not masked but absent:
 // their logit is -inf, so p = 0 exactly. A key tile that the causal or
 // window mask covers whole is skipped: had it run first, its p = 1 terms
-// would be wiped by corr = expf(-1e30 - m) = 0 once the row's first valid
-// key arrives (the diagonal always is one); had it run later, its p would
-// be 0. The one case where a row has no valid key at all (causal with
-// Sq > Skv, qpos < 0) is the case where a block skips nothing: such a row
-// then averages every value, as the reference's does.
+// would be wiped by corr = exp(-1e30 - m) = 0 once the row's first valid
+// key arrives; had it run later, its p would be 0. The one case where a
+// row has no valid key at all (causal with Sq > Skv, qpos < 0) is the case
+// where a block skips nothing: such a row then averages every value, as
+// the reference's does. The wgmma kernel keeps the logits in log2 units
+// (scaled by log2(e) / sqrt(d), -1e30 and -inf as they are) and takes
+// exp2, which is the same function up to fp32 rounding.
 //
 // Layout: q/k/v/o are [B, S, H, d] with d contiguous, read through their
 // batch/sequence/head strides (no transposes on the host). Each block takes
 // one (batch, head, query tile); the loop over key tiles runs inside it.
 //
-// Two kernels, each for head dims 16, 32, 64, 128 and 256:
-//   * bf16: 4 warps, 64 query rows (16 a warp), 64-key tiles. QK^T and PV
-//     are mma.sync m16n8k16 bf16 products with fp32 accumulation. K/V tiles
-//     come in by cp.async into a two-stage ring in shared memory, the next
-//     tile loading while the products run on this one. Up to d 128, Q's
-//     fragments stay in registers for the whole loop; K's and V's come from
-//     shared memory by ldmatrix (V's transposed by ldmatrix.trans, so V is
-//     staged row-major as it lies in memory); S = QK^T stays in registers
-//     and is repacked in place as the A operand of PV (the C and A fragment
-//     layouts line up); the output accumulator (16 x d a warp) stays in
-//     registers. Shared rows are padded by 16 bytes, so the 8-row ldmatrix
-//     reads are free of bank conflicts.
-//   * fp32: plain fp32 FMA (no TF32: the reference's tests hold fp32 to
-//     2e-5), 32 query rows x 32-key tiles, 4 threads a row.
-//
-// Head dim 256 (RecurrentGemma-2B's local attention: 10 query heads on one
-// KV head, window 2048). In bf16 a thread would hold 128 fp32 accumulator
-// words, 64 words of Q fragments and 32 of S, about 224 of the 255
-// registers a thread may have before any address: ptxas would spill. So at
-// d 256 Q's fragments are not kept in registers but read from the Q tile,
-// which sits in shared memory for the whole loop anyway, at every k-step
-// of QK^T (four 32-bit loads, free of bank conflicts: the 8 rows of a
-// fragment are 528 bytes apart, 4 banks). The key tile stays at 64 and the
-// block's shared memory is (64 + 2 stages x 2 x 64) rows x 264 x 2 bytes =
-// 168,960 bytes, under the 232,448 a block may opt into; one block an SM.
-// The fp32 kernel needs 102,784 bytes at d 256 and keeps 64 accumulator
-// words a thread. `chip_smoke.py` reports ptxas's registers and spill
-// bytes for every instantiation.
-//
 // What bounds it on the H100 at the Yi-6B shape (B 2, S 2048, H 32, KV 4,
 // d 128, bf16, causal): 6.9e10 multiply-adds x 2 against 75 MB of q/k/v/o,
-// so the tensor cores' bf16 rate, not memory, is the limit. At the
-// RecurrentGemma-2B shape (B 2, S 4096, H 10, KV 1, d 256, causal, window
-// 2048) each (b, h) computes 6,292,480 query-key pairs: 1.29e11 FLOP,
-// 0.130 ms at 989 TFLOP/s, again the tensor cores' rate. Tiles below the
-// window's edge are skipped and tiles crossing it masked, so a block visits
-// at most 33 key tiles. This kernel stays below that rate: mma.sync rather
-// than wgmma (whose asynchronous 64-row products are the only way to the
-// card's full rate), the softmax's exponentials and rescaling on the CUDA
-// cores in the same warps as the products (nothing overlaps them), and
-// 64-row query tiles that read each K/V tile once per 64 queries. A later
-// design: TMA loads of K/V tiles into a deeper ring with mbarriers, wgmma
-// for QK^T and PV, a producer warp and two consumer warpgroups that take
-// turns between softmax and products (warp specialisation), and 128-row
-// query tiles; at d 256 the accumulator then has to be split across two
-// consumer warpgroups by output columns.
+// so the tensor cores' bf16 rate (989 TFLOP/s), not memory, is the limit:
+// 0.07 ms. At the RecurrentGemma-2B shape (B 2, S 4096, H 10, KV 1, d 256,
+// causal, window 2048) each (b, h) computes 6,292,480 query-key pairs:
+// 1.29e11 FLOP, 0.130 ms, again the tensor cores' rate.
+//
+// Three kernels:
+//   * bf16 at d 64, 128 and 256, the head dims the configs use
+//     (`flash_fwd_wgmma`). Only `wgmma` reaches the tensor cores' full
+//     rate, and it wants its operands in shared memory in the layout TMA
+//     writes, fed by loads that no compute thread issues. So a block of
+//     three warpgroups takes a 128-row query tile:
+//       - one producer thread loads Q once and the K/V tiles by TMA
+//         (4-D tensor maps over the [B, S, H, d] views, encoded on the
+//         host at each launch; rows are 64-column boxes of 128 bytes,
+//         128-byte swizzled, 2 boxes a row at d 128 and 4 at d 256;
+//         rows past S arrive as zeros) into a two-stage ring whose
+//         full/empty mbarriers let the loads of the next tiles run under
+//         the products on this one; its warpgroup gives up registers
+//         (setmaxnreg.dec);
+//       - two consumer warpgroups (setmaxnreg.inc) take 64 query rows
+//         each and read each K/V tile from the ring once for 128 queries:
+//         S = Q K^T by wgmma with both operands in shared memory, K-major
+//         as stored; the online softmax in registers (the accumulator's
+//         rows are 16 warp + lane / 4 and + 8, so the row max and sum are
+//         quad shuffles as with mma.sync); P cast to bf16 in registers as
+//         wgmma's A operand (the accumulator and A fragment layouts line
+//         up); O += P V by wgmma with V read as it lies in memory,
+//         [keys][d], MN-major through the transpose bit, one 64-column
+//         box per product; O stays in registers (128 words a thread at
+//         d 256, so the key tile is 64 there and 128 below). Shared
+//         memory: Q 64 KB + 2 stages x (K + V) 64 KB = 192 KB at d 256.
+//       - The products run under the softmax twice over. Within a
+//         warpgroup, QK^T of key tile j goes out together with PV of
+//         tile j - 1, so the softmax of tile j runs while PV of j - 1 is
+//         on the tensor cores (S, P and O live at once: 64 + 32 + 64
+//         registers at d 128, 32 + 16 + 128 at d 256). Between the two
+//         warpgroups, named barriers make them take turns issuing, so
+//         one's softmax runs under the other's products. Registers that
+//         an asynchronous product reads or writes are pinned before
+//         wgmma.fence and after the wait, so ptxas never serialises the
+//         products (it reports it when it does).
+//     Query tiles run heaviest first: the grid is (H, B, query tile) with
+//     the tile index reversed, so the causal tiles with the most keys
+//     start in the first wave and the short ones fill the tail. Key tiles
+//     run from the last to the first, so the tiles the diagonal cuts come
+//     first.
+//   * bf16 at d 16 and 32 (`flash_fwd_bf16`): 4 warps, 64 query rows,
+//     64-key tiles, mma.sync m16n8k16 with fp32 accumulation, K/V by
+//     cp.async into a two-stage ring, fragments by ldmatrix (V's by
+//     ldmatrix.trans), S repacked in registers as PV's A operand. A row
+//     of 16 or 32 bf16 is narrower than the 128-byte TMA box and swizzle
+//     the wgmma kernel is built on; no config uses these head dims.
+//   * fp32 at every head dim (`flash_fwd_f32`): plain FMA (no TF32: the
+//     reference's tests hold fp32 to 2e-5), 32 query rows x 32-key tiles,
+//     4 threads a row.
+// Tiles wholly outside the causal/window band are skipped, as `key_tiles`
+// says; only the tiles that cross the diagonal, the window's edge or the
+// ragged end are masked element by element.
+//
+// What remains: O is stored from registers rather than through shared
+// memory and TMA; there is no persistent scheduler (one block a query
+// tile, one block an SM, so the last wave of a causal grid runs short
+// tiles on part of the card); no fp8; no backward (the reference has
+// none). `chip_smoke.py` reports ptxas's registers, spill bytes and
+// performance notes for every instantiation.
 
+#include <cuda.h>          // CUtensorMap and its enums (header only)
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -93,7 +117,8 @@ struct Params {
   long long qs[3], ks[3], vs[3], os[3];  // element strides: batch, seq, head
   int Sq, Skv, H, group;                 // group = H / KV
   int causal, window;
-  float scale;
+  float scale;                           // 1 / sqrt(d)
+  float scale_log2;                      // log2(e) / sqrt(d)
 };
 
 // The key range [lo, hi) a query tile [q0, q0 + rows) must visit, cut to
@@ -124,7 +149,7 @@ __device__ __forceinline__ float masked_logit(const Params& p, float dot,
 }
 
 // ---------------------------------------------------------------------------
-// bf16: mma.sync m16n8k16
+// bf16 at d 16 and 32: mma.sync m16n8k16
 // ---------------------------------------------------------------------------
 
 constexpr int BQ16 = 64;       // query rows per block
@@ -224,9 +249,6 @@ flash_fwd_bf16(Params p) {
   constexpr int KSTEPS = D / 16;         // k-steps of QK^T
   constexpr int NT_S = BKV16 / 8;        // n-tiles of S (8 keys each)
   constexpr int NT_O = D / 8;            // n-tiles of O (8 dims each)
-  // Q's fragments in registers for the whole loop up to d 128; at d 256
-  // they would spill, and come from the shared Q tile at every k-step.
-  constexpr bool Q_IN_REGS = D <= 128;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   __nv_bfloat16* Ks = Qs + BQ16 * LD;                 // [STAGES16][BKV16][LD]
@@ -262,7 +284,7 @@ flash_fwd_bf16(Params p) {
   float o[NT_O][4];
 #pragma unroll
   for (int n = 0; n < NT_O; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
-  uint32_t qf[Q_IN_REGS ? KSTEPS : 1][4];
+  uint32_t qf[KSTEPS][4];          // Q's A fragments, for the whole loop
 
   // ldmatrix lane offsets (elements) within a 16-row slab: K as the
   // non-transposed B operand (matrices: keys 0-7/d 0-7, keys 0-7/d 8-15,
@@ -287,12 +309,10 @@ flash_fwd_bf16(Params p) {
       cp_async_wait<0>();
     }
     __syncthreads();
-    if constexpr (Q_IN_REGS) {
-      if (kt == t0) {              // Q's A fragments, once
+    if (kt == t0) {                // Q's A fragments, once
 #pragma unroll
-        for (int kk = 0; kk < KSTEPS; ++kk)
-          load_q_frag<LD>(qf[kk], Qs, warp, g, t, kk);
-      }
+      for (int kk = 0; kk < KSTEPS; ++kk)
+        load_q_frag<LD>(qf[kk], Qs, warp, g, t, kk);
     }
     const __nv_bfloat16* Kst = Ks + stage * BKV16 * LD;
     const __nv_bfloat16* Vst = Vs + stage * BKV16 * LD;
@@ -304,21 +324,12 @@ flash_fwd_bf16(Params p) {
     for (int j = 0; j < NT_S; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
 #pragma unroll
     for (int kk = 0; kk < KSTEPS; ++kk) {
-      uint32_t qa[4];
-      if constexpr (Q_IN_REGS) {
-        qa[0] = qf[kk][0];
-        qa[1] = qf[kk][1];
-        qa[2] = qf[kk][2];
-        qa[3] = qf[kk][3];
-      } else {
-        load_q_frag<LD>(qa, Qs, warp, g, t, kk);
-      }
 #pragma unroll
       for (int j = 0; j < NT_S; j += 2) {
         uint32_t bk[4];
         ldmatrix_x4(bk, smem_addr(Kst + j * 8 * LD + kk * 16 + k_lane));
-        mma_bf16(s[j], qa, bk[0], bk[1]);
-        mma_bf16(s[j + 1], qa, bk[2], bk[3]);
+        mma_bf16(s[j], qf[kk], bk[0], bk[1]);
+        mma_bf16(s[j + 1], qf[kk], bk[2], bk[3]);
       }
     }
 
@@ -416,6 +427,7 @@ flash_fwd_bf16(Params p) {
           pack_bf16(o[n][2] * inv1, o[n][3] * inv1);
   }
 }
+
 
 // ---------------------------------------------------------------------------
 // fp32: plain FMA
@@ -534,30 +546,642 @@ flash_fwd_f32(Params p) {
   }
 }
 
+
+// ---------------------------------------------------------------------------
+// bf16 at d 64, 128, 256: TMA, mbarriers, wgmma, warp specialisation
+// ---------------------------------------------------------------------------
+
+constexpr int WG_BQ = 128;         // query rows per block: two warpgroups of 64
+constexpr int WG_THREADS = 384;    // consumer warpgroups 0 and 1, producer 2
+constexpr int BOX = 64;            // bf16 columns per TMA box: 128 bytes
+constexpr int PRODUCER_REGS = 24;   // 128 x 24 + 256 x 240 <= 65,536
+constexpr int CONSUMER_REGS = 240;
+
+// Keys per tile: 128 up to d 128; 64 at d 256, where the output
+// accumulator already takes 128 registers a thread. Two K/V stages: a
+// third (which fits up to d 128) ran no faster.
+template <int D> struct WgTile {
+  static constexpr int BKV = D == 256 ? 64 : 128;
+  static constexpr int STAGES = 2;
+  static constexpr int Q_BYTES = WG_BQ * D * 2;
+  static constexpr int KV_BYTES = BKV * D * 2;   // one K or V tile
+  static constexpr int SMEM = Q_BYTES + 2 * STAGES * KV_BYTES
+      + 16 * 8 + 1024;                           // barriers, alignment
+};
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(bar) : "memory");
+}
+
+// Returns once the phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// One TMA box [rows][64] of a [B, S, heads, d] tensor, at column c0, row
+// s0 of head h, batch b, into shared memory (128-byte swizzle); the
+// barrier counts its bytes.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int s0, int h,
+                                         int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0),
+         "r"(s0), "r"(h), "r"(b)
+      : "memory");
+}
+
+// A wgmma shared-memory descriptor for a 128-byte-swizzled tile whose
+// swizzle atoms (8 rows of 128 bytes, 1024-byte aligned) lie `sbo` bytes
+// apart along the 8-row direction and `lbo` bytes apart along the other.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  return (uint64_t)((addr & 0x3ffff) >> 4)
+      | ((uint64_t)(lbo >> 4) << 16)
+      | ((uint64_t)(sbo >> 4) << 32)
+      | (1ull << 62);                            // layout: 128-byte swizzle
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// Returns once at most N of this warpgroup's committed groups of products
+// are still running (they finish in order).
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+
+// The two consumer warpgroups' turns: 256 threads meet on barrier `id`
+// (0 is __syncthreads'); a warpgroup waits with sync and signals the
+// other with arrive.
+template <int ID>
+__device__ __forceinline__ void named_sync() {
+  asm volatile("bar.sync %0, 256;\n" :: "n"(ID) : "memory");
+}
+
+template <int ID>
+__device__ __forceinline__ void named_arrive() {
+  asm volatile("bar.arrive %0, 256;\n" :: "n"(ID) : "memory");
+}
+
+// Keeps the compiler from moving reads or writes of an accumulator
+// register across the asynchronous products around it.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j]) :: "memory");
+}
+
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// One logit after scaling to log2 units and masking (the -1e30 and -inf
+// stay as they are: exp2 of either minus the running max is what exp of
+// the unscaled one is).
+__device__ __forceinline__ float masked_logit2(const Params& p, float dot,
+                                               int qpos, int kpos) {
+  if (kpos >= p.Skv) return -INFINITY;  // past the ragged end: absent
+  if (p.causal && kpos > qpos) return MASKED;
+  if (p.window && kpos <= qpos - p.window) return MASKED;
+  return dot * p.scale_log2;
+}
+
+// D[64 x 64] (+)= A[64 x 16] B[16 x 64], A and B from shared memory
+// (descriptors), both K-major; scale_d 0 overwrites D.
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D[64 x 128] (+)= A[64 x 16] B[16 x 128], A and B from shared memory
+// (descriptors), both K-major; scale_d 0 overwrites D.
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D[64 x 64] += A[64 x 16] B[16 x 64], A from registers (the
+// mma.sync A fragment of each warp's 16 rows), B from shared memory,
+// MN-major (transposed).
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <int D>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
+                const __grid_constant__ CUtensorMap tk,
+                const __grid_constant__ CUtensorMap tv, Params p) {
+  using Tile = WgTile<D>;
+  constexpr int BKV = Tile::BKV;
+  constexpr int STAGES = Tile::STAGES;
+  constexpr int ATOMS = D / BOX;           // 64-column boxes per row
+  extern __shared__ unsigned char smem_raw[];
+  // Swizzle atoms must sit on 1024-byte boundaries.
+  const uint32_t base = (smem_addr(smem_raw) + 1023) & ~1023u;
+  const uint32_t Qs = base;
+  const uint32_t Ks = Qs + Tile::Q_BYTES;            // [stage]
+  const uint32_t Vs = Ks + STAGES * Tile::KV_BYTES;  // [stage]
+  const uint32_t bars = Vs + STAGES * Tile::KV_BYTES;
+  const uint32_t q_full = bars;
+  const uint32_t k_full = bars + 8, v_full = bars + 8 * (1 + STAGES);
+  const uint32_t k_empty = bars + 8 * (1 + 2 * STAGES);
+  const uint32_t v_empty = bars + 8 * (1 + 3 * STAGES);
+
+  // Heaviest causal query tiles first: the grid's slowest index runs the
+  // query tiles from the last to the first.
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * WG_BQ;
+  const int hk = h / p.group;
+  int t0, t1;
+  key_tiles(p, q0, WG_BQ, BKV, &t0, &t1);
+  const int n = t1 - t0;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(k_full + 8 * s, 1);
+      mbar_init(v_full + 8 * s, 1);
+      mbar_init(k_empty + 8 * s, 2 * 128);
+      mbar_init(v_empty + 8 * s, 2 * 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    // Producer: one thread issues every load; the warpgroup keeps few
+    // registers.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n"
+                 :: "n"(PRODUCER_REGS));
+    if (threadIdx.x == 256) {
+      mbar_expect(q_full, Tile::Q_BYTES);
+      for (int a = 0; a < ATOMS; ++a)
+        tma_load(Qs + a * WG_BQ * 128, &tq, q_full, a * BOX, q0, h, b);
+      // Key tiles from the last to the first: the tiles that the causal
+      // diagonal cuts come first.
+      for (int it = 0; it < n; ++it) {
+        const int kt = t1 - 1 - it, s = it % STAGES;
+        const uint32_t parity = ((it / STAGES) & 1) ^ 1;
+        mbar_wait(k_empty + 8 * s, parity);
+        mbar_expect(k_full + 8 * s, Tile::KV_BYTES);
+        for (int a = 0; a < ATOMS; ++a)
+          tma_load(Ks + s * Tile::KV_BYTES + a * BKV * 128, &tk,
+                   k_full + 8 * s, a * BOX, kt * BKV, hk, b);
+        mbar_wait(v_empty + 8 * s, parity);
+        mbar_expect(v_full + 8 * s, Tile::KV_BYTES);
+        for (int a = 0; a < ATOMS; ++a)
+          tma_load(Vs + s * Tile::KV_BYTES + a * BKV * 128, &tv,
+                   v_full + 8 * s, a * BOX, kt * BKV, hk, b);
+      }
+    }
+  } else {
+    // Consumer warpgroup wg: query rows q0 + 64 wg .. + 63. Thread tid
+    // holds rows 16 warp + g and + 8 of them (the wgmma accumulator
+    // layout), columns 8 j + 2 t, + 1 of every 8-column block j.
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n"
+                 :: "n"(CONSUMER_REGS));
+    const int tid = threadIdx.x % 128;
+    const int warp = tid / 32, lane = tid % 32;
+    const int g = lane / 4, t = lane % 4;
+    const int off = p.Skv - p.Sq;
+    const int qw = q0 + wg * 64;                   // this warpgroup's rows
+    const int qpos0 = qw + warp * 16 + g + off, qpos1 = qpos0 + 8;
+    float m0 = MASKED, m1 = MASKED, l0 = 0.f, l1 = 0.f;
+    float o[ATOMS][32];
+#pragma unroll
+    for (int a = 0; a < ATOMS; ++a)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) o[a][i] = 0.f;
+    float s[BKV / 2];
+#pragma unroll
+    for (int i = 0; i < BKV / 2; ++i) s[i] = 0.f;
+
+    uint32_t pa[BKV / 16][4];     // P (bf16) of the tile whose PV is next
+    float corr0 = 1.f, corr1 = 1.f;
+
+    // S = Q K^T of key tile `it`: both K-major in shared memory; a
+    // 16-column k-step moves 32 bytes inside a swizzle atom, four a box.
+    // Descriptors are a base plus a compile-time offset (in 16-byte units
+    // of the address field, which no offset here carries out of).
+    const uint64_t q_desc = smem_desc(Qs + wg * 64 * 128, 16, 1024);
+    auto issue_qk = [&](int it) {
+      const uint64_t k_desc = smem_desc(
+          Ks + (it % STAGES) * Tile::KV_BYTES, 16, 1024);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t col = (kk % 4) * 32;
+        const uint64_t da = q_desc + (((kk / 4) * WG_BQ * 128 + col) >> 4);
+        const uint64_t db = k_desc + (((kk / 4) * BKV * 128 + col) >> 4);
+        if constexpr (BKV == 128) wgmma_ss_n128(s, da, db, kk > 0);
+        else wgmma_ss_n64(s, da, db, kk > 0);
+      }
+      wgmma_commit();
+    };
+    // O += P V of key tile `it`: V as it lies in memory, [keys][d],
+    // MN-major through the transpose bit; a 16-key k-step is two swizzle
+    // atoms (2048 bytes), one 64-column box per product.
+    auto issue_pv = [&](int it) {
+      const uint64_t v_desc = smem_desc(
+          Vs + (it % STAGES) * Tile::KV_BYTES, BKV * 128, 1024);
+#pragma unroll
+      for (int kk = 0; kk < BKV / 16; ++kk)
+#pragma unroll
+        for (int a = 0; a < ATOMS; ++a)
+          wgmma_rs_n64(o[a], pa[kk],
+                       v_desc + ((a * BKV * 128 + kk * 2048) >> 4));
+      wgmma_commit();
+    };
+    // The online softmax of key tile `it`'s S, in place: the running max
+    // over the quad (the row's four threads), corr, l, and p left in s;
+    // m is in log2 units. A tile that crosses the causal diagonal, the
+    // window's edge or the ragged end is scaled and masked element by
+    // element first and takes p = exp2(s - m), so a row whose logits so
+    // far are all -1e30 gets p = exp2(0) = 1 exactly, as the reference's
+    // does. Any other tile holds only valid logits, so its row max is
+    // finite and p = exp2(s * scale - m) is one fused multiply-add.
+    auto softmax = [&](int it) {
+      const int k0 = (t1 - 1 - it) * BKV;
+      const bool need_mask = k0 + BKV > p.Skv
+          || (p.causal && k0 + BKV - 1 > qw + off)
+          || (p.window && k0 <= qw + 63 + off - p.window);
+      float mx0 = -INFINITY, mx1 = -INFINITY;
+      if (need_mask) {
+#pragma unroll
+        for (int j = 0; j < BKV / 8; ++j) {
+          const int kpos = k0 + j * 8 + 2 * t;
+          s[4 * j] = masked_logit2(p, s[4 * j], qpos0, kpos);
+          s[4 * j + 1] = masked_logit2(p, s[4 * j + 1], qpos0, kpos + 1);
+          s[4 * j + 2] = masked_logit2(p, s[4 * j + 2], qpos1, kpos);
+          s[4 * j + 3] = masked_logit2(p, s[4 * j + 3], qpos1, kpos + 1);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < BKV / 8; ++j) {
+        mx0 = fmaxf(mx0, fmaxf(s[4 * j], s[4 * j + 1]));
+        mx1 = fmaxf(mx1, fmaxf(s[4 * j + 2], s[4 * j + 3]));
+      }
+#pragma unroll
+      for (int sh = 1; sh <= 2; sh <<= 1) {
+        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, sh));
+        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, sh));
+      }
+      if (!need_mask) {            // the max of raw logits, scaled once
+        mx0 *= p.scale_log2;
+        mx1 *= p.scale_log2;
+      }
+      mx0 = fmaxf(m0, mx0);
+      mx1 = fmaxf(m1, mx1);
+      corr0 = fast_exp2(m0 - mx0);
+      corr1 = fast_exp2(m1 - mx1);
+      m0 = mx0;
+      m1 = mx1;
+      float sum0 = 0.f, sum1 = 0.f;
+      if (need_mask) {
+#pragma unroll
+        for (int j = 0; j < BKV / 8; ++j) {
+          s[4 * j] = fast_exp2(s[4 * j] - m0);
+          s[4 * j + 1] = fast_exp2(s[4 * j + 1] - m0);
+          s[4 * j + 2] = fast_exp2(s[4 * j + 2] - m1);
+          s[4 * j + 3] = fast_exp2(s[4 * j + 3] - m1);
+        }
+      } else {
+        const float sc = p.scale_log2;
+#pragma unroll
+        for (int j = 0; j < BKV / 8; ++j) {
+          s[4 * j] = fast_exp2(fmaf(s[4 * j], sc, -m0));
+          s[4 * j + 1] = fast_exp2(fmaf(s[4 * j + 1], sc, -m0));
+          s[4 * j + 2] = fast_exp2(fmaf(s[4 * j + 2], sc, -m1));
+          s[4 * j + 3] = fast_exp2(fmaf(s[4 * j + 3], sc, -m1));
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < BKV / 8; ++j) {
+        sum0 += s[4 * j] + s[4 * j + 1];
+        sum1 += s[4 * j + 2] + s[4 * j + 3];
+      }
+      l0 = l0 * corr0 + sum0;        // this thread's share of the row sum
+      l1 = l1 * corr1 + sum1;
+    };
+    // P cast to bf16 (v's dtype) as the A operand of PV: k-step kk takes
+    // the S blocks 2 kk and 2 kk + 1 (the accumulator and A fragment
+    // layouts line up).
+    auto pack_p = [&]() {
+#pragma unroll
+      for (int j = 0; j < BKV / 8; ++j) {
+        pa[j / 2][(j % 2) * 2] = pack_bf16(s[4 * j], s[4 * j + 1]);
+        pa[j / 2][(j % 2) * 2 + 1] = pack_bf16(s[4 * j + 2], s[4 * j + 3]);
+      }
+    };
+    // O, rescaled to the newest running max before the next PV.
+    auto rescale_o = [&]() {
+#pragma unroll
+      for (int a = 0; a < ATOMS; ++a)
+#pragma unroll
+        for (int i = 0; i < 32; i += 4) {
+          o[a][i] *= corr0;
+          o[a][i + 1] *= corr0;
+          o[a][i + 2] *= corr1;
+          o[a][i + 3] *= corr1;
+        }
+    };
+    // The registers a product reads or accumulates into are settled
+    // before wgmma.fence and after the wait, so no other instruction
+    // defines them while it runs.
+    auto fence_pv = [&]() {
+#pragma unroll
+      for (int a = 0; a < ATOMS; ++a) fence_regs(o[a]);
+      fence_regs(pa);
+    };
+    // The two warpgroups take turns issuing products (named barriers 1
+    // and 2, warpgroup 0 first), so one's softmax runs under the other's
+    // products. Warpgroup 1 skips its last signal, so every barrier ends
+    // with as many arrivals as waits.
+    auto turn_begin = [&]() {
+      if (wg == 0) named_sync<1>();
+      else named_sync<2>();
+    };
+    auto turn_end = [&](bool last) {
+      if (wg == 0) named_arrive<2>();
+      else if (!last) named_arrive<1>();
+    };
+
+    if (wg == 1) named_arrive<1>();
+    mbar_wait(q_full, 0);
+    // Key tile 0: QK^T and its softmax.
+    mbar_wait(k_full, 0);
+    turn_begin();
+    fence_regs(s);
+    wgmma_fence();
+    issue_qk(0);
+    turn_end(false);
+    wgmma_wait<0>();
+    fence_regs(s);
+    mbar_arrive(k_empty);
+    softmax(0);
+    pack_p();
+    // Tile it's QK^T goes out with tile it - 1's PV, so tile it's
+    // softmax runs while PV of tile it - 1 is on the tensor cores.
+    for (int it = 1; it < n; ++it) {
+      const int st = it % STAGES, pst = (it - 1) % STAGES;
+      mbar_wait(k_full + 8 * st, (it / STAGES) & 1);
+      turn_begin();
+      fence_regs(s);
+      wgmma_fence();
+      issue_qk(it);
+      rescale_o();
+      mbar_wait(v_full + 8 * pst, ((it - 1) / STAGES) & 1);
+      fence_pv();
+      wgmma_fence();
+      issue_pv(it - 1);
+      turn_end(false);
+      wgmma_wait<1>();             // QK^T done; PV still running
+      fence_regs(s);
+      mbar_arrive(k_empty + 8 * st);
+      softmax(it);
+      wgmma_wait<0>();
+      fence_pv();
+      mbar_arrive(v_empty + 8 * pst);
+      pack_p();
+    }
+    // The last tile's PV.
+    const int lst = (n - 1) % STAGES;
+    mbar_wait(v_full + 8 * lst, ((n - 1) / STAGES) & 1);
+    turn_begin();
+    rescale_o();
+    fence_pv();
+    wgmma_fence();
+    issue_pv(n - 1);
+    turn_end(true);
+    wgmma_wait<0>();
+    fence_pv();
+    mbar_arrive(v_empty + 8 * lst);
+
+    // The row sums over the quad, then out = acc / max(l, 1e-30) as bf16.
+#pragma unroll
+    for (int sh = 1; sh <= 2; sh <<= 1) {
+      l0 += __shfl_xor_sync(0xffffffffu, l0, sh);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, sh);
+    }
+    const float inv0 = 1.f / fmaxf(l0, 1e-30f);
+    const float inv1 = 1.f / fmaxf(l1, 1e-30f);
+    const int row0 = qw + warp * 16 + g, row1 = row0 + 8;
+    __nv_bfloat16* og = static_cast<__nv_bfloat16*>(p.o) + b * p.os[0]
+        + h * p.os[2];
+#pragma unroll
+    for (int a = 0; a < ATOMS; ++a)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int col = a * BOX + j * 8 + 2 * t;
+        if (row0 < p.Sq)
+          *reinterpret_cast<uint32_t*>(og + row0 * p.os[1] + col) =
+              pack_bf16(o[a][4 * j] * inv0, o[a][4 * j + 1] * inv0);
+        if (row1 < p.Sq)
+          *reinterpret_cast<uint32_t*>(og + row1 * p.os[1] + col) =
+              pack_bf16(o[a][4 * j + 2] * inv1, o[a][4 * j + 3] * inv1);
+      }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Host side
+// ---------------------------------------------------------------------------
+
+template <typename Kernel>
+cudaError_t set_smem(Kernel kernel, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
 template <typename Kernel>
 cudaError_t launch(Kernel kernel, int threads, int rows, size_t smem,
                    const Params& p, int B, cudaStream_t stream) {
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-  }
+  cudaError_t err = set_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
   const dim3 grid((p.Sq + rows - 1) / rows, p.H, B);
   kernel<<<grid, threads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
-template <int D>
-cudaError_t dispatch(const Params& p, int B, int bf16, cudaStream_t stream) {
-  if (bf16) {
-    const size_t smem = sizeof(__nv_bfloat16)
-        * (size_t)(BQ16 + 2 * STAGES16 * BKV16) * (D + PAD16);
-    return launch(flash_fwd_bf16<D>, WARPS16 * 32, BQ16, smem, p, B, stream);
+// cuTensorMapEncodeTiled, looked up in libcuda through the runtime (no
+// -lcuda at link time).
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(ptr);
   }
+  return fn;
+}
+
+// A tensor map over a bf16 [B, S, heads, d] tensor with element strides
+// st (batch, sequence, head), d contiguous, read in boxes of 64 columns x
+// `rows` rows, 128-byte swizzled; rows past S read as zero.
+bool tensor_map(CUtensorMap* map, const void* base, const long long* st,
+                int B, int S, int heads, int d, int rows) {
+  EncodeTiled fn = encoder();
+  if (!fn) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)S,
+                              (cuuint64_t)heads, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)st[1] * 2,
+                                 (cuuint64_t)st[2] * 2,
+                                 (cuuint64_t)st[0] * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)BOX, (cuuint32_t)rows, 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
+            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D>
+cudaError_t launch_wgmma(const Params& p, int B, int KV,
+                         cudaStream_t stream) {
+  using Tile = WgTile<D>;
+  const int nq = (p.Sq + WG_BQ - 1) / WG_BQ;
+  if (B > 65535 || nq > 65535) return cudaErrorInvalidValue;
+  CUtensorMap tq, tk, tv;
+  if (!tensor_map(&tq, p.q, p.qs, B, p.Sq, p.H, D, WG_BQ)
+      || !tensor_map(&tk, p.k, p.ks, B, p.Skv, KV, D, Tile::BKV)
+      || !tensor_map(&tv, p.v, p.vs, B, p.Skv, KV, D, Tile::BKV))
+    return cudaErrorInvalidValue;
+  cudaError_t err = set_smem(flash_fwd_wgmma<D>, Tile::SMEM);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(p.H, B, nq);
+  flash_fwd_wgmma<D><<<grid, WG_THREADS, Tile::SMEM, stream>>>(tq, tk, tv,
+                                                               p);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_f32(const Params& p, int B, cudaStream_t stream) {
   const size_t smem = sizeof(float)
       * ((size_t)BKV32 * D + (size_t)(BQ32 + BKV32) * (D + 1)
          + (size_t)BQ32 * (BKV32 + 1));
   return launch(flash_fwd_f32<D>, THREADS32, BQ32, smem, p, B, stream);
+}
+
+template <int D>
+cudaError_t launch_mma(const Params& p, int B, cudaStream_t stream) {
+  const size_t smem = sizeof(__nv_bfloat16)
+      * (size_t)(BQ16 + 2 * STAGES16 * BKV16) * (D + PAD16);
+  return launch(flash_fwd_bf16<D>, WARPS16 * 32, BQ16, smem, p, B, stream);
 }
 
 }  // namespace
@@ -585,14 +1209,26 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   p.Sq = Sq; p.Skv = Skv; p.H = H; p.group = H / KV;
   p.causal = causal; p.window = window;
   p.scale = (float)(1.0 / sqrt((double)d));
+  p.scale_log2 = (float)(1.4426950408889634 / sqrt((double)d));
   cudaError_t err;
-  switch (d) {
-    case 16: err = dispatch<16>(p, B, bf16, stream); break;
-    case 32: err = dispatch<32>(p, B, bf16, stream); break;
-    case 64: err = dispatch<64>(p, B, bf16, stream); break;
-    case 128: err = dispatch<128>(p, B, bf16, stream); break;
-    case 256: err = dispatch<256>(p, B, bf16, stream); break;
-    default: err = cudaErrorInvalidValue;
+  if (bf16) {
+    switch (d) {
+      case 16: err = launch_mma<16>(p, B, stream); break;
+      case 32: err = launch_mma<32>(p, B, stream); break;
+      case 64: err = launch_wgmma<64>(p, B, KV, stream); break;
+      case 128: err = launch_wgmma<128>(p, B, KV, stream); break;
+      case 256: err = launch_wgmma<256>(p, B, KV, stream); break;
+      default: err = cudaErrorInvalidValue;
+    }
+  } else {
+    switch (d) {
+      case 16: err = launch_f32<16>(p, B, stream); break;
+      case 32: err = launch_f32<32>(p, B, stream); break;
+      case 64: err = launch_f32<64>(p, B, stream); break;
+      case 128: err = launch_f32<128>(p, B, stream); break;
+      case 256: err = launch_f32<256>(p, B, stream); break;
+      default: err = cudaErrorInvalidValue;
+    }
   }
   return (int)err;
 }

@@ -5,7 +5,9 @@ The kernel is CUDA C++ (``csrc/linear_scan.cu``), built with ``nvcc`` at
 first use and called through ctypes (``kernels/_build.py``). A tensor on
 the CPU goes to the plain version, ``ref.linear_scan_ref``; a CUDA tensor
 always launches the kernel, or raises. ``linear_scan.launches`` counts
-the kernel's launches and nothing else.
+the kernel's launches and nothing else. Each launch gets a zeroed int64
+scratch tensor (the blocks' ticket and the chunk-to-chunk hand-off words
+of the chunked kernel), allocated here; the kernel allocates nothing.
 
 The Pallas kernel's ``chunk``, ``bt`` and ``interpret`` arguments are TPU
 tiling and its interpreter switch; they have no meaning here and are left
@@ -30,12 +32,17 @@ DTYPES = (torch.float32, torch.bfloat16)
 
 @functools.cache
 def _entry():
-    """The C entry point, built and bound once per process."""
-    fn = _build.load(SOURCE).linear_scan_launch
+    """The C entry points (launch, scratch size), built and bound once per
+    process."""
+    lib = _build.load(SOURCE)
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p, p, p, i, i, i, i, i, p]
+    fn = lib.linear_scan_launch
+    fn.argtypes = [p, p, p, p, i, i, i, i, i, p]
     fn.restype = ctypes.c_int
-    return fn
+    words = lib.linear_scan_scratch_words
+    words.argtypes = [i, i, i]
+    words.restype = ctypes.c_longlong
+    return fn, words
 
 
 def linear_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -65,10 +72,14 @@ def linear_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     out = torch.empty((B, S, D), dtype=b.dtype, device=device)
     if out.numel() == 0:
         return out
-    fn = _entry()
+    fn, words = _entry()
+    # The chunk-to-chunk hand-off words and the block ticket, zeroed on
+    # the launch's stream before every launch.
+    scratch = torch.zeros(words(B, S, D), dtype=torch.int64, device=device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), B, S, D,
+        err = fn(a.data_ptr(), b.data_ptr(), out.data_ptr(),
+                 scratch.data_ptr(), B, S, D,
                  int(a.dtype == torch.bfloat16),
                  int(b.dtype == torch.bfloat16), stream)
     if err:

@@ -1,7 +1,8 @@
 """The Hopper kernels on the card, against their plain versions on the
 same CUDA tensors: ``gemm_int8`` bit for bit, ``flash_attention`` and
 ``linear_scan`` within the reference's tolerances (2e-5 in float32, 3e-2
-in bfloat16, as ``tests/test_kernels.py`` states them). The CUDA kernels
+in bfloat16, as ``tests/test_kernels.py`` states them; each attention
+output row also within a fraction of its own RMS). The CUDA kernels
 have no CPU mode, so these tests are marked ``cuda`` and skip without a
 GPU; on a machine with one (and ``nvcc``) run them with
 
@@ -27,6 +28,16 @@ def gen():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
     return torch.Generator(device="cuda").manual_seed(0)
+
+
+def _assert_rows_close(got, want, rel):
+    """Each output row's largest error under ``rel`` of the row's RMS. On
+    randn inputs a row averaging n keys has an RMS of about 1/sqrt(n),
+    near the absolute 3e-2 on the long cases; dropping or repeating one
+    128-key tile there moves a row by a quarter to a third of its RMS."""
+    diff = (got.float() - want).abs().amax(-1)
+    rms = want.square().mean(-1).sqrt().clamp_min(1e-30)
+    assert float((diff / rms).max()) <= rel
 
 
 def _int(gen, shape, lo, hi, dtype=torch.int8):
@@ -98,6 +109,19 @@ ATTN_CASES = [
     (2, 200, 200, 10, 1, 256, True, 64),
     (1, 300, 300, 10, 1, 256, True, 128),
     (1, 96, 160, 2, 1, 256, False, 0),
+    # The wgmma kernel's 128-row query tiles (bf16 at d 64, 128, 256):
+    # lengths that fill no tile, Sq < Skv, causal Sq > Skv (rows with no
+    # valid key), windows whose edge crosses a 128-row tile, GQA 8:1 and
+    # MQA 10:1.
+    (1, 300, 300, 8, 1, 64, True, 0),
+    (2, 1000, 1000, 8, 1, 128, True, 0),
+    (1, 2049, 2049, 10, 1, 256, True, 300),
+    (1, 300, 1000, 4, 2, 128, True, 0),
+    (1, 1000, 300, 4, 4, 64, True, 0),
+    (1, 1000, 300, 10, 1, 256, True, 0),
+    (1, 2049, 2049, 8, 1, 64, False, 200),
+    (1, 1000, 1000, 10, 1, 256, True, 130),
+    (2, 1000, 2049, 8, 1, 128, True, 1000),
 ]
 
 
@@ -117,18 +141,22 @@ def test_flash_attention_matches_plain_version(gen, dtype, B, Sq, Skv, H,
     assert got.dtype == dtype and got.shape == (B, Sq, H, d)
     tol = 2e-5 if dtype == torch.float32 else 3e-2
     torch.testing.assert_close(got.float(), want, rtol=tol, atol=tol)
+    _assert_rows_close(got, want, 1e-3 if dtype == torch.float32 else 5e-2)
 
 
-def test_flash_attention_reads_strided_views(gen):
+@pytest.mark.parametrize("S,d", [(128, 64), (300, 128), (1000, 256)])
+def test_flash_attention_reads_strided_views(gen, S, d):
     """q/k/v as views into one fused [B,S,3,H,d] projection: the kernel
-    reads them through their strides, with no copy."""
-    qkv = torch.randn((2, 128, 3, 4, 64), generator=gen, device="cuda").to(
+    reads them through their strides, with no copy (the wgmma kernel's
+    tensor maps take the same strides)."""
+    qkv = torch.randn((2, S, 3, 4, d), generator=gen, device="cuda").to(
         torch.bfloat16)
     q, k, v = qkv.unbind(2)
     got = flash_attention(q, k, v, causal=True)
     want = attention_ref(q.float(), k.float(), v.float(), causal=True)
     torch.cuda.synchronize()
     torch.testing.assert_close(got.float(), want, rtol=3e-2, atol=3e-2)
+    _assert_rows_close(got, want, 5e-2)
 
 
 def test_flash_attention_refuses_what_it_cannot_take(gen):
@@ -151,7 +179,13 @@ def test_flash_attention_refuses_what_it_cannot_take(gen):
 SCAN_CASES = [(1, 64, 8, 0.7, 0.999), (2, 128, 32, 0.7, 0.999),
               (3, 96, 16, 0.7, 0.999), (1, 256, 128, 0.7, 0.999),
               (2, 77, 100, 0.7, 0.999), (2, 4097, 256, 0.7, 0.999),
-              (1, 4096, 512, 0.99, 0.9999)]
+              (1, 4096, 512, 0.99, 0.9999),
+              # The chunked kernel's edges (chunks of 256 steps, tiles of
+              # 32 channels): one step, less than a chunk, one chunk and
+              # one step, a long chain of 64 chunks, a ragged D edge.
+              (2, 1, 64, 0.7, 0.999), (2, 100, 96, 0.7, 0.999),
+              (1, 257, 64, 0.7, 0.999), (1, 16384, 128, 0.99, 0.9999),
+              (4, 300, 100, 0.7, 0.999)]
 
 
 @pytest.mark.parametrize("B,S,D,lo,hi", SCAN_CASES)
@@ -165,6 +199,18 @@ def test_linear_scan_matches_plain_version(gen, B, S, D, lo, hi):
     assert linear_scan.launches == before + 1
     assert got.dtype == torch.float32 and got.shape == (B, S, D)
     torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+    assert torch.equal(got, want)     # the same roundings, step by step
+
+
+def test_linear_scan_back_to_back(gen):
+    """Two launches in a row on one stream: each zeroes its own ticket and
+    hand-off words, so the second equals the first bit for bit."""
+    a = torch.rand((2, 1000, 256), generator=gen, device="cuda") * 0.3 + 0.7
+    b = torch.randn((2, 1000, 256), generator=gen, device="cuda")
+    first, second = linear_scan(a, b), linear_scan(a, b)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    assert torch.equal(first, linear_scan_ref(a, b))
 
 
 def test_linear_scan_bf16_operands(gen):
@@ -181,6 +227,10 @@ def test_linear_scan_bf16_operands(gen):
     got = linear_scan(a, b.float())
     assert got.dtype == torch.float32
     torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+    assert torch.equal(got, linear_scan_ref(a, b.float()))
+    # D not a multiple of 8 takes the kernel's element-wise tile loads.
+    got = linear_scan(a[..., :60].contiguous(), b[..., :60].float())
+    torch.testing.assert_close(got, want[..., :60], rtol=2e-5, atol=2e-5)
 
 
 def test_linear_scan_refuses_what_it_cannot_take(gen):
