@@ -11,17 +11,30 @@ line:
    source, all started together, each build timed), beside ptxas's
    registers and spill bytes for every kernel and its warnings and
    performance notes (``-Xptxas -v``); a spill fails the run;
-2. ``gemm_int8`` against its plain version on the card, bit for bit: the
-   reference's shape sweep, ``emit_int32``/ReLU, biases near +-2^30, every
-   shift in -31..31 with accumulators at the int32 rails, and the 8
-   AlexNet engine shapes, each timed (kernel, plain version, one library
-   call) beside its bound;
+2. ``gemm_int8`` against its plain version on the card, bit for bit, on
+   a row-major ``w`` (the ``dp4a`` kernel) and on its K-major copy (the
+   ``wgmma`` kernels): the reference's shape sweep, ``emit_int32``/ReLU,
+   biases near +-2^30, every shift in -31..31 with accumulators at the
+   int32 rails, the ``wgmma`` paths' edges (N across the small-N limit,
+   ragged K and M, a deep K over few tiles), and every AlexNet and VGG16
+   batch-16 shape (generated from ``core/workload.py``), each timed on
+   the main path's layouts (kernel, the ``dp4a`` kernel on the same
+   operands, plain version, one library call) beside its bound, with a
+   per-batch line for each model; at each of those shapes every
+   ``wgmma`` tiling the kernels are built for (``kernel.plans``) is
+   forced in turn, checked bit for bit and timed beside the wrapper's
+   choice (``gemm_int8_tilings`` lines);
 3. full-width AlexNet served through ``serve`` on the default (kernel)
-   route, with the kernels' launches counted; every served frame's logits
+   route, with the kernels' launches counted by path (8 ``large_n`` and
+   3 ``small_n`` a batch, no ``dp4a``); every served frame's logits
    equal the oracle route's on the same frames; on one batch the raw
    int32 accumulators of the kernel, oracle and f32 routes are identical
-   on the card and equal the plain integer oracle run on the CPU; and a
-   breakdown of one batch's time (host enqueue, wall, device by kernel);
+   on the card and equal the plain integer oracle run on the CPU; a
+   breakdown of one batch's time (host enqueue, wall, device by kernel,
+   the host cost of one ``gemm_int8`` call on either path); then one
+   batch of full-width VGG16 through the kernel (13 + 3 launches),
+   oracle and f32 routes, identical int32, with its chain's wall time,
+   device time by kernel and idle share;
 4. ``flash_attention`` against its plain version on the card: the
    reference's test shapes (2e-5 in float32, 3e-2 in bfloat16, and each
    output row within a fraction of its own RMS), a query
@@ -87,9 +100,11 @@ import torch  # noqa: E402
 from repro_torch.configs import ARCHS  # noqa: E402
 from repro_torch.core.executor import EngineExecutor  # noqa: E402
 from repro_torch.core.program import ROUTES  # noqa: E402
+from repro_torch.core.workload import CNN_MODELS  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.conv2d_int8 import kernel as gemm_kernel  # noqa
-from repro_torch.kernels.conv2d_int8.kernel import gemm_int8  # noqa: E402
+from repro_torch.kernels.conv2d_int8.kernel import (  # noqa: E402
+    gemm_int8, k_major_view, plan_for, plans)
 from repro_torch.kernels.conv2d_int8.ref import (gemm_int8_ref,  # noqa: E402
                                                  requantize_ref)
 from repro_torch.kernels.flash_attention import kernel as flash_kernel  # noqa
@@ -115,20 +130,63 @@ PEAKS = {"H100 SXM": (1979e12, 989e12, 3.35e12),
 # float32 FMA op/s outside the tensor cores (the same data sheets).
 F32_PEAKS = {"H100 SXM": 67e12, "H100 PCIe": 51e12, "H200": 67e12}
 
-# AlexNet at batch 16 on the main path: (engine, N, K, M, launches per
-# batch, groups, emits int32). A grouped engine's weights are a view of
-# M columns of a 2M-wide matrix, as the main path hands them over.
-ALEXNET_B16 = [
-    ("conv1", 48400, 363, 96, 1, 1, False),
-    ("conv2", 11664, 1200, 128, 2, 2, False),
-    ("conv3", 2704, 2304, 384, 1, 1, False),
-    ("conv4", 2704, 1728, 192, 2, 2, False),
-    ("conv5", 2704, 1728, 128, 2, 2, False),
-    ("fc6", 16, 9216, 4096, 1, 1, False),
-    ("fc7", 16, 4096, 4096, 1, 1, False),
-    ("fc8", 16, 4096, 1000, 1, 1, True),
-]
+
+
+def gemm_shapes(model_name: str, batch: int) -> list:
+    """The ``gemm_int8`` launches of one batch of ``model_name`` on the
+    main path, from ``core/workload.py``: (engine, N, K, M, launches per
+    batch, groups, emits int32), one row per distinct (N, K, M), named by
+    its first engine. A grouped engine launches once per group on M /
+    groups of its output channels; the last engine emits int32."""
+    model = CNN_MODELS[model_name]()
+    compute = [l for l in model.layers if l.kind != "pool"]
+    rows: dict = {}
+    hw = model.input_hw
+    for lyr in model.layers:
+        out_hw = lyr.out_hw(hw)
+        if lyr.kind != "pool":
+            if lyr.kind == "fc":
+                n, k = batch, lyr.in_ch
+            else:
+                n = batch * out_hw * out_hw
+                k = lyr.kernel * lyr.kernel * lyr.in_ch // lyr.groups
+            key = (n, k, lyr.out_ch // lyr.groups, lyr is compute[-1])
+            if key in rows:
+                rows[key][4] += lyr.groups
+            else:
+                rows[key] = [lyr.name, n, k, key[2], lyr.groups, lyr.groups,
+                             key[3]]
+        hw = out_hw
+    return [tuple(r) for r in rows.values()]
+
+
 SERVE_FRAMES, SERVE_BATCH = 64, 16
+GEMM_MODELS = ("alexnet", "vgg16")
+# The first design's per-shape times at AlexNet batch 16 (__dp4a, 64 x 64
+# tiles; cold L2, median of 10), recorded by this script on an NVIDIA
+# H100 80GB HBM3 at 700 W when that design was new (PERF.md), not measured
+# in this run; the same kernel is timed again in this run as `dp4a_ms`.
+PR11_MS = {"conv1": 0.0821, "conv2": 0.0606, "conv3": 0.0857,
+           "conv4": 0.0596, "conv5": 0.0600, "fc6": 0.2860, "fc7": 0.1325,
+           "fc8": 0.1302}
+# The wgmma paths' edges: (label, N, K, M). N across the small-N limit (1,
+# 16, 17 and 64 on the swapped kernel, 65 on the large-N one), K not a
+# multiple of a stage, M narrower than any tile, ragged, and 1000 (fc8)
+# and 96 (conv1); two deep K over few tiles (one block streams the
+# whole K of a tile; so does the rails case).
+GEMM_EDGES = [
+    ("N 1 fc8", 1, 4096, 1000),
+    ("N 16 K 4000", 16, 4000, 1000),
+    ("N 17 K 4100 M 96", 17, 4100, 96),
+    ("N 64 K 1000", 64, 1000, 1000),
+    ("N 65 K 1000", 65, 1000, 1000),
+    ("N 300 M 8", 300, 200, 8),
+    ("N 2704 K 1700 M 384", 2704, 1700, 384),
+    ("N 1000 K 27 M 64", 1000, 27, 64),
+    ("N 5000 K 3000 M 130", 5000, 3000, 130),
+    ("N 16 K 20000 M 96", 16, 20000, 96),
+    ("N 300 K 10000 M 64", 300, 10000, 64),
+]
 GEMM_SOURCE = "src/repro_torch/kernels/conv2d_int8/csrc/gemm_int8.cu"
 GEMM_REPLACES = "src/repro/kernels/conv2d_int8/kernel.py:61"
 FLASH_SOURCE = ("src/repro_torch/kernels/flash_attention/csrc/"
@@ -293,7 +351,7 @@ def card_peaks(name: str) -> tuple[str, float, float, float]:
 
 
 def reset_launches() -> None:
-    gemm_int8.launches = 0
+    gemm_kernel.reset_launches()
     flash_attention.launches = 0
     linear_scan.launches = 0
 
@@ -314,11 +372,13 @@ def _kernel_name(mangled: str) -> str:
     template arguments (Li256E: 256; f: float; 13__nv_bfloat16 or S1_,
     its repeat: bf16)."""
     m = re.search(r"(flash_fwd_wgmma|flash_fwd_bf16|flash_fwd_f32|"
-                  r"linear_scan_kernel|gemm_int8_kernel)(I.*?EE)?", mangled)
+                  r"linear_scan_kernel|gemm_int8_kernel|gemm_wgmma)(I.*?EE)?",
+                  mangled)
     if not m:
         return mangled
-    args = [t.group(1) or ("float" if t.group(0) == "f" else "bf16")
-            for t in re.finditer(r"Li(\d+)E|13__nv_bfloat16|S\d*_|f",
+    args = [t.group(1) or {"f": "float", "Lb0E": "false",
+                           "Lb1E": "true"}.get(t.group(0), "bf16")
+            for t in re.finditer(r"Li(\d+)E|Lb[01]E|13__nv_bfloat16|S\d*_|f",
                                  m.group(2) or "")]
     return f"{m.group(1)}<{', '.join(args)}>" if args else m.group(1)
 
@@ -414,18 +474,29 @@ def _rand_int8(gen, shape, lo=-128, hi=128):
 
 
 def _compare(cases: list, max_err: list, label: str, x, w, shift, bias,
-             relu, emit_int32) -> None:
-    got = gemm_int8(x, w, shift, bias, relu=relu, emit_int32=emit_int32)
+             relu, emit_int32, w_k=None) -> str:
+    """The kernel against its plain version, bit for bit, on ``w`` as given
+    (row-major: the dp4a path) and on its K-major copy ``w_k`` (by default
+    made here: a wgmma path). Returns the path the K-major copy took."""
     want = gemm_int8_ref(x, w, shift, bias, relu=relu, emit_int32=emit_int32)
-    torch.cuda.synchronize()
-    err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max()) \
-        if got.numel() else 0
-    max_err[0] = max(max_err[0], err)
-    exact = torch.equal(got, want)
-    cases.append({"case": label, "exact": exact, "max_abs_err": err})
-    if not exact:
-        raise SmokeFailure(f"gemm_int8 disagrees with its plain version on "
-                           f"{label}: max |err| {err}")
+    w_k = k_major_view(w) if w_k is None else w_k
+    path = None
+    for layout, ww in (("row-major", w), ("K-major", w_k)):
+        before = dict(gemm_int8.launches_by_path)
+        got = gemm_int8(x, ww, shift, bias, relu=relu, emit_int32=emit_int32)
+        torch.cuda.synchronize()
+        path = next(p for p, n in gemm_int8.launches_by_path.items()
+                    if n != before[p])
+        err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max()) \
+            if got.numel() else 0
+        max_err[0] = max(max_err[0], err)
+        exact = torch.equal(got, want)
+        cases.append({"case": label, "layout": layout, "path": path,
+                      "exact": exact, "max_abs_err": err})
+        if not exact:
+            raise SmokeFailure(f"gemm_int8 ({path}) disagrees with its plain "
+                               f"version on {label}: max |err| {err}")
+    return path
 
 
 def _rails_case():
@@ -508,6 +579,137 @@ def _bound_ms(N, K, M, emit_int32, peak_ops, peak_bytes):
         ("operations" if t_ops >= t_bytes else "bytes")
 
 
+def _patch_rows(gen, N: int, K: int) -> torch.Tensor:
+    """Random int8 x [N, K] as the kernel route hands it over: a view into
+    rows of a multiple of 16 bytes, whose padding bytes hold 127."""
+    rows = torch.full((N, -(-K // 16) * 16), 127, dtype=torch.int8,
+                      device="cuda")
+    rows[:, :K] = _rand_int8(gen, (N, K))
+    return rows[:, :K]
+
+
+def _plan_label(plan) -> str:
+    return f"{plan.path} {plan.width}x{64 * plan.warpgroups}"
+
+
+def _gemm_tilings(model, name, N, K, M, call, want, flush, cases) -> dict:
+    """Every ``wgmma`` tiling the kernels are built for that can take N
+    rows (``plans``), forced in place of ``plan_for``'s choice, checked bit
+    for bit against ``want`` (the wrapper's own result, already held to the
+    plain version) and timed cold: whether the wrapper's rule picks the
+    fastest. Labels are "path width x rows" of a tile."""
+    chosen = plan_for(N, K, M, torch.cuda.get_device_properties(
+        0).multi_processor_count)
+    times = {}
+    try:
+        for plan in plans(N):
+            gemm_kernel.plan_for = lambda *shape, plan=plan: plan
+            if not torch.equal(call(), want):
+                raise SmokeFailure(f"gemm_int8 tiling {_plan_label(plan)} "
+                                   f"disagrees on {model} {name}")
+            cases.append({"case": f"{model} {name} {N}x{K}x{M} forced "
+                          f"{_plan_label(plan)}", "layout": "K-major",
+                          "path": plan.path, "exact": True,
+                          "max_abs_err": 0})
+            times[_plan_label(plan)] = _time_cold_ms(call, flush)
+    finally:
+        gemm_kernel.plan_for = plan_for
+    fastest = min(times, key=times.get)
+    row = {"phase": "gemm_int8_tilings", "model": model, "engine": name,
+           "N": N, "K": K, "M": M, "ms": times,
+           "chosen": _plan_label(chosen), "fastest": fastest,
+           "chosen_over_fastest": times[_plan_label(chosen)] / times[fastest]}
+    emit(row)
+    return row
+
+
+def _gemm_model_shapes(model: str, gen, peaks, flush, cases,
+                       max_err) -> dict:
+    """Every gemm_int8 shape of one batch of ``model``, bit for bit on both
+    layouts, then timed: the kernel on the main path's layouts (patch rows
+    of 16-byte multiples, K-major weights: a wgmma path), the first design
+    on the same operands with a row-major w (``dp4a_ms``), the plain
+    version, one library call, the bound. Returns the per-batch sums."""
+    _, peak_ops, _, peak_bytes = peaks
+    shapes = []
+    for name, N, K, M, launches, groups, emit_int32 in gemm_shapes(
+            model, SERVE_BATCH):
+        x = _patch_rows(gen, N, K)
+        w_full = _rand_int8(gen, (K, M * groups))
+        w = w_full[:, :M]                      # row-major, ld = groups * M
+        w_k = k_major_view(w_full)[:, :M]      # group 0 of the K-major copy
+        shift = torch.randint(-2, 20, (M,), generator=gen, device="cuda",
+                              dtype=torch.int32)
+        bias = torch.randint(-2 ** 24, 2 ** 24, (M,), generator=gen,
+                             device="cuda", dtype=torch.int32)
+        relu = not emit_int32
+        path = _compare(cases, max_err, f"{model} {name} {N}x{K}x{M}", x, w,
+                        shift, bias, relu, emit_int32, w_k=w_k)
+
+        def call(ww):
+            return lambda: gemm_int8(x, ww, shift, bias, relu=relu,
+                                     emit_int32=emit_int32)
+        ms = _time_cold_ms(call(w_k), flush)
+        dp4a_ms = _time_cold_ms(call(w), flush)
+        plain_ms = _time_cold_ms(lambda: gemm_int8_ref(
+            x, w, shift, bias, relu=relu, emit_int32=emit_int32), flush)
+        lib = _library_call(x, w, shift, bias, relu, emit_int32)
+        library_ms, library_note = None, None
+        if lib is None:
+            library_note = "torch._int_mm shape rules exclude this shape"
+        else:
+            try:
+                same = torch.equal(lib(), call(w_k)())
+                library_ms = _time_cold_ms(lib, flush)
+                library_note = "exact" if same else "differs from kernel"
+                if K % 8:
+                    library_note += f", K zero-padded to {-(-K // 8) * 8}"
+            except RuntimeError as e:       # a yardstick, not the port
+                library_note = f"torch._int_mm refused: {e}"[:200]
+        ops, nbytes, bound_ms, bound_by = _bound_ms(N, K, M, emit_int32,
+                                                    peak_ops, peak_bytes)
+        plan = plan_for(N, K, M, torch.cuda.get_device_properties(
+            0).multi_processor_count)
+        row = {"phase": "gemm_int8_shape", "model": model, "engine": name,
+               "N": N, "K": K, "M": M, "ld_x": x.stride(0),
+               "ld_w_k": w_k.stride(1), "launches_per_batch": launches,
+               "emit_int32": emit_int32, "path": path,
+               "plan": dataclasses.asdict(plan), "ops": ops, "bytes": nbytes,
+               "ms": ms, "dp4a_ms": dp4a_ms, "plain_ms": plain_ms,
+               "library_ms": library_ms, "library": library_note,
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "ops_per_s": ops / (ms * 1e-3),
+               "bound_share": bound_ms / ms, "exact": True}
+        if model == "alexnet":
+            row["pr11_ms_recorded"] = PR11_MS[name]
+        shapes.append(row)
+        emit(row)
+        if path == "dp4a":
+            raise SmokeFailure(f"{model} {name} took the dp4a path")
+        _gemm_tilings(model, name, N, K, M, call(w_k), call(w_k)(), flush,
+                      cases)
+
+    # Per batch: the sum over the model's launches, which run one after
+    # another, so the batch's bound is the sum of theirs; it is bound by
+    # what bounds the larger part of that sum.
+    def per(key, rows=shapes):
+        return sum(r[key] * r["launches_per_batch"] for r in rows)
+    by_ops = per("bound_ms", [r for r in shapes
+                              if r["bound_by"] == "operations"])
+    have_lib = all(r["library_ms"] is not None for r in shapes)
+    batch = {"launches": sum(r["launches_per_batch"] for r in shapes),
+             "ms": per("ms"), "dp4a_ms": per("dp4a_ms"),
+             "plain_ms": per("plain_ms"), "bound_ms": per("bound_ms"),
+             "bound_by": "operations" if 2 * by_ops >= per("bound_ms")
+             else "bytes",
+             "library_ms": per("library_ms") if have_lib else None,
+             "ops": per("ops")}
+    emit({"phase": "gemm_int8_batch", "model": model, "batch": SERVE_BATCH,
+          **batch, "ops_per_s": batch["ops"] / (batch["ms"] * 1e-3),
+          "bound_share": batch["bound_ms"] / batch["ms"]})
+    return batch
+
+
 def phase_gemm(env: dict) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(0)
     cases: list = []
@@ -539,69 +741,39 @@ def phase_gemm(env: dict) -> dict:
             _compare(cases, max_err, f"int32 rails relu={relu} "
                      f"emit_int32={emit_int32}", rx, rw, rshift, rbias,
                      relu, emit_int32)
-    rails = gemm_int8(rx, rw, rshift, rbias, emit_int32=True)
-    i32 = torch.iinfo(torch.int32)
-    if int(rails[0, 0]) != i32.max or int(rails[0, 63]) != i32.min:
-        raise SmokeFailure("the rails case does not reach INT32_MAX/MIN")
-
-    # The AlexNet engine shapes, checked and timed.
-    _, peak_ops, _, peak_bytes = card_peaks(env["device"])
-    flush = torch.empty(64 << 20, dtype=torch.int8, device="cuda")
-    shapes = []
-    for name, N, K, M, launches, groups, emit_int32 in ALEXNET_B16:
-        x = _rand_int8(gen, (N, K))
-        w = _rand_int8(gen, (K, M * groups))[:, :M]    # ld = groups * M
-        shift = torch.randint(-2, 20, (M,), generator=gen, device="cuda",
+    for ww in (rw, k_major_view(rw)):
+        rails = gemm_int8(rx, ww, rshift, rbias, emit_int32=True)
+        i32 = torch.iinfo(torch.int32)
+        if int(rails[0, 0]) != i32.max or int(rails[0, 63]) != i32.min:
+            raise SmokeFailure("the rails case does not reach INT32_MAX/MIN")
+    # The wgmma paths' edges, on patch rows of 16-byte multiples.
+    for label, n, k, m in GEMM_EDGES:
+        x, w = _patch_rows(gen, n, k), _rand_int8(gen, (k, m))
+        shift = torch.randint(-4, 16, (m,), generator=gen, device="cuda",
                               dtype=torch.int32)
-        bias = torch.randint(-2 ** 24, 2 ** 24, (M,), generator=gen,
+        bias = torch.randint(-2 ** 24, 2 ** 24, (m,), generator=gen,
                              device="cuda", dtype=torch.int32)
-        relu = not emit_int32
-        _compare(cases, max_err, f"alexnet {name} {N}x{K}x{M}", x, w, shift,
-                 bias, relu, emit_int32)
-        ms = _time_cold_ms(lambda: gemm_int8(
-            x, w, shift, bias, relu=relu, emit_int32=emit_int32), flush)
-        plain_ms = _time_cold_ms(lambda: gemm_int8_ref(
-            x, w, shift, bias, relu=relu, emit_int32=emit_int32), flush)
-        lib = _library_call(x, w, shift, bias, relu, emit_int32)
-        library_ms, library_note = None, None
-        if lib is None:
-            library_note = "torch._int_mm shape rules exclude this shape"
-        else:
-            try:
-                same = torch.equal(lib(), gemm_int8(
-                    x, w, shift, bias, relu=relu, emit_int32=emit_int32))
-                library_ms = _time_cold_ms(lib, flush)
-                library_note = "exact" if same else "differs from kernel"
-                if K % 8:
-                    library_note += f", K zero-padded to {-(-K // 8) * 8}"
-            except RuntimeError as e:       # a yardstick, not the port
-                library_note = f"torch._int_mm refused: {e}"[:200]
-        ops, nbytes, bound_ms, bound_by = _bound_ms(N, K, M, emit_int32,
-                                                    peak_ops, peak_bytes)
-        row = {"phase": "gemm_int8_shape", "engine": name, "N": N, "K": K,
-               "M": M, "ld_w": w.stride(0), "launches_per_batch": launches,
-               "emit_int32": emit_int32, "ops": ops, "bytes": nbytes,
-               "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-               "library": library_note, "bound_ms": bound_ms,
-               "bound_by": bound_by, "exact": True}
-        shapes.append(row)
-        emit(row)
+        for relu, emit_int32 in ((True, False), (False, True)):
+            _compare(cases, max_err, f"edge {label} relu={relu} "
+                     f"emit_int32={emit_int32}", x, w, shift, bias, relu,
+                     emit_int32)
+
+    # Every shape of one batch of AlexNet and of VGG16, checked and timed.
+    peaks = card_peaks(env["device"])
+    flush = torch.empty(64 << 20, dtype=torch.int8, device="cuda")
+    batches = {model: _gemm_model_shapes(model, gen, peaks, flush, cases,
+                                         max_err)
+               for model in GEMM_MODELS}
     del flush
     emit({"phase": "gemm_int8_vs_plain", "cases": len(cases),
           "all_exact": all(c["exact"] for c in cases),
           "max_abs_err": max_err[0],
+          "paths": {p: sum(c["path"] == p for c in cases) for p in
+                    gemm_kernel.PATHS},
           "failed": [c["case"] for c in cases if not c["exact"]]})
-
-    # Per AlexNet batch: the sum over the 11 launches.
-    def per(key):
-        return sum(r[key] * r["launches_per_batch"] for r in shapes)
-    t_ops = per("ops") / peak_ops * 1e3
-    t_bytes = per("bytes") / peak_bytes * 1e3
-    have_lib = all(r["library_ms"] is not None for r in shapes)
-    return {"max_abs_err": max_err[0], "ms": per("ms"),
-            "plain_ms": per("plain_ms"), "bound_ms": max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "library_ms": per("library_ms") if have_lib else None}
+    for b in batches.values():
+        b["max_abs_err"] = max_err[0]
+    return batches
 
 
 # ---------------------------------------------------------------------------
@@ -612,6 +784,7 @@ def phase_gemm(env: dict) -> dict:
 def _program_on_cpu(prog):
     steps = [dataclasses.replace(
         s, wq=None if s.wq is None else s.wq.cpu(),
+        wk=None if s.wk is None else s.wk.cpu(),
         bias_q=None if s.bias_q is None else s.bias_q.cpu(),
         shift=None if s.shift is None else s.shift.cpu())
         for s in prog.steps]
@@ -625,16 +798,24 @@ def phase_main_path() -> dict:
                    return_outputs=True)
     torch.cuda.synchronize()
     launches = gemm_int8.launches
+    by_path = dict(gemm_int8.launches_by_path)
     if flash_attention.launches:
         raise SmokeFailure("the AlexNet path launched flash_attention")
     served = result.pop("outputs")
     expect = 11 * result["batches"]
+    # Per batch: conv1-conv5 (8 launches, two groups on conv2, 4, 5) on
+    # the large-N kernels, fc6-fc8 on the small-N one, none on dp4a.
+    expect_paths = {"large_n": 8 * result["batches"],
+                    "small_n": 3 * result["batches"], "dp4a": 0}
     emit({"phase": "serve", **result, "gemm_int8_launches": launches,
-          "expected_launches": expect})
-    if result["route"] != "kernel" or launches != expect:
+          "launches_by_path": by_path, "expected_launches": expect,
+          "expected_by_path": expect_paths})
+    if result["route"] != "kernel" or launches != expect \
+            or by_path != expect_paths:
         raise SmokeFailure(f"the served path ran route {result['route']} "
-                           f"with {launches} gemm_int8 launches, expected "
-                           f"the kernel route with {expect}")
+                           f"with {launches} gemm_int8 launches "
+                           f"({by_path}), expected the kernel route with "
+                           f"{expect} ({expect_paths})")
 
     # Every served frame against the oracle route of the same seeded
     # program on the same frames. The logits of distinct frames differ,
@@ -723,6 +904,11 @@ def _device_ops(fn) -> list:
                   key=lambda kv: -kv[1])
 
 
+def _is_gemm_int8(kernel_name: str) -> bool:
+    """Whether a profiled kernel is one of gemm_int8's."""
+    return "gemm_wgmma" in kernel_name or "gemm_int8_kernel" in kernel_name
+
+
 def phase_breakdown(prog, frames) -> None:
     """Where one batch's time goes on the default route: a warm
     ``EngineExecutor``'s time per batch over 16 batches, beside the host's
@@ -762,19 +948,29 @@ def phase_breakdown(prog, frames) -> None:
     enqueue_ms = (time.perf_counter() - t0) / n * 1e3
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) / n * 1e3
-    # Host time of one gemm_int8 call (checks, allocation, ctypes launch),
-    # at fc8's shape, without waiting for the card.
+    # Host time of one gemm_int8 call (checks, plan, allocation, tensor
+    # maps, ctypes launch), at fc8's shape, without waiting for the card:
+    # on the main path's K-major weights (the small-N kernel) and
+    # on the reference layout (the dp4a kernel), in turns.
     fc8 = prog.steps[-1]
     x8 = torch.zeros((len(frames), fc8.wq.shape[0]), dtype=torch.int8,
                      device="cuda")
-    t0 = time.perf_counter()
-    for _ in range(n):
-        gemm_int8(x8, fc8.wq, fc8.shift, fc8.bias_q, emit_int32=True)
-    gemm_host_us = (time.perf_counter() - t0) / n * 1e6
-    torch.cuda.synchronize()
+    host_us: dict = {"small_n": [], "dp4a": []}
+    calls = 100
+    for _ in range(5):
+        for path, w8 in (("small_n", fc8.wk), ("dp4a", fc8.wq)):
+            gemm_int8(x8, w8, fc8.shift, fc8.bias_q, emit_int32=True)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                gemm_int8(x8, w8, fc8.shift, fc8.bias_q, emit_int32=True)
+            host_us[path].append((time.perf_counter() - t0) / calls * 1e6)
+            torch.cuda.synchronize()
+    gemm_host_us = float(np.median(host_us["small_n"]))
+    dp4a_host_us = float(np.median(host_us["dp4a"]))
     ops = _device_ops(lambda: runner(xq))
     device_ms = sum(us for _, us, _ in ops) / 1e3
-    gemm_ms = sum(us for k, us, _ in ops if "gemm_int8" in k) / 1e3
+    gemm_ms = sum(us for k, us, _ in ops if _is_gemm_int8(k)) / 1e3
     emit({"phase": "breakdown", "route": runner.route, "batch": len(frames),
           "executor_ms_per_batch": executor_ms,
           "executor_steady_fps": ex.stats.steady_fps,
@@ -785,11 +981,67 @@ def phase_breakdown(prog, frames) -> None:
           "host_quantize_ms": quantize_ms, "host_decode_ms": decode_ms,
           "host_enqueue_ms": enqueue_ms, "wall_ms": wall_ms,
           "gemm_int8_host_us_per_call": gemm_host_us,
+          "gemm_int8_host_us_per_call_dp4a": dp4a_host_us,
+          "gemm_int8_host_us_over_dp4a": gemm_host_us - dp4a_host_us,
           "device_busy_ms": device_ms, "gemm_int8_ms": gemm_ms,
           "other_device_ms": device_ms - gemm_ms,
           "device_idle_share": max(0.0, 1.0 - device_ms / wall_ms),
           "top_device_ops_us": [[k[:60], round(us, 1)]
                                 for k, us, _ in ops[:6]]})
+
+
+def phase_vgg16() -> dict:
+    """Full-width VGG16 (seed 0) on one batch of 16 frames: the kernel
+    route with its launches counted (13 convs on the large-N kernels, the
+    3 fc layers on the small-N one, none on dp4a) and its int32
+    accumulators equal to the oracle and f32 routes'; the chain's wall
+    time, device time by kernel and idle share."""
+    prog = compile_for_serving("vgg16", seed=0, device="cuda")
+    frames = synthetic_stream("vgg16", SERVE_BATCH, 0)
+    kernel = prog.compile_runner(route="kernel")
+    xq = torch.as_tensor(kernel.quantize(frames), device="cuda")
+    reset_launches()
+    acc = kernel(xq)
+    torch.cuda.synchronize()
+    launches, by_path = gemm_int8.launches, dict(gemm_int8.launches_by_path)
+    expect = {"large_n": 13, "small_n": 3, "dp4a": 0}
+    accs = {"kernel": acc}
+    for route in ("oracle", "f32"):
+        accs[route] = prog.compile_runner(route=route)(xq)
+        torch.cuda.synchronize()
+    identical = all(torch.equal(acc, a) for a in accs.values())
+    logits = kernel.dequantize(acc)
+    n = 5
+    for _ in range(2):
+        kernel(xq)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        kernel(xq)
+    enqueue_ms = (time.perf_counter() - t0) / n * 1e3
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) / n * 1e3
+    ops = _device_ops(lambda: kernel(xq))
+    device_ms = sum(us for _, us, _ in ops) / 1e3
+    gemm_ms = sum(us for k, us, _ in ops if _is_gemm_int8(k)) / 1e3
+    row = {"phase": "vgg16", "batch": SERVE_BATCH,
+           "acc_shape": list(acc.shape), "acc_dtype": str(acc.dtype),
+           "routes_identical_int32": identical,
+           "logits_finite": bool(np.isfinite(logits).all()),
+           "distinct_top1": len(np.unique(logits.argmax(-1))),
+           "gemm_int8_launches": launches, "launches_by_path": by_path,
+           "expected_by_path": expect, "host_enqueue_ms": enqueue_ms,
+           "wall_ms": wall_ms, "device_busy_ms": device_ms,
+           "gemm_int8_ms": gemm_ms, "other_device_ms": device_ms - gemm_ms,
+           "device_idle_share": max(0.0, 1.0 - device_ms / wall_ms),
+           "top_device_ops_us": [[k[:60], round(us, 1)]
+                                 for k, us, _ in ops[:6]]}
+    emit(row)
+    if not (identical and row["logits_finite"] and by_path == expect
+            and launches == 16 and row["acc_shape"] == [SERVE_BATCH, 1000]
+            and acc.dtype == torch.int32):
+        raise SmokeFailure(f"VGG16 check failed: {row}")
+    return {"launches": launches}
 
 
 # ---------------------------------------------------------------------------
@@ -1505,6 +1757,8 @@ def main() -> int:
         env = phase_environment()
         gemm = phase_gemm(env)
         main_path = phase_main_path()
+        vgg = phase_vgg16()
+        torch.cuda.empty_cache()
         flash = phase_flash(env)
         lm = phase_lm_forward()
         phase_lm_serve(lm)
@@ -1525,14 +1779,18 @@ def main() -> int:
         print("chip_smoke: FAILED", file=sys.stderr)
         return 1
     rg_cfg = ARCHS[RG_ARCH]
+    launches_of = {"alexnet": main_path["launches"],
+                   "vgg16": vgg["launches"]}
     kernels = [{
         "name": "gemm_int8", "route": "cuda", "source": GEMM_SOURCE,
-        "replaces": GEMM_REPLACES, "launches": main_path["launches"],
-        "max_abs_err": gemm["max_abs_err"], "ms": gemm["ms"],
-        "plain_ms": gemm["plain_ms"], "bound_ms": gemm["bound_ms"],
-        "bound_by": gemm["bound_by"], "library_ms": gemm["library_ms"],
-        "per": f"one AlexNet batch of {SERVE_BATCH}: the sum over its 11 "
-               f"launches"}, {
+        "replaces": GEMM_REPLACES, "launches": launches_of[model],
+        **{k: gemm[model][k] for k in ("max_abs_err", "ms", "plain_ms",
+                                       "bound_ms", "bound_by",
+                                       "library_ms")},
+        "path": model,
+        "per": f"one {model} batch of {SERVE_BATCH}: the sum over its "
+               f"{gemm[model]['launches']} launches"}
+        for model in GEMM_MODELS] + [{
         "name": "flash_attention", "route": "cuda", "source": FLASH_SOURCE,
         "replaces": FLASH_REPLACES, "launches": yi_launches,
         "max_abs_err": flash["max_abs_err"], "ms": flash["ms"],

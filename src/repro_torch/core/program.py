@@ -32,6 +32,10 @@ Differences from the reference, each forced by PyTorch or by the card:
   GEMM, so without this the default serving path would run no kernel of
   the port. Every route computes the same integers; only the default
   differs.
+* Each engine keeps a second, K-major copy of its int8 weights
+  (``EngineStep.wk``, made once at lowering): ``wgmma`` reads int8
+  operands only K-major, and the kernel route hands the GEMM a view of
+  it. The reference layout (``wq``) serves the other routes.
 * bits=16 is not ported yet and raises ``NotImplementedError``.
 * TF32 is switched off (:func:`exact_float32`) around ``float_forward``,
   where cuDNN's default TF32 could move a calibration amax across a po2
@@ -55,6 +59,7 @@ from repro_torch.core import quant
 from repro_torch.core.allocator import (LayerAlloc, allocate_buffers,
                                         allocate_compute)
 from repro_torch.core.workload import CNNModel, ConvLayer
+from repro_torch.kernels.conv2d_int8.kernel import k_major_view
 from repro_torch.kernels.conv2d_int8.ops import conv2d_int8, fc_int8
 from repro_torch.kernels.conv2d_int8.ref import (conv2d_int8_via,
                                                  matmul_int8_exact,
@@ -184,6 +189,10 @@ class EngineStep:
     pad: tuple[int, int]           # (lo, hi), both spatial dims
     # compute-step payload (None for pool):
     wq: torch.Tensor | None = None         # int8 quantized weights
+    # The same weights K-major, for the kernel route: a view of wq's shape
+    # over [M, K16] rows (K16 = K rounded up to 16 bytes) that hold each
+    # output channel's K = R*S*Cg (or F) weights (:func:`k_major_view`).
+    wk: torch.Tensor | None = None
     bias_q: torch.Tensor | None = None     # int32 bias on the acc format
     shift: torch.Tensor | None = None      # int32 [M]: e_out - (e_in+e_w)
     e_in: int = 0                          # input activation exponent
@@ -408,13 +417,14 @@ def _pool_int(xq: torch.Tensor, step: EngineStep) -> torch.Tensor:
 
 
 def _step_kernel(xq: torch.Tensor, step: EngineStep) -> torch.Tensor:
-    """The kernel route: ``gemm_int8`` with the fused epilogue."""
+    """The kernel route: ``gemm_int8`` with the fused epilogue, on the
+    K-major weights (the layout its ``wgmma`` kernels read)."""
     lyr = step.layer
     emit = not step.requantize
     if step.kind == "fc":
-        return fc_int8(xq.reshape(xq.shape[0], -1), step.wq, step.shift,
+        return fc_int8(xq.reshape(xq.shape[0], -1), step.wk, step.shift,
                        step.bias_q, relu=step.relu, emit_int32=emit)
-    return conv2d_int8(xq, step.wq, step.shift, step.bias_q,
+    return conv2d_int8(xq, step.wk, step.shift, step.bias_q,
                        stride=lyr.stride, padding=(step.pad, step.pad),
                        groups=lyr.groups, relu=step.relu, emit_int32=emit)
 
@@ -605,9 +615,10 @@ def _lower(model: CNNModel, params: Params, amax: dict[str, float],
                          np.iinfo(np.int32).min, np.iinfo(np.int32).max
                          ).astype(np.int32)
         shift = np.clip(e_out - acc_e, -31, 31).astype(np.int32)
+        wq = wq.contiguous()
         steps.append(EngineStep(
             name=lyr.name, kind=lyr.kind, layer=lyr, pad=pad,
-            wq=wq.contiguous(),
+            wq=wq, wk=k_major_view(wq),
             bias_q=torch.as_tensor(bias_q, device=w.device),
             shift=torch.as_tensor(shift, device=w.device), e_in=e_act,
             e_w=e_w, e_out=e_out, relu=not is_last,

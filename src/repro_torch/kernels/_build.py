@@ -5,9 +5,10 @@ Each ``csrc/*.cu`` file holds plain ``extern "C"`` entry points and no
 PyTorch headers, so it compiles in seconds. It is compiled for Hopper
 (``sm_90a``) into ``build/kernels/<stem>-<hash>.so`` at the root of the
 checkout; the hash covers every file under the source's ``csrc/``
-directory (the source and any header beside it) and the flags, so an
-edited source, header or flag rebuilds and an unchanged one is loaded
-from the cache. A failed build raises with ``nvcc``'s own error output.
+directory (the source and any header beside it), every file of the
+headers shared by all sources (``kernels/csrc/``, which a source includes
+as ``"../../csrc/hopper.cuh"``) and the flags, so an edited source,
+header or flag rebuilds and an unchanged one is loaded from the cache. A failed build raises with ``nvcc``'s own error output.
 Nothing here runs at import.
 """
 
@@ -22,6 +23,7 @@ from pathlib import Path
 
 REPO_ROOT = Path(__file__).resolve().parents[3]
 BUILD_DIR = REPO_ROOT / "build" / "kernels"
+SHARED_DIR = Path(__file__).resolve().parent / "csrc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
@@ -39,12 +41,14 @@ def _nvcc() -> str:
 
 def library_path(source: Path) -> Path:
     """Where the library built from ``source`` lives: named by a hash of
-    every file under the source's directory and of the flags."""
+    every file under the source's directory and under ``SHARED_DIR``, and
+    of the flags."""
     source = Path(source).resolve()
     h = hashlib.sha256()
-    for f in sorted(p for p in source.parent.rglob("*") if p.is_file()):
-        h.update(f.relative_to(source.parent).as_posix().encode() + b"\0")
-        h.update(f.read_bytes() + b"\0")
+    for tag, root in ((b"", source.parent), (b"shared/", SHARED_DIR)):
+        for f in sorted(p for p in root.rglob("*") if p.is_file()):
+            h.update(tag + f.relative_to(root).as_posix().encode() + b"\0")
+            h.update(f.read_bytes() + b"\0")
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{source.stem}-{h.hexdigest()[:16]}.so"
 

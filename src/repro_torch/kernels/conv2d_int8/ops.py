@@ -5,15 +5,18 @@ The im2col (the line-buffer address generator) stays plain int8 tensor
 slicing outside the kernel, as the reference runs it in XLA outside the
 Pallas kernel; the MAC array + output pipeline is the kernel. Grouped
 convolutions (AlexNet's two-tower layers) run one weight-stationary GEMM
-per group, like the paper's per-engine channel split. On CPU tensors the
-kernel's plain version runs instead (``kernel.gemm_int8``).
+per group, like the paper's per-engine channel split. The patches land in
+rows of a multiple of 16 bytes (AlexNet's stem has K = 363, VGG16's 27),
+which TMA needs; the weights reach the fast path as a K-major view
+(``core/program.py``). On CPU tensors the kernel's plain version runs
+instead (``kernel.gemm_int8``).
 """
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.conv2d_int8.kernel import gemm_int8
+from repro_torch.kernels.conv2d_int8.kernel import ALIGN, gemm_int8
 from repro_torch.kernels.conv2d_int8.ref import conv2d_int8_via
 
 
@@ -27,11 +30,12 @@ def conv2d_int8(x: torch.Tensor, w: torch.Tensor, shift: torch.Tensor,
     ``padding`` is "same" or an explicit ((top, bottom), (left, right));
     ``stride`` and ``groups`` are arbitrary, so every conv shape in the
     paper's four models (stride-4/stride-2 stems, grouped towers) takes
-    this route.
+    this route. ``w`` may be HWIO row-major or a K-major view of that
+    shape; only the K-major one reaches the ``wgmma`` kernels.
     """
     return conv2d_int8_via(gemm_int8, x, w, shift, bias, stride=stride,
                            padding=padding, groups=groups, relu=relu,
-                           emit_int32=emit_int32)
+                           row_align=ALIGN, emit_int32=emit_int32)
 
 
 def fc_int8(x: torch.Tensor, w: torch.Tensor, shift: torch.Tensor,

@@ -75,11 +75,14 @@ def same_padding(in_hw: int, kernel: int, stride: int) -> tuple[int, int]:
 
 
 def im2col_int8(x: torch.Tensor, R: int, S: int, stride: int,
-                pad: Pad2) -> torch.Tensor:
+                pad: Pad2, row_align: int = 1) -> torch.Tensor:
     """int8 im2col with no float materialization: x [B,H,W,C] ->
     [B,Ho,Wo,R*S*C], features ordered (r, s, c). ``pad`` is
     ((top, bottom), (left, right)); zero-padding is exact for the
-    symmetric (zero-point-0) po2 formats."""
+    symmetric (zero-point-0) po2 formats. With ``row_align`` > 1 the
+    features are written into rows of a multiple of ``row_align`` bytes
+    (one block of zeros closes each row) and the result is a view of their
+    first R*S*C columns: the layout TMA reads on the kernel route."""
     (top, bot), (left, right) = pad
     xp = F.pad(x, (0, 0, left, right, top, bot))
     Hp, Wp = xp.shape[1], xp.shape[2]
@@ -88,7 +91,12 @@ def im2col_int8(x: torch.Tensor, R: int, S: int, stride: int,
     cols = [xp[:, r:r + (Ho - 1) * stride + 1:stride,
                s:s + (Wo - 1) * stride + 1:stride, :]
             for r in range(R) for s in range(S)]
-    return torch.cat(cols, dim=-1)
+    K = R * S * x.shape[-1]
+    extra = -K % row_align
+    if extra:
+        cols.append(xp.new_zeros((xp.shape[0], Ho, Wo, extra)))
+    patches = torch.cat(cols, dim=-1)
+    return patches[..., :K] if extra else patches
 
 
 def _resolve_pad(padding, in_h: int, in_w: int, R: int, S: int,
@@ -101,13 +109,17 @@ def _resolve_pad(padding, in_h: int, in_w: int, R: int, S: int,
 def conv2d_int8_via(gemm_fn, x: torch.Tensor, w: torch.Tensor,
                     shift: torch.Tensor, bias: torch.Tensor | None = None, *,
                     stride: int = 1, padding="same", groups: int = 1,
-                    relu: bool = False, **gemm_kwargs) -> torch.Tensor:
+                    relu: bool = False, row_align: int = 1,
+                    **gemm_kwargs) -> torch.Tensor:
     """Conv as implicit GEMM over any engine: one weight-stationary
     ``gemm_fn(patches, w2d, shift, bias, relu=..., **gemm_kwargs)`` per
     channel group. Shared by the plain version and the kernel route so the
     spatial plumbing (stride, asymmetric padding, groups) cannot drift.
-    A group's weights are a row-major view with leading dimension M (no
-    copy); the GEMM takes such views as they are."""
+    A group's weights are a [K, M/groups] view of ``w`` (no copy), in
+    whatever layout ``w`` has: HWIO row-major, or a K-major view (unit
+    stride along R, S, C); the GEMM takes such views as they are. The
+    patches are an [N, K] view into rows of a multiple of ``row_align``
+    bytes (:func:`im2col_int8`)."""
     R, S, Cg, M = w.shape
     B, H, W, C = x.shape
     if C != Cg * groups or M % groups:
@@ -118,7 +130,7 @@ def conv2d_int8_via(gemm_fn, x: torch.Tensor, w: torch.Tensor,
     Mg = M // groups
     for g in range(groups):
         xg = x[..., g * Cg:(g + 1) * Cg]
-        patches = im2col_int8(xg, R, S, stride, pad)
+        patches = im2col_int8(xg, R, S, stride, pad, row_align)
         Bp, Ho, Wo, K = patches.shape
         wg = w[..., g * Mg:(g + 1) * Mg].reshape(R * S * Cg, Mg)
         bg = None if bias is None else bias[g * Mg:(g + 1) * Mg]

@@ -99,11 +99,10 @@
 // none). `chip_smoke.py` reports ptxas's registers, spill bytes and
 // performance notes for every instantiation.
 
-#include <cuda.h>          // CUtensorMap and its enums (header only)
-#include <cuda_runtime.h>
 #include <cuda_bf16.h>
-#include <stdint.h>
 #include <math.h>
+
+#include "../../csrc/hopper.cuh"   // mbarriers, wgmma fences, tensor maps
 
 namespace {
 
@@ -170,10 +169,6 @@ __device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x = lo: low half
   return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
 // Four 8x8 bf16 matrices from shared memory; lane l gives the address of
@@ -569,33 +564,6 @@ template <int D> struct WgTile {
       + 16 * 8 + 1024;                           // barriers, alignment
 };
 
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
-               :: "r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect(uint32_t bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
-               :: "r"(bar) : "memory");
-}
-
-// Returns once the phase of parity `parity` has completed.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-  } while (!done);
-}
-
 // One TMA box [rows][64] of a [B, S, heads, d] tensor, at column c0, row
 // s0 of head h, batch b, into shared memory (128-byte swizzle); the
 // barrier counts its bytes.
@@ -610,32 +578,6 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
       : "memory");
 }
 
-// A wgmma shared-memory descriptor for a 128-byte-swizzled tile whose
-// swizzle atoms (8 rows of 128 bytes, 1024-byte aligned) lie `sbo` bytes
-// apart along the 8-row direction and `lbo` bytes apart along the other.
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo) {
-  return (uint64_t)((addr & 0x3ffff) >> 4)
-      | ((uint64_t)(lbo >> 4) << 16)
-      | ((uint64_t)(sbo >> 4) << 32)
-      | (1ull << 62);                            // layout: 128-byte swizzle
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-// Returns once at most N of this warpgroup's committed groups of products
-// are still running (they finish in order).
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
-}
-
 // The two consumer warpgroups' turns: 256 threads meet on barrier `id`
 // (0 is __syncthreads'); a warpgroup waits with sync and signals the
 // other with arrive.
@@ -647,22 +589,6 @@ __device__ __forceinline__ void named_sync() {
 template <int ID>
 __device__ __forceinline__ void named_arrive() {
   asm volatile("bar.arrive %0, 256;\n" :: "n"(ID) : "memory");
-}
-
-// Keeps the compiler from moving reads or writes of an accumulator
-// register across the asynchronous products around it.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j]) :: "memory");
 }
 
 __device__ __forceinline__ float fast_exp2(float x) {
@@ -803,7 +729,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
       mbar_init(k_empty + 8 * s, 2 * 128);
       mbar_init(v_empty + 8 * s, 2 * 128);
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_init_fence();
   }
   __syncthreads();
 
@@ -1101,33 +1027,6 @@ cudaError_t launch(Kernel kernel, int threads, int rows, size_t smem,
   const dim3 grid((p.Sq + rows - 1) / rows, p.H, B);
   kernel<<<grid, threads, smem, stream>>>(p);
   return cudaGetLastError();
-}
-
-// cuTensorMapEncodeTiled, looked up in libcuda through the runtime (no
-// -lcuda at link time).
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (!fn) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(ptr);
-  }
-  return fn;
 }
 
 // A tensor map over a bf16 [B, S, heads, d] tensor with element strides

@@ -57,3 +57,36 @@ def test_a_port_source_rebuilds_when_a_file_beside_it_changes(tmp_path,
     assert _build.library_path(copy) == _build.library_path(kernel.SOURCE)
     (csrc / "tile.cuh").write_text("#define TILE 128\n")
     assert _build.library_path(copy) != _build.library_path(kernel.SOURCE)
+
+
+@pytest.mark.parametrize("kernel", [gemm_kernel, flash_kernel, scan_kernel],
+                         ids=["gemm_int8", "flash_attention", "linear_scan"])
+def test_a_port_source_rebuilds_when_a_shared_header_changes(tmp_path,
+                                                             monkeypatch,
+                                                             kernel):
+    """The headers every source may include (``kernels/csrc/``, e.g.
+    ``hopper.cuh``) are part of each library's name: a copy of them hashes
+    like the original, and an edit there renames every library."""
+    assert (_build.SHARED_DIR / "hopper.cuh").is_file()
+    shared = tmp_path / "shared"
+    shutil.copytree(_build.SHARED_DIR, shared)
+    before = _build.library_path(kernel.SOURCE)
+    monkeypatch.setattr(_build, "SHARED_DIR", shared)
+    assert _build.library_path(kernel.SOURCE) == before
+    (shared / "hopper.cuh").write_text(
+        (shared / "hopper.cuh").read_text() + "// edited\n")
+    assert _build.library_path(kernel.SOURCE) != before
+
+
+def test_the_tma_sources_include_the_shared_header():
+    """gemm_int8 and flash_attention take their mbarrier, wgmma and tensor
+    map plumbing from ``kernels/csrc/hopper.cuh`` rather than their own
+    copies."""
+    for kernel in (gemm_kernel, flash_kernel):
+        text = Path(kernel.SOURCE).read_text()
+        assert '#include "../../csrc/hopper.cuh"' in text
+        assert (Path(kernel.SOURCE).parent / "../../csrc/hopper.cuh"
+                ).resolve() == (_build.SHARED_DIR / "hopper.cuh").resolve()
+        for helper in ("void mbar_wait(", "EncodeTiled encoder()",
+                       "void wgmma_fence()", "void fence_regs("):
+            assert helper not in text, (kernel.SOURCE, helper)

@@ -13,8 +13,10 @@ This file imports no JAX: the machine with the card has none."""
 import pytest
 import torch
 
+from repro_torch.kernels.conv2d_int8 import kernel as gemm_kernel
 from repro_torch.kernels.conv2d_int8 import ops, ref
-from repro_torch.kernels.conv2d_int8.kernel import gemm_int8
+from repro_torch.kernels.conv2d_int8.kernel import (Plan, gemm_int8,
+                                                    k_major_view)
 from repro_torch.kernels.flash_attention.kernel import flash_attention
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.rglru_scan.kernel import linear_scan
@@ -76,6 +78,151 @@ def test_kernel_takes_unaligned_row_views(gen):
         want = ref.gemm_int8_ref(x, w, s, relu=True)
         torch.cuda.synchronize()
         assert torch.equal(got, want)
+
+
+def _path_of(fn):
+    """Run ``fn`` and return (its result, the one gemm_int8 path it
+    launched)."""
+    before = dict(gemm_int8.launches_by_path)
+    out = fn()
+    torch.cuda.synchronize()
+    ran = [p for p, n in gemm_int8.launches_by_path.items()
+           if n != before[p]]
+    assert len(ran) == 1 and sum(gemm_int8.launches_by_path.values()) == \
+        sum(before.values()) + 1
+    return out, ran[0]
+
+
+def _patch_rows(gen, n, k):
+    """x [n, k] as a view into rows of a multiple of 16 bytes whose padding
+    holds 127 (the kernel route's patches)."""
+    rows = torch.full((n, -(-k // 16) * 16), 127, dtype=torch.int8,
+                      device="cuda")
+    rows[:, :k] = _int(gen, (n, k), -128, 128)
+    return rows[:, :k]
+
+
+@pytest.mark.parametrize("n,k,m", [(17, 40, 33), (128, 128, 128),
+                                   (300, 100, 260), (1, 9, 1), (65, 363, 96),
+                                   (16, 4096, 1000), (70, 65, 130)])
+@pytest.mark.parametrize("relu,emit_int32", [(False, False), (True, False),
+                                             (True, True)])
+def test_k_major_w_matches_plain_version(gen, n, k, m, relu, emit_int32):
+    """The same cases with w K-major and x in 16-byte rows: the wgmma
+    paths (N <= 64 small, else large), bit for bit."""
+    x = _patch_rows(gen, n, k)
+    w = k_major_view(_int(gen, (k, m), -128, 128))
+    shift = _int(gen, (m,), -31, 32, torch.int32)
+    bias = _int(gen, (m,), -2 ** 30, 2 ** 30, torch.int32)
+    got, path = _path_of(lambda: gemm_int8(x, w, shift, bias, relu=relu,
+                                           emit_int32=emit_int32))
+    assert path == ("small_n" if n <= 64 else "large_n")
+    assert torch.equal(got, ref.gemm_int8_ref(x, w, shift, bias, relu=relu,
+                                              emit_int32=emit_int32))
+
+
+# Forced tilings at the edges: (N, K, M, plan). Small N at 1, 16, 17 and
+# 64, wider than one tile; a K that ends inside a stage; M ragged against
+# every width; 64- and 128-row tiles, one or several column tiles; every
+# tiling the kernels are built for (``kernel.plans``).
+PLAN_CASES = [
+    (1, 1000, 1000, Plan("small_n", 16, 1)),
+    (16, 4000, 1000, Plan("small_n", 16, 1)),
+    (17, 4100, 97, Plan("small_n", 32, 1)),
+    (64, 1000, 1000, Plan("small_n", 64, 1)),
+    (65, 1000, 96, Plan("small_n", 64, 1)),         # two B tiles
+    (65, 1000, 1000, Plan("large_n", 64, 1)),
+    (300, 1700, 184, Plan("large_n", 64, 1)),
+    (300, 1700, 184, Plan("large_n", 64, 2)),
+    (300, 700, 520, Plan("large_n", 128, 2)),
+    (1000, 27, 64, Plan("large_n", 64, 2)),
+    (700, 3000, 130, Plan("large_n", 64, 1)),
+    (700, 3000, 130, Plan("large_n", 96, 2)),
+    (700, 3000, 130, Plan("large_n", 128, 2)),
+]
+
+
+@pytest.mark.parametrize("N,K,M,plan", PLAN_CASES,
+                         ids=[f"{c[0]}x{c[1]}x{c[2]}-{c[3].path}-{c[3].width}"
+                              f"-{c[3].warpgroups}" for c in PLAN_CASES])
+@pytest.mark.parametrize("relu,emit_int32", [(True, False), (False, True)])
+def test_wgmma_plans_at_their_edges(gen, monkeypatch, N, K, M, plan, relu,
+                                    emit_int32):
+    """Each tiling forced in place of ``plan_for``'s, bit for bit."""
+    monkeypatch.setattr(gemm_kernel, "plan_for", lambda *shape: plan)
+    x = _patch_rows(gen, N, K)
+    w = k_major_view(_int(gen, (K, M), -128, 128))
+    shift = _int(gen, (M,), -20, 32, torch.int32)
+    bias = _int(gen, (M,), -2 ** 30, 2 ** 30, torch.int32)
+    got, path = _path_of(lambda: gemm_int8(x, w, shift, bias, relu=relu,
+                                           emit_int32=emit_int32))
+    assert path == plan.path
+    assert torch.equal(got, ref.gemm_int8_ref(x, w, shift, bias, relu=relu,
+                                              emit_int32=emit_int32))
+
+
+def test_wgmma_reaches_the_int32_rails():
+    """K = 65536 with all-equal rows and columns puts the accumulators at
+    2^30 and -2^30 + 2^23; the biases carry them exactly onto INT32_MAX
+    and INT32_MIN, through the small-N kernel (256 K stages a block)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    K = 65536
+    rows = torch.tensor([-128, 127, 0, 1, -1], dtype=torch.int8)
+    x = rows[:, None].expand(5, K).contiguous().cuda()
+    w = k_major_view(torch.cat([torch.full((K, 63), -128, dtype=torch.int8),
+                                torch.full((K, 63), 127, dtype=torch.int8)],
+                               dim=1).cuda())
+    shift = torch.cat([torch.arange(-31, 32)] * 2).to(torch.int32).cuda()
+    i32 = torch.iinfo(torch.int32)
+    bias = torch.cat([torch.full((63,), i32.max - 2 ** 30),
+                      torch.full((63,), i32.min + 2 ** 30 - 2 ** 23)]).to(
+        torch.int32).cuda()
+    for relu in (False, True):
+        for emit_int32 in (False, True):
+            got, path = _path_of(lambda: gemm_int8(
+                x, w, shift, bias, relu=relu, emit_int32=emit_int32))
+            assert path == "small_n"
+            assert torch.equal(got, ref.gemm_int8_ref(
+                x, w, shift, bias, relu=relu, emit_int32=emit_int32))
+    acc = gemm_int8(x, w, shift, bias, emit_int32=True)
+    assert int(acc[0, 0]) == i32.max and int(acc[0, 63]) == i32.min
+
+
+def test_unaligned_views_take_the_dp4a_kernel(gen):
+    """What TMA cannot take goes to the first design, still exact: an x
+    off a 16-byte boundary, K-major w rows of a stride off 16 bytes, a
+    row-major w."""
+    xf = _int(gen, (50, 301), -128, 128)
+    wf = _int(gen, (90, 310), -128, 128)            # [M, K + 10] rows
+    shift = _int(gen, (90,), 0, 16, torch.int32)
+    w_k = wf[:, :300].t()                           # stride 310 along M
+    for x, w in [(xf[:, 1:], k_major_view(wf[:, :300].t().contiguous())),
+                 (xf[:, :300], w_k),
+                 (xf[:, :300], w_k.contiguous())]:
+        got, path = _path_of(lambda: gemm_int8(x, w, shift, relu=True))
+        assert path == "dp4a"
+        assert torch.equal(got, ref.gemm_int8_ref(x, w, shift, relu=True))
+
+
+def test_alexnet_chain_runs_on_the_wgmma_paths():
+    """One batch of full-width AlexNet on the kernel route: 11 launches,
+    the 8 conv launches on the large-N kernels, fc6-fc8 on the small-N
+    one, none on dp4a; the accumulators equal the oracle route's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    from repro_torch.serving.server import (compile_for_serving,
+                                            synthetic_stream)
+    prog = compile_for_serving("alexnet", device="cuda")
+    runner = prog.compile_runner(route="kernel")
+    xq = torch.as_tensor(runner.quantize(synthetic_stream("alexnet", 4)),
+                         device="cuda")
+    before = dict(gemm_int8.launches_by_path)
+    acc = runner(xq)
+    torch.cuda.synchronize()
+    ran = {p: n - before[p] for p, n in gemm_int8.launches_by_path.items()}
+    assert ran == {"large_n": 8, "small_n": 3, "dp4a": 0}
+    assert torch.equal(acc, prog.compile_runner(route="oracle")(xq))
 
 
 def test_grouped_conv_launches_once_per_group(gen):

@@ -8,6 +8,9 @@ reference's, fed the same numpy weights and frames.
   ``oracle`` route's, and the top-1 ids match.
 * ``float_forward`` agrees at rtol 1e-4 / atol 1e-5: the two frameworks
   sum the float32 products in other orders, and that is the only cause.
+* The K-major weights the kernel route reads (``EngineStep.wk``) hold
+  ``wq``'s values, and the kernel route of a reduced AlexNet and a reduced
+  VGG16 equals the reference's (Pallas, interpret mode) bit for bit.
 """
 
 import jax.numpy as jnp
@@ -231,3 +234,108 @@ def test_cnn_forward_float_and_quantized_match_reference():
         got = cnn_t.forward(pt, mt, calib, quantized=True,
                             use_kernel=use_kernel)
         np.testing.assert_array_equal(got.numpy(), want)
+
+
+def _reduced_alexnet(L):
+    """AlexNet's graph at 227 x 227 with every width cut: the 11 x 11
+    stride-4 stem (K = 363, rows padded to 368 on the kernel route), the
+    grouped two-tower convs, the pools' explicit sizes, three fc layers."""
+    C = L.ConvLayer
+    return L.CNNModel("alexnet-reduced", 227, 3, (
+        C("conv1", 3, 8, 11, stride=4, out_size=55),
+        C("pool1", 8, 8, 3, stride=2, kind="pool", out_size=27),
+        C("conv2", 8, 16, 5, groups=2, out_size=27),
+        C("pool2", 16, 16, 3, stride=2, kind="pool", out_size=13),
+        C("conv3", 16, 24, 3, out_size=13),
+        C("conv4", 24, 24, 3, groups=2, out_size=13),
+        C("conv5", 24, 16, 3, groups=2, out_size=13),
+        C("pool5", 16, 16, 3, stride=2, kind="pool", out_size=6),
+        C("fc6", 16 * 6 * 6, 32, 1, kind="fc"),
+        C("fc7", 32, 32, 1, kind="fc"),
+        C("fc8", 32, 10, 1, kind="fc"),
+    ))
+
+
+def _reduced_vgg16(L):
+    """VGG16's graph (blocks of 2, 2, 3, 3, 3 convs, each closed by a
+    2 x 2 pool, then three fc layers) at 32 x 32 with widths cut; conv1_1
+    keeps K = 27 (rows padded to 32 on the kernel route)."""
+    layers = []
+    for i, (n, cin, cout) in enumerate(
+            [(2, 3, 8), (2, 8, 16), (3, 16, 16), (3, 16, 24), (3, 24, 24)], 1):
+        layers += [L.ConvLayer(f"conv{i}_{j + 1}", cin if j == 0 else cout,
+                               cout, 3) for j in range(n)]
+        layers.append(L.ConvLayer(f"pool{i}", cout, cout, 2, stride=2,
+                                  kind="pool"))
+    layers += [L.ConvLayer("fc6", 24, 32, 1, kind="fc"),
+               L.ConvLayer("fc7", 32, 32, 1, kind="fc"),
+               L.ConvLayer("fc8", 32, 10, 1, kind="fc")]
+    return L.CNNModel("vgg16-reduced", 32, 3, tuple(layers))
+
+
+REDUCED = {"alexnet": _reduced_alexnet, "vgg16": _reduced_vgg16}
+
+
+def _reduced(name, frames):
+    mj, mt = REDUCED[name](W), REDUCED[name](Wt)
+    params = cnn_t.init_params_np(mt, seed=5)
+    rng = np.random.default_rng(7)
+    for p in params.values():
+        p["b"] = (rng.standard_normal(p["b"].shape) * 0.1).astype(np.float32)
+    shape = (frames, mt.input_hw, mt.input_hw, 3)
+    calib = rng.standard_normal((1, *shape[1:])).astype(np.float32)
+    x = rng.standard_normal(shape).astype(np.float32)
+    return mj, mt, params, calib, x
+
+
+@pytest.mark.parametrize("name", ["tiny", "alexnet", "vgg16"])
+def test_k_major_weights_hold_wq_per_group(name):
+    """``wk`` is a view of wq's shape and values whose stride along K is 1,
+    over [M, K16] rows (K16 the next multiple of 16); each group's rows
+    are that group's weights transposed, and the padding is zero."""
+    if name == "tiny":
+        _, mt, params, calib, _ = _tiny()
+    else:
+        _, mt, params, calib, _ = _reduced(name, 1)
+    pt = prog_t.compile_model(mt, cnn_t.params_from_numpy(params, "cpu"),
+                              calib_batch=calib, device="cpu")
+    for st in pt.steps:
+        if st.kind == "pool":
+            continue
+        M = st.wq.shape[-1]
+        K = st.wq.numel() // M
+        k16 = -(-K // 16) * 16
+        assert torch.equal(st.wk, st.wq)
+        assert st.wk.stride()[-1] == k16 and st.wk.stride()[-2] == 1
+        rows = torch.as_strided(st.wk, (M, k16), (k16, 1))
+        groups = st.layer.groups
+        mg = M // groups
+        for g in range(groups):
+            wg = st.wq[..., g * mg:(g + 1) * mg].reshape(K, mg)
+            assert torch.equal(rows[g * mg:(g + 1) * mg, :K], wg.t())
+            view = st.wk[..., g * mg:(g + 1) * mg].reshape(K, mg)
+            assert view.stride() == (1, k16)
+            assert view.data_ptr() == rows.data_ptr() + g * mg * k16
+        assert not rows[:, K:].any(), st.name
+
+
+@pytest.mark.parametrize("name", ["alexnet", "vgg16"])
+def test_reduced_kernel_route_matches_reference_kernel_route(name):
+    """The kernel route (K-major weights, 16-byte patch rows; the plain
+    version on CPU tensors) against the reference's kernel route (the
+    Pallas kernel in interpret mode) on the same numpy weights and frames:
+    the lowered fields and the int32 accumulators equal bit for bit."""
+    mj, mt, params, calib, frames = _reduced(name, 2)
+    pj, pt = _compile_both(mj, mt, params, calib)
+    _assert_lowered_equal(pj, pt)
+    rj = pj.compile_runner(route="kernel", interpret=True)
+    xq = rj.quantize(frames)
+    want = np.asarray(rj(xq))
+    assert want.shape == (2, 10) and want.dtype == np.int32
+    rt = pt.compile_runner(route="kernel")
+    np.testing.assert_array_equal(rt.quantize(frames), xq)
+    got = rt(xq)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+    oracle = pt.compile_runner(route="oracle")(xq)
+    assert torch.equal(oracle, got)
