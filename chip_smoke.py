@@ -34,7 +34,19 @@ line:
    the host cost of one ``gemm_int8`` call on either path); then one
    batch of full-width VGG16 through the kernel (13 + 3 launches),
    oracle and f32 routes, identical int32, with its chain's wall time,
-   device time by kernel and idle share;
+   device time by kernel and idle share; then the layer-pipelined serving
+   path (phase ``pipeline``): full-width AlexNet through ``serve_async``
+   at K = 1, 2 and 4 stages and through the replica pool at R = 2, K = 2
+   on the one card, each with its partition, steady fps beside the single
+   executor's in the same run, open-loop p50/p95/p99, launches by path
+   (8 ``large_n`` + 3 ``small_n`` a batch summed over the stages, no
+   ``dp4a``), every frame's top-1 (on one pass its logits) identical to
+   the single executor's and the oracle route's; closed-loop fps of the
+   single executor and each config measured in turns, with the device's
+   idle share; full-width VGG16 through ``PipelineExecutor`` at K = 2 and
+   4 with int32 identical to the whole chain and the oracle route (13 + 3
+   launches a batch); ``simulate()``
+   for the four paper models beside the modeled fps;
 4. ``flash_attention`` against its plain version on the card: the
    reference's test shapes (2e-5 in float32, 3e-2 in bfloat16, and each
    output row within a fraction of its own RMS), a query
@@ -119,8 +131,12 @@ from repro_torch.launch import steps as lm_steps  # noqa: E402
 from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models import recurrent as R  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
+from repro_torch.core.program import compile_model  # noqa: E402
+from repro_torch.core.simulator import simulate  # noqa: E402
+from repro_torch.serving import PipelineExecutor  # noqa: E402
 from repro_torch.serving.server import (compile_for_serving,  # noqa: E402
-                                        serve, synthetic_stream)
+                                        make_executor, serve, serve_async,
+                                        synthetic_stream)
 
 # Published dense peaks (NVIDIA data sheets), at the card's full power
 # limit: int8 and bf16 tensor-core op/s, device-memory bytes/s.
@@ -161,6 +177,17 @@ def gemm_shapes(model_name: str, batch: int) -> list:
 
 
 SERVE_FRAMES, SERVE_BATCH = 64, 16
+# The pipeline phase: AlexNet served through serve_async at each (K
+# stages, R replicas) on the one card, 8 batches a stream; VGG16 through
+# PipelineExecutor at each K, 2 batches a pass.
+PIPE_FRAMES = 128
+# The closed-loop comparison in turns: a longer stream (32 batches) per
+# pass, PIPE_ROUNDS passes per executor, order reversed every other round.
+PIPE_TURN_FRAMES, PIPE_ROUNDS = 512, 5
+PIPE_CONFIGS = ((1, 1), (2, 1), (4, 1), (2, 2))
+PIPE_LOGITS = (2, 1)            # the config whose logits are compared
+VGG_PIPE_STAGES = (2, 4)
+VGG_PIPE_BATCHES = 2
 GEMM_MODELS = ("alexnet", "vgg16")
 # The first design's per-shape times at AlexNet batch 16 (__dp4a, 64 x 64
 # tiles; cold L2, median of 10), recorded by this script on an NVIDIA
@@ -1045,6 +1072,255 @@ def phase_vgg16() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 3b: the layer-pipelined serving path (stage partition, stage
+# workers, async frontend, replica pool)
+# ---------------------------------------------------------------------------
+
+
+def _paths_per_batch(by_path: dict, batches: int) -> dict:
+    return {p: n / batches for p, n in by_path.items()} if batches else {}
+
+
+def _stage_ms_per_batch(ex) -> list | None:
+    """Each stage's busy time per batch over the turns (its launches plus
+    the wait on its event; a pool's replicas summed by stage), or None
+    for the single executor."""
+    reps = getattr(ex, "replicas", [ex])
+    if not hasattr(reps[0], "stage_busy_s"):
+        return None
+    batches = sum(r.stats.batches for r in reps)
+    busy = [sum(r.stage_busy_s[i] for r in reps)
+            for i in range(len(reps[0].stage_busy_s))]
+    return [1e3 * b / batches for b in busy]
+
+
+def _pipeline_turns(prog, stream) -> dict:
+    """Closed-loop fps of the single executor and of every pipelined
+    config, measured in turns on the same warm executors: ``PIPE_ROUNDS``
+    rounds, each timing one pass over ``stream`` per executor (host
+    clock around ``serve``, which returns once every output is on the
+    host), the order reversed every other round. Then one pass each
+    under ``torch.profiler`` for the device's busy time, against the
+    median unprofiled wall: the idle share. Each pipelined config also
+    reports its stages' busy time per batch over the turns. Launches made
+    here are not counted (the counts were read before)."""
+    from statistics import median
+    frames = list(stream)
+    exs = {"single": EngineExecutor(prog, batch_size=SERVE_BATCH)}
+    try:
+        for k, r in PIPE_CONFIGS:
+            exs[f"K{k}R{r}"] = ex = make_executor(
+                prog, stages=k, batch=SERVE_BATCH, route=None,
+                output="top1", replicas=r)
+            ex.start()
+        walls = {name: [] for name in exs}
+        for ex in exs.values():
+            ex.serve(frames[:2 * SERVE_BATCH])           # warm every stage
+            ex.reset_stats()
+        for rnd in range(PIPE_ROUNDS):
+            order = list(exs) if rnd % 2 == 0 else list(exs)[::-1]
+            for name in order:
+                t0 = time.perf_counter()
+                exs[name].serve(frames)
+                walls[name].append(time.perf_counter() - t0)
+        rows = {}
+        for name, ex in exs.items():
+            stage_ms = _stage_ms_per_batch(ex)
+            ops = _device_ops(lambda: ex.serve(frames))
+            busy_ms = sum(us for _, us, _ in ops) / 1e3
+            wall_ms = 1e3 * median(walls[name])
+            fps = sorted(len(frames) / w for w in walls[name])
+            rows[name] = {"fps_median": median(fps), "fps_min": fps[0],
+                          "fps_max": fps[-1], "fps": fps,
+                          "device_busy_ms_per_batch":
+                              busy_ms * SERVE_BATCH / len(frames),
+                          "device_idle_share": max(0.0,
+                                                   1.0 - busy_ms / wall_ms),
+                          "stage_ms_per_batch": stage_ms}
+    finally:
+        for ex in exs.values():
+            close = getattr(ex, "close", None)
+            if close is not None:
+                close()
+    return rows
+
+
+class _CaptureAcc:
+    """A last-stage runner that keeps the raw int32 accumulators the
+    collector receives before dequantizing them (in batch order: the
+    collector is FIFO)."""
+
+    def __init__(self, runner):
+        self.runner = runner
+        self.accs: list = []
+
+    def __call__(self, x):
+        return self.runner(x)
+
+    def __getattr__(self, attr):
+        return getattr(self.runner, attr)
+
+    def dequantize(self, acc):
+        self.accs.append(acc.clone())
+        return self.runner.dequantize(acc)
+
+
+def _vgg16_pipeline() -> list:
+    """Full-width VGG16 through ``PipelineExecutor`` at each K of
+    ``VGG_PIPE_STAGES``: the int32 accumulators every batch reaches the
+    collector with equal the whole chain's (``compile_runner``) and the
+    oracle route's on the same frames, and each batch launches 13
+    ``large_n`` + 3 ``small_n`` kernels summed over the stages."""
+    prog = compile_for_serving("vgg16", seed=0, device="cuda")
+    n = VGG_PIPE_BATCHES * SERVE_BATCH
+    frames = synthetic_stream("vgg16", n, 0)
+    whole = prog.compile_runner(route="kernel")
+    oracle = prog.compile_runner(route="oracle")
+    batches = [frames[i:i + SERVE_BATCH] for i in range(0, n, SERVE_BATCH)]
+    want = [whole(whole.quantize(b)) for b in batches]
+    want_oracle = [oracle(oracle.quantize(b)) for b in batches]
+    torch.cuda.synchronize()
+    if not all(torch.equal(w, o) for w, o in zip(want, want_oracle)):
+        raise SmokeFailure("VGG16's whole chain disagrees with the oracle "
+                           "route on the pipeline's frames")
+    del want_oracle
+    rows = []
+    for k in VGG_PIPE_STAGES:
+        px = PipelineExecutor(prog, stages=k, batch_size=SERVE_BATCH,
+                              output="logits")
+        cap = px.runners[-1] = _CaptureAcc(px.runners[-1])
+        try:
+            reset_launches()
+            px.serve(list(frames))
+            torch.cuda.synchronize()
+            by_path = dict(gemm_int8.launches_by_path)
+        finally:
+            px.close()
+        expect = {"large_n": 13 * VGG_PIPE_BATCHES,
+                  "small_n": 3 * VGG_PIPE_BATCHES, "dp4a": 0}
+        identical = len(cap.accs) == len(want) and all(
+            a.dtype == torch.int32 and torch.equal(a, w)
+            for a, w in zip(cap.accs, want))
+        row = {"phase": "pipeline_vgg16", "stages": k,
+               "boundaries": list(px.partition.boundaries),
+               "stage_cycles": list(px.partition.stage_cycles),
+               "stage_balance": px.partition.balance, "route": px.route,
+               "batches": len(cap.accs), "launches_by_path": by_path,
+               "expected_by_path": expect,
+               "int32_identical_to_whole_chain": identical,
+               "whole_chain_identical_to_oracle": True,
+               "stage_busy_ms": [1e3 * t for t in px.stage_busy_s]}
+        emit(row)
+        if not (identical and by_path == expect and px.route == "kernel"):
+            raise SmokeFailure(f"VGG16 pipeline check failed: {row}")
+        rows.append(row)
+    return rows
+
+
+def phase_pipeline() -> dict:
+    """Full-width AlexNet (batch 16, seed 0, the default route) served
+    through ``serve_async`` at K = 1, 2 and 4 stages and through the
+    replica pool at R = 2, K = 2, on the one card: partition, steady fps
+    beside the single executor's in the same run, the open-loop p50, p95
+    and p99, launches by path (8 ``large_n`` + 3 ``small_n`` a batch
+    summed over the stages, no ``dp4a``), every served frame's top-1
+    (and on one pass its logits) identical to the single executor's and
+    the oracle route's; then
+    the closed-loop fps of the single executor and every config in turns
+    on one warm set of executors, with the device's idle share (line
+    ``pipeline_turns``). Then full-width VGG16
+    through ``PipelineExecutor`` at K = 2 and 4 (int32 identical to the
+    whole chain), and ``simulate()`` for the four paper models beside
+    ``program.fps()`` (no device work)."""
+    single = serve("alexnet", frames=PIPE_FRAMES, batch=SERVE_BATCH,
+                   output="logits", device="cuda", verbose=False,
+                   return_outputs=True)
+    base = single.pop("outputs")
+    base_top1 = base.argmax(-1)
+    # The oracle route of the same seeded program on the same frames: the
+    # single executor and every pipelined config are held against it too.
+    prog = compile_for_serving("alexnet", seed=0, device="cuda")
+    stream = synthetic_stream("alexnet", PIPE_FRAMES, 0)
+    oracle = prog.compile_runner(route="oracle")
+    want = np.concatenate([oracle.logits(stream[i:i + SERVE_BATCH])
+                           for i in range(0, PIPE_FRAMES, SERVE_BATCH)])
+    single_row = {"phase": "pipeline_single_executor",
+                  "measured_steady_fps": single["measured_steady_fps"],
+                  "frames": single["frames"], "batches": single["batches"],
+                  "logits_identical_to_oracle": bool(
+                      np.array_equal(base, want))}
+    emit(single_row)
+    if not single_row["logits_identical_to_oracle"]:
+        raise SmokeFailure(f"single executor disagrees with the oracle "
+                           f"route: {single_row}")
+    launches, rows = 0, []
+    for k, r in PIPE_CONFIGS:
+        logits = (k, r) == PIPE_LOGITS
+        reset_launches()
+        res = serve_async("alexnet", frames=PIPE_FRAMES, batch=SERVE_BATCH,
+                          stages=k, replicas=r, program=prog,
+                          output="logits" if logits else "top1",
+                          verbose=False, return_outputs=True)
+        torch.cuda.synchronize()
+        by_path = dict(gemm_int8.launches_by_path)
+        count = gemm_int8.launches
+        outs = res.pop("outputs")
+        res.pop("replica_rows", None)
+        n = res["batches_run"]
+        expect = {"large_n": 8 * n, "small_n": 3 * n, "dp4a": 0}
+        top1 = outs.argmax(-1) if logits else outs
+        row = {"phase": "pipeline", "config": f"K{k}R{r}", **res,
+               "single_executor_steady_fps":
+                   single["measured_steady_fps"],
+               "gemm_int8_launches": count,
+               "launches_by_path": by_path, "expected_by_path": expect,
+               "launches_per_batch": _paths_per_batch(by_path, n),
+               "top1_identical": bool(np.array_equal(top1, base_top1)),
+               "top1_identical_to_oracle": bool(
+                   np.array_equal(top1, want.argmax(-1))),
+               "logits_identical": (bool(np.array_equal(outs, base))
+                                    if logits else None),
+               "logits_identical_to_oracle": (
+                   bool(np.array_equal(outs, want)) if logits else None)}
+        emit(row)
+        ok = (res["route"] == "kernel" and by_path == expect
+              and row["top1_identical"]
+              and row["top1_identical_to_oracle"]
+              and row["logits_identical"] is not False
+              and row["logits_identical_to_oracle"] is not False
+              and res["stages"] == k and res["replicas"] == r
+              and len(outs) == PIPE_FRAMES)
+        if not ok:
+            raise SmokeFailure(f"pipelined AlexNet check failed: {row}")
+        launches += count
+        rows.append(row)
+    turns = _pipeline_turns(
+        prog, synthetic_stream("alexnet", PIPE_TURN_FRAMES, 1))
+    emit({"phase": "pipeline_turns", "frames": PIPE_TURN_FRAMES,
+          "rounds": PIPE_ROUNDS, "configs": turns})
+    del prog
+    torch.cuda.empty_cache()
+    vgg = _vgg16_pipeline()
+    sims = []
+    for name in ("alexnet", "vgg16", "zf", "yolo"):
+        m = CNN_MODELS[name]()
+        plan = compile_model(m, theta=2 * 900 - len(m.layers),
+                             bram_total=None, device="cpu")
+        sim = simulate(plan, n_frames=3)
+        sims.append({"model": name, "gop": plan.gop,
+                     "modeled_fps_alg1": plan.fps(),
+                     "simulated_fps": plan.freq_hz / sim.steady_cycles,
+                     "simulated_frame_cycles": sim.frame_cycles,
+                     "simulated_steady_cycles": sim.steady_cycles,
+                     "dsp_efficiency": sim.dsp_efficiency})
+    emit({"phase": "pipeline_simulator", "models": sims})
+    return {"launches": launches, "rows": rows, "turns": turns,
+            "vgg16": vgg, "batches": sum(r["batches_run"] for r in rows),
+            "vgg16_launches": sum(sum(r["launches_by_path"].values())
+                                  for r in vgg)}
+
+
+# ---------------------------------------------------------------------------
 # Phase 4: flash_attention against its plain version
 # ---------------------------------------------------------------------------
 
@@ -1759,6 +2035,8 @@ def main() -> int:
         main_path = phase_main_path()
         vgg = phase_vgg16()
         torch.cuda.empty_cache()
+        pipeline = phase_pipeline()
+        torch.cuda.empty_cache()
         flash = phase_flash(env)
         lm = phase_lm_forward()
         phase_lm_serve(lm)
@@ -1779,11 +2057,31 @@ def main() -> int:
         print("chip_smoke: FAILED", file=sys.stderr)
         return 1
     rg_cfg = ARCHS[RG_ARCH]
-    launches_of = {"alexnet": main_path["launches"],
-                   "vgg16": vgg["launches"]}
+    # Each gemm_int8 entry's "launches" is its own path's run (counts set
+    # to 0 just before it). The pipeline phase's launches (counts set to
+    # 0 before each config, summed over its stage threads) stand beside
+    # them under "launches_on", keyed by their own path.
+    pipe_configs = ", ".join(f"K{k}R{r}" for k, r in PIPE_CONFIGS)
+    launches_on = {
+        "alexnet": {"alexnet": main_path["launches"],
+                    "alexnet-pipeline": pipeline["launches"]},
+        "vgg16": {"vgg16": vgg["launches"],
+                  "vgg16-pipeline": pipeline["vgg16_launches"]}}
+    launches_per = {
+        "alexnet-pipeline": f"serve_async at {pipe_configs}: "
+                            f"{pipeline['batches']} batches of "
+                            f"{SERVE_BATCH} (calibration and open loop), "
+                            f"11 launches each",
+        "vgg16-pipeline": f"PipelineExecutor at K "
+                          f"{', '.join(map(str, VGG_PIPE_STAGES))}: "
+                          f"{VGG_PIPE_BATCHES} batches of {SERVE_BATCH} "
+                          f"each, 16 launches a batch"}
     kernels = [{
         "name": "gemm_int8", "route": "cuda", "source": GEMM_SOURCE,
-        "replaces": GEMM_REPLACES, "launches": launches_of[model],
+        "replaces": GEMM_REPLACES,
+        "launches": launches_on[model][model],
+        "launches_on": launches_on[model],
+        "launches_on_per": launches_per[f"{model}-pipeline"],
         **{k: gemm[model][k] for k in ("max_abs_err", "ms", "plain_ms",
                                        "bound_ms", "bound_by",
                                        "library_ms")},

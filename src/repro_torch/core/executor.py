@@ -26,8 +26,9 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import threading
 import time
-from typing import Iterable
+from typing import Callable, Iterable
 
 import numpy as np
 import torch
@@ -121,15 +122,27 @@ class EngineExecutor:
 
     def __init__(self, program: EngineProgram, *, batch_size: int = 32,
                  route: str | None = None, output: str = "top1",
-                 max_inflight: int = DEFAULT_MAX_INFLIGHT):
+                 max_inflight: int = DEFAULT_MAX_INFLIGHT,
+                 on_result: Callable[[object, np.ndarray], None]
+                 | None = None):
         if output not in ("top1", "logits"):
             raise ValueError(f"unknown output {output!r}")
         self.program = program
         self.batch_size = int(batch_size)
         self.output = output
+        self.on_result = on_result
+        # Protocol slot only: this executor raises synchronously from
+        # submit_batch / flush_inflight, so the callback is never fired.
+        self.on_error: Callable[[object, BaseException], None] | None = None
         self.runner: CompiledRunner = program.compile_runner(route=route)
         self.stats = ServeStats()
         self.stats._first_n = self.batch_size
+        # One lock serializes the pending micro-batch, the in-flight
+        # queue, and stats, so several producer threads (the async
+        # frontend's batcher plus direct callers) can feed one executor.
+        # Re-entrant because _dispatch collects under the same lock when
+        # back-pressured.
+        self._lock = threading.RLock()
         self._pending: list[np.ndarray] = []
         self._inflight: collections.deque = collections.deque()
         self._max_inflight = max(1, int(max_inflight))
@@ -149,17 +162,53 @@ class EngineExecutor:
         """Queue one float frame ``[H, W, C]`` (or a pre-batched
         ``[N, H, W, C]`` chunk); dispatches whenever ``batch_size``
         frames are buffered."""
-        for f in normalize_frames(self.program, frame):
-            self._pending.append(f)
-            if len(self._pending) >= self.batch_size:
-                self._dispatch(self._pending[:self.batch_size])
-                self._pending = self._pending[self.batch_size:]
+        frames = normalize_frames(self.program, frame)
+        with self._lock:
+            for f in frames:
+                self._pending.append(f)
+                if len(self._pending) >= self.batch_size:
+                    self._dispatch(self._pending[:self.batch_size])
+                    self._pending = self._pending[self.batch_size:]
+
+    def submit_batch(self, frames: np.ndarray, n_valid: int,
+                     tag: object = None) -> None:
+        """Dispatch one pre-assembled micro-batch ``[B, H, W, C]``
+        directly (padded with zero frames to the batch size if short),
+        bypassing the pending buffer — the entry point the async
+        frontend's batcher uses. ``tag`` is handed to ``on_result`` with
+        this batch's outputs. Thread-safe; blocks when ``max_inflight``
+        batches are already on the device."""
+        batch = pad_micro_batch(self.program, frames, self.batch_size)
+        with self._lock:
+            self._dispatch(batch, n_valid=n_valid, tag=tag)
+
+    def flush_inflight(self) -> None:
+        """Collect every dispatched micro-batch (delivering their
+        ``on_result`` callbacks) without flushing the pending tail."""
+        with self._lock:
+            while self._inflight:
+                self._collect_one()
 
     def serve(self, frames: Iterable[np.ndarray]) -> list[np.ndarray]:
         """Convenience: submit a finite stream and drain."""
         for f in frames:
             self.submit(f)
         return self.drain()
+
+    def reset_stats(self) -> None:
+        """Zero the serve statistics (between drains, not mid-stream:
+        with batches still in flight the window split would be
+        meaningless)."""
+        with self._lock:
+            if self._inflight or self._pending:
+                raise RuntimeError("reset_stats with work in flight")
+            self.stats = ServeStats()
+            self.stats._first_n = self.batch_size
+            self._t0 = None
+
+    def replica_counts(self) -> list | None:
+        """Protocol conformance: a single chain is not a replica fleet."""
+        return None
 
     # -- the overlap core ----------------------------------------------------
 
@@ -177,11 +226,13 @@ class EngineExecutor:
         buf.numpy()[...] = xq
         return buf.to(self.program.device, non_blocking=True)
 
-    def _dispatch(self, frames, n_valid: int | None = None):
+    def _dispatch(self, frames, n_valid: int | None = None,
+                  tag: object = None):
         """Host quantize-in + asynchronous launch of one micro-batch (a
-        list of frames from the pending buffer, or the padded
-        ``[B, H, W, C]`` tail). Blocks only when ``max_inflight`` batches
-        are already on device (the double-buffer back-pressure)."""
+        list of frames from the pending buffer, or an already-stacked
+        ``[B, H, W, C]`` array). Blocks only when ``max_inflight`` batches
+        are already on device (the double-buffer back-pressure). Caller
+        holds the lock."""
         if self._t0 is None:
             self._t0 = time.perf_counter()
         while len(self._inflight) >= self._max_inflight:
@@ -202,42 +253,50 @@ class EngineExecutor:
             if done is not None:
                 done.synchronize()
             self.stats.first_batch_s = time.perf_counter() - t0
-        self._inflight.append((acc, done, n))
+        self._inflight.append((acc, done, n, tag))
         self.stats.batches += 1
         self.stats.frames += n
         self.stats.padded_frames += len(frames) - n
 
     def _collect_one(self) -> None:
         """Wait for the oldest in-flight batch and argmax/dequant it on the
-        host — this runs while newer batches compute on device."""
-        acc, done, n = self._inflight.popleft()
+        host — this runs while newer batches compute on device. Tagged
+        batches go to ``on_result``; untagged ones accumulate for
+        :meth:`drain`."""
+        acc, done, n, tag = self._inflight.popleft()
         if done is not None:
             done.synchronize()
         out = self.runner.dequantize(acc)[:n]
         if self.output == "top1":
             out = np.argmax(out.reshape(n, -1), axis=-1)
-        self._results.append(out)
+        if tag is not None and self.on_result is not None:
+            self.on_result(tag, out)
+        else:
+            self._results.append(out)
 
     # -- drain ---------------------------------------------------------------
 
     def drain(self) -> list[np.ndarray]:
         """Flush the partial tail (padded to the batch shape), collect
-        everything, and return per-frame outputs in submission order."""
-        if self._pending:
-            tail = np.stack(self._pending)
-            self._pending = []
-            self._dispatch(pad_micro_batch(self.program, tail,
-                                           self.batch_size),
-                           n_valid=len(tail))
-        while self._inflight:
-            self._collect_one()
-        if self._t0 is not None:
-            # Accumulate only the active window; a later submit() opens a
-            # fresh one, so host idle between drains never counts.
-            self.stats.wall_s += time.perf_counter() - self._t0
-            self._t0 = None
-        results = self._results
-        self._results = []
+        everything, and return per-frame outputs in submission order.
+        Thread-safe."""
+        with self._lock:
+            if self._pending:
+                tail = np.stack(self._pending)
+                self._pending = []
+                self._dispatch(pad_micro_batch(self.program, tail,
+                                               self.batch_size),
+                               n_valid=len(tail))
+            while self._inflight:
+                self._collect_one()
+            if self._t0 is not None:
+                # Accumulate only the active window; a later submit()
+                # opens a fresh one, so host idle between drains never
+                # counts.
+                self.stats.wall_s += time.perf_counter() - self._t0
+                self._t0 = None
+            results = self._results
+            self._results = []
         if not results:
             return []
         flat = np.concatenate(results, axis=0)

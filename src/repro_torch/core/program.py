@@ -91,6 +91,20 @@ def resolve_device(device=None) -> torch.device:
     return torch.device(device)
 
 
+def same_device(a, b) -> bool:
+    """Whether two devices are one: ``cuda`` and ``cuda:<current>`` are."""
+    a, b = torch.device(a), torch.device(b)
+    if a.type != b.type:
+        return False
+    if a.type != "cuda" or a.index == b.index:
+        return True
+    if a.index is not None and b.index is not None:
+        return False
+    cur = torch.cuda.current_device()
+    return (cur if a.index is None else a.index) == \
+        (cur if b.index is None else b.index)
+
+
 @contextlib.contextmanager
 def exact_float32():
     """Run the block with TF32 off for float32 matmuls and cuDNN convs,
@@ -216,8 +230,16 @@ class EngineProgram:
     e_input: int = 0
     freq_hz: float = DEFAULT_FREQ
     device: torch.device = torch.device("cpu")
+    # The steps with their tensors on another device, made once per device
+    # a stage is placed on (:meth:`compile_stage_runner`).
+    _placed: dict = dataclasses.field(default_factory=dict, init=False,
+                                      repr=False, compare=False)
 
     # -- analytics ----------------------------------------------------------
+
+    @property
+    def gop(self) -> float:
+        return self.model.gop
 
     def frame_cycles(self) -> float:
         from repro_torch.core import throughput as T
@@ -292,18 +314,27 @@ class EngineProgram:
         return self.compile_stage_runner(0, len(self.steps), route=route)
 
     def compile_stage_runner(self, start: int, stop: int, *,
-                             route: str | None = None) -> "CompiledRunner":
+                             route: str | None = None,
+                             device=None) -> "CompiledRunner":
         """The contiguous step range ``[start, stop)`` as one runner — one
         *stage* of the layer-wise pipeline. Activations cross stage
         boundaries as the same int8 tensors the full chain passes between
         steps, so chained stage runners reproduce :meth:`compile_runner`
-        bit-exactly. ``compile_runner`` is the case ``[0, len(steps))``."""
+        bit-exactly. ``compile_runner`` is the case ``[0, len(steps))``.
+
+        ``device`` pins the stage to one ``torch.device`` (the counterpart
+        of the reference's ``jax.Device`` pin): its input is moved there
+        and its steps run on copies of their tensors made there once and
+        cached per device. A device that is the program's own (every stage
+        on one card) copies nothing. Placement never changes the
+        integers."""
         self._require_steps()
         if not (0 <= start < stop <= len(self.steps)):
             raise ValueError(
                 f"stage range [{start}, {stop}) outside the "
                 f"{len(self.steps)}-step chain")
-        steps = tuple(self.steps[start:stop])
+        device = self.device if device is None else torch.device(device)
+        steps = tuple(self.steps_on(device)[start:stop])
         route = self._resolve_route(route)
         step_fn = {"kernel": _step_kernel, "f32": _step_exact_f32,
                    "oracle": _step_oracle}[route]
@@ -316,7 +347,29 @@ class EngineProgram:
             return xq
 
         return CompiledRunner(program=self, route=route, fn=chain,
-                              start=start, stop=stop)
+                              start=start, stop=stop, device=device)
+
+    def steps_on(self, device) -> list[EngineStep]:
+        """The lowered steps with their tensors on ``device``: the
+        program's own on its device, else copies made at the first call
+        for that device. The K-major ``wk`` is remade from the copied
+        ``wq`` (a plain copy of the strided view would not be K-major)."""
+        self._require_steps()
+        device = torch.device(device)
+        if same_device(device, self.device):
+            return self.steps
+        key = str(device)
+        if key not in self._placed:
+            placed = []
+            for s in self.steps:
+                if s.kind != "pool":
+                    wq = s.wq.to(device)
+                    s = dataclasses.replace(
+                        s, wq=wq, wk=k_major_view(wq),
+                        bias_q=s.bias_q.to(device), shift=s.shift.to(device))
+                placed.append(s)
+            self._placed[key] = placed
+        return self._placed[key]
 
 
 @dataclasses.dataclass
@@ -338,10 +391,13 @@ class CompiledRunner:
     fn: Callable[[torch.Tensor], torch.Tensor]
     start: int = 0
     stop: int = -1          # -1 == len(program.steps) (whole chain)
+    device: torch.device | None = None     # None == program.device
 
     def __post_init__(self):
         if self.stop < 0:
             self.stop = len(self.program.steps)
+        if self.device is None:
+            self.device = self.program.device
 
     @property
     def is_first(self) -> bool:
@@ -364,10 +420,10 @@ class CompiledRunner:
             x, self.program.e_input, self.program.bits)
 
     def __call__(self, xq) -> torch.Tensor:
-        """Launch one quantized batch (numpy, or a tensor already on the
-        program's device) on the current stream; returns the output tensor
+        """Launch one quantized batch (numpy, or a tensor on any device) on
+        the runner's device's current stream; returns the output tensor
         without waiting for the device."""
-        return self.fn(torch.as_tensor(xq, device=self.program.device))
+        return self.fn(torch.as_tensor(xq, device=self.device))
 
     def dequantize(self, acc) -> np.ndarray:
         """Raw final accumulators -> float32 logits on their exact po2

@@ -65,6 +65,8 @@
 
 #include <limits.h>
 
+#include <atomic>
+
 #include "../../csrc/hopper.cuh"   // mbarriers, wgmma fences, tensor maps
 #include "wgmma_s8.cuh"
 
@@ -496,23 +498,25 @@ cudaError_t launch_wgmma(const void* a, long long lda, const void* b,
   const long long tiles_b = ((long long)p.rows_b + W - 1) / W;
   if (tiles_a > 65535 || tiles_b > 65535)
     return cudaErrorInvalidValue;
+  int dev = 0;
+  cudaError_t err = bind_device_context(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
   CUtensorMap ta, tb;
   if (!tensor_map(&ta, a, p.rows_a, K, lda, T::ROWS)
       || !tensor_map(&tb, b, p.rows_b, K, ldb, W))
     return cudaErrorInvalidValue;
   // The shared-memory limit is set once per device (a driver call costs
-  // host time on every launch otherwise).
-  static bool configured[MAX_DEVICES] = {};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
-  if (!configured[dev]) {
+  // host time on every launch otherwise). Several host threads may launch
+  // at once: the flags are atomic, and two threads that both find one
+  // unset both set the same attribute, which is harmless.
+  static std::atomic<bool> configured[MAX_DEVICES];   // zero: all false
+  if (!configured[dev].load(std::memory_order_acquire)) {
     err = cudaFuncSetAttribute(gemm_wgmma<W, G, KB, SWAP>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                T::SMEM);
     if (err != cudaSuccess) return err;
-    configured[dev] = true;
+    configured[dev].store(true, std::memory_order_release);
   }
   const dim3 grid((unsigned)tiles_b, (unsigned)tiles_a);
   gemm_wgmma<W, G, KB, SWAP><<<grid, T::THREADS, T::SMEM, stream>>>(ta, tb,

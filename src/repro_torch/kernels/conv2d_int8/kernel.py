@@ -112,11 +112,11 @@ def k_major_view(wq: torch.Tensor) -> torch.Tensor:
     return buf[:, :K].t().reshape(wq.shape)
 
 
-@functools.cache
+@_build.once
 def _lib():
-    """The library, built and bound once per process (a per-launch
-    library lookup touches the filesystem and costs more host time than
-    the kernel takes on the card)."""
+    """The library, built and bound once per process, concurrent first
+    callers included (a per-launch library lookup touches the filesystem
+    and costs more host time than the kernel takes on the card)."""
     lib = _build.load(SOURCE)
     p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     lib.gemm_int8_launch.argtypes = [p, ll, p, ll, ll, p, p, p, i, i, i, i,
@@ -227,15 +227,13 @@ def gemm_int8(x: torch.Tensor, w: torch.Tensor, shift: torch.Tensor,
     if err:
         raise RuntimeError(f"gemm_int8 launch failed: cudaError_t {err} "
                            f"(N={N}, K={K}, M={M}, path {path})")
-    gemm_int8.launches += 1
-    gemm_int8.launches_by_path[path] += 1
+    _build.count(gemm_int8, path)
     return out
 
 
 def reset_launches() -> None:
     """Set ``gemm_int8.launches`` and every path's count to 0."""
-    gemm_int8.launches = 0
-    gemm_int8.launches_by_path = dict.fromkeys(PATHS, 0)
+    _build.reset_count(gemm_int8, PATHS)
 
 
 reset_launches()

@@ -119,9 +119,29 @@ using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
                                  CUtensorMapFloatOOBfill);
 
+// The tensor-map encoder works in the calling thread's current context. A
+// host thread whose first CUDA call is one of these launches (a pipeline
+// stage worker whose tensors all came from other threads) has none yet,
+// and the encoder refuses. cudaSetDevice makes the current device's
+// primary context current (CUDA 12); it is called once per thread and
+// device. Sets *dev to the current device.
+inline cudaError_t bind_device_context(int* dev) {
+  cudaError_t err = cudaGetDevice(dev);
+  if (err != cudaSuccess) return err;
+  thread_local int bound = -1;
+  if (bound != *dev) {
+    err = cudaSetDevice(*dev);
+    if (err != cudaSuccess) return err;
+    bound = *dev;
+  }
+  return cudaSuccess;
+}
+
+// Looked up once: a function-local static is initialised by one thread
+// while concurrent callers wait (C++11), so host threads launching at once
+// never read it half-written.
 EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (!fn) {
+  static const EncodeTiled fn = [] {
     void* ptr = nullptr;
     cudaDriverEntryPointQueryResult found;
 #if CUDART_VERSION >= 12050
@@ -131,9 +151,10 @@ EncodeTiled encoder() {
     cudaError_t err = cudaGetDriverEntryPoint(
         "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
 #endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(ptr);
-  }
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(ptr)
+               : EncodeTiled(nullptr);
+  }();
   return fn;
 }
 

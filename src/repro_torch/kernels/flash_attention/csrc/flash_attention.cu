@@ -1055,12 +1055,15 @@ cudaError_t launch_wgmma(const Params& p, int B, int KV,
   using Tile = WgTile<D>;
   const int nq = (p.Sq + WG_BQ - 1) / WG_BQ;
   if (B > 65535 || nq > 65535) return cudaErrorInvalidValue;
+  int dev = 0;
+  cudaError_t err = bind_device_context(&dev);
+  if (err != cudaSuccess) return err;
   CUtensorMap tq, tk, tv;
   if (!tensor_map(&tq, p.q, p.qs, B, p.Sq, p.H, D, WG_BQ)
       || !tensor_map(&tk, p.k, p.ks, B, p.Skv, KV, D, Tile::BKV)
       || !tensor_map(&tv, p.v, p.vs, B, p.Skv, KV, D, Tile::BKV))
     return cudaErrorInvalidValue;
-  cudaError_t err = set_smem(flash_fwd_wgmma<D>, Tile::SMEM);
+  err = set_smem(flash_fwd_wgmma<D>, Tile::SMEM);
   if (err != cudaSuccess) return err;
   const dim3 grid(p.H, B, nq);
   flash_fwd_wgmma<D><<<grid, WG_THREADS, Tile::SMEM, stream>>>(tq, tk, tv,

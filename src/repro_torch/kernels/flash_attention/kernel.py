@@ -14,7 +14,6 @@ strides passed here at every launch.
 from __future__ import annotations
 
 import ctypes
-import functools
 from pathlib import Path
 
 import torch
@@ -27,7 +26,7 @@ HEAD_DIMS = (16, 32, 64, 128, 256)
 DTYPES = (torch.float32, torch.bfloat16)
 
 
-@functools.cache
+@_build.once
 def _entry():
     """The C entry point, built and bound once per process."""
     fn = _build.load(SOURCE).flash_attention_launch
@@ -100,7 +99,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise RuntimeError(f"flash_attention launch failed: cudaError_t {err} "
                            f"(q {tuple(q.shape)}, k {tuple(k.shape)}, "
                            f"{q.dtype})")
-    flash_attention.launches += 1
+    _build.count(flash_attention)
     return out
 
 

@@ -18,7 +18,6 @@ of the function: this kernel takes any S.
 from __future__ import annotations
 
 import ctypes
-import functools
 from pathlib import Path
 
 import torch
@@ -30,7 +29,7 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "linear_scan.cu"
 DTYPES = (torch.float32, torch.bfloat16)
 
 
-@functools.cache
+@_build.once
 def _entry():
     """The C entry points (launch, scratch size), built and bound once per
     process."""
@@ -85,7 +84,7 @@ def linear_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if err:
         raise RuntimeError(f"linear_scan launch failed: cudaError_t {err} "
                            f"(a {tuple(a.shape)}, {a.dtype}, {b.dtype})")
-    linear_scan.launches += 1
+    _build.count(linear_scan)
     return out
 
 

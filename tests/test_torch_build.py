@@ -90,3 +90,164 @@ def test_the_tma_sources_include_the_shared_header():
         for helper in ("void mbar_wait(", "EncodeTiled encoder()",
                        "void wgmma_fence()", "void fence_regs("):
             assert helper not in text, (kernel.SOURCE, helper)
+
+
+# ---------------------------------------------------------------------------
+# Concurrent first use: pipeline stage workers launch from several threads
+# ---------------------------------------------------------------------------
+
+
+FAKE_NVCC = r'''#!{python}
+"""A stand-in for nvcc: logs its call, then writes a real shared library
+to the -o path slowly, in small pieces, as a compiler writing its output
+would (a reader of the path mid-write would find half a file)."""
+import shutil, sys, time
+out = sys.argv[sys.argv.index("-o") + 1]
+with open({log!r}, "a") as f:
+    f.write(out + "\n")
+with open({lib!r}, "rb") as src, open(out, "wb") as dst:
+    while chunk := src.read(4096):
+        dst.write(chunk)
+        dst.flush()
+        time.sleep(0.0005)
+'''
+
+
+def test_concurrent_first_loads_build_once_and_load_a_whole_file(
+        tmp_path, monkeypatch):
+    """Eight threads asking for one library at once: ``nvcc`` runs once,
+    every thread gets the same ``CDLL``, and the library on disk is the
+    whole file the compiler wrote."""
+    import ctypes
+    import os
+    import stat
+    import sys
+    import threading
+    import _ctypes
+
+    real_lib = Path(_ctypes.__file__)      # any loadable shared object
+    log = tmp_path / "nvcc.log"
+    bindir = tmp_path / "bin"
+    bindir.mkdir()
+    nvcc = bindir / "nvcc"
+    nvcc.write_text(FAKE_NVCC.format(python=sys.executable, log=str(log),
+                                     lib=str(real_lib)))
+    nvcc.chmod(nvcc.stat().st_mode | stat.S_IXUSR)
+    monkeypatch.setenv("PATH", f"{bindir}{os.pathsep}{os.environ['PATH']}")
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    src = _csrc(tmp_path)
+
+    got, errors = [None] * 8, []
+    barrier = threading.Barrier(8)
+
+    def first_use(i):
+        try:
+            barrier.wait(timeout=30)
+            got[i] = _build.load(src)
+        except BaseException as e:  # noqa: BLE001 - asserted below
+            errors.append(e)
+
+    threads = [threading.Thread(target=first_use, args=(i,))
+               for i in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=60)
+    assert not any(t.is_alive() for t in threads)
+    assert not errors, errors
+    assert len(log.read_text().splitlines()) == 1       # built once
+    assert all(lib is got[0] for lib in got)            # one binding
+    assert isinstance(got[0], ctypes.CDLL)
+    built = _build.library_path(src)
+    assert built.read_bytes() == real_lib.read_bytes()  # a whole file
+    assert not list(built.parent.glob("*.tmp"))         # no leftovers
+    assert _build.load(src) is got[0]                   # cached after
+
+
+def test_once_binds_one_value_under_concurrent_first_calls():
+    import threading
+    import time
+
+    calls = []
+
+    @_build.once
+    def bind():
+        calls.append(1)
+        time.sleep(0.01)        # a slow first call: the others arrive
+        return object()
+
+    got = [None] * 8
+    threads = [threading.Thread(target=lambda i=i: got.__setitem__(
+        i, bind())) for i in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=30)
+    assert len(calls) == 1 and all(g is got[0] for g in got)
+
+
+class _SwitchyDict(dict):
+    """A dict read and written through Python calls, so the interpreter
+    may switch threads between the read and the write of ``d[k] += 1``."""
+
+    def __getitem__(self, key):
+        return dict.__getitem__(self, key)
+
+    def __setitem__(self, key, value):
+        dict.__setitem__(self, key, value)
+
+
+class _SwitchyCounts:
+    """Stands in for a kernel wrapper's count attributes, read and written
+    through a property (Python calls) for the same reason."""
+
+    def __init__(self):
+        self._launches = 0
+        self.launches_by_path = _SwitchyDict(large_n=0, small_n=0, dp4a=0)
+
+    @property
+    def launches(self):
+        return self._launches
+
+    @launches.setter
+    def launches(self, value):
+        self._launches = value
+
+
+@pytest.mark.parametrize("kernel", [gemm_kernel, flash_kernel, scan_kernel],
+                         ids=["gemm_int8", "flash_attention", "linear_scan"])
+def test_launch_counts_stay_exact_under_eight_threads(kernel):
+    """Eight threads counting launches at once through ``_build.count``,
+    as each wrapper counts its own (with a path for ``gemm_int8``), the
+    interpreter switching threads every microsecond and able to switch
+    inside each ``+= 1`` (the counts are read and written through Python
+    calls here): no count is lost."""
+    import inspect
+    import sys
+    import threading
+
+    fn = {gemm_kernel: "gemm_int8", flash_kernel: "flash_attention",
+          scan_kernel: "linear_scan"}[kernel]
+    args = ("path",) if kernel is gemm_kernel else ()
+    assert f"_build.count({', '.join((fn, *args))})" in inspect.getsource(
+        getattr(kernel, fn))
+    counts = _SwitchyCounts()
+    args = ("large_n",) if kernel is gemm_kernel else ()
+    n = 3000
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(
+            target=lambda: [_build.count(counts, *args) for _ in range(n)])
+            for _ in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+    finally:
+        sys.setswitchinterval(old)
+    assert not any(t.is_alive() for t in threads)
+    assert counts.launches == 8 * n
+    if kernel is gemm_kernel:
+        assert dict(counts.launches_by_path) == {
+            "large_n": 8 * n, "small_n": 0, "dp4a": 0}

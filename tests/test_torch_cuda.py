@@ -225,6 +225,40 @@ def test_alexnet_chain_runs_on_the_wgmma_paths():
     assert torch.equal(acc, prog.compile_runner(route="oracle")(xq))
 
 
+def test_four_stage_workers_launch_gemm_int8_concurrently():
+    """Full-width AlexNet through a K=4 ``PipelineExecutor`` on the kernel
+    route for 200 batches: four stage threads launch ``gemm_int8`` at once
+    (its library bound at first use, its counts updated from every
+    thread). Every batch's logits equal the whole chain's bit for bit, and
+    the counts are exact: 8 ``large_n`` + 3 ``small_n`` a batch, no
+    ``dp4a``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    import numpy as np
+
+    from repro_torch.serving import PipelineExecutor
+    from repro_torch.serving.server import (compile_for_serving,
+                                            synthetic_stream)
+    batch, n_batches, distinct = 4, 200, 8
+    prog = compile_for_serving("alexnet", device="cuda")
+    stream = synthetic_stream("alexnet", batch * distinct, 3)
+    whole = prog.compile_runner(route="kernel")
+    want = np.concatenate([whole.logits(stream[i:i + batch])
+                           for i in range(0, len(stream), batch)])
+    torch.cuda.synchronize()
+    frames = [stream[i % len(stream)] for i in range(batch * n_batches)]
+    before = dict(gemm_int8.launches_by_path)
+    with PipelineExecutor(prog, stages=4, batch_size=batch, route="kernel",
+                          output="logits") as px:
+        got = np.stack(px.serve(frames))
+    ran = {p: n - before[p] for p, n in gemm_int8.launches_by_path.items()}
+    assert px.partition.n_stages == 4 and px.route == "kernel"
+    assert ran == {"large_n": 8 * n_batches, "small_n": 3 * n_batches,
+                   "dp4a": 0}
+    np.testing.assert_array_equal(got, np.tile(want, (n_batches
+                                                      // distinct, 1)))
+
+
 def test_grouped_conv_launches_once_per_group(gen):
     x = _int(gen, (2, 13, 13, 32), -128, 128)
     w = _int(gen, (3, 3, 16, 24), -40, 40)
