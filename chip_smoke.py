@@ -46,7 +46,25 @@ line:
    idle share; full-width VGG16 through ``PipelineExecutor`` at K = 2 and
    4 with int32 identical to the whole chain and the oracle route (13 + 3
    launches a batch); ``simulate()``
-   for the four paper models beside the modeled fps;
+   for the four paper models beside the modeled fps; then phase
+   ``bits16``: full-width AlexNet at bits=16 (its one route, the exact
+   integer oracle) with every step's int16 output and the int64
+   accumulators of the runner, ``EngineExecutor`` and a K = 2
+   ``PipelineExecutor`` equal to the same program run on the CPU, bit for
+   bit, the kernel and f32 routes refused, no ``gemm_int8`` launch, wall
+   and device busy ms a batch; phase ``chaos_elastic`` (lines ``chaos``
+   and ``knee_rescale``): AlexNet at bits=8 through two K = 2 replicas,
+   one killed mid-stream by ``ChaosExecutor`` (every request completed
+   or failed, none hung, ``recovery_report``), then
+   ``serve_knee_rescale`` (a live rescale R 1 -> 2, ``hung == 0``,
+   whether it was forced), every served frame's top-1 equal to the
+   single executor's and the launches 8 ``large_n`` + 3 ``small_n`` a
+   batch; phase ``import``: ``examples/lenet.json`` through
+   ``launch/import_model.py`` (import, golden, a serve through
+   ``Server``), its launches by path (2 ``large_n`` + 1 ``small_n`` + 2
+   ``dp4a`` a batch, as the wrapper's rule predicts for fc2 and fc3,
+   whose rows are off 16-byte strides) and its golden held on the f32,
+   oracle and kernel routes on the card and on the CPU;
 4. ``flash_attention`` against its plain version on the card: the
    reference's test shapes (2e-5 in float32, 3e-2 in bfloat16, and each
    output row within a fraction of its own RMS), a query
@@ -133,9 +151,15 @@ from repro_torch.models import recurrent as R  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.core.program import compile_model  # noqa: E402
 from repro_torch.core.simulator import simulate  # noqa: E402
-from repro_torch.serving import PipelineExecutor  # noqa: E402
+from repro_torch.serving import (AsyncFrontend,  # noqa: E402
+                                 ChaosExecutor, FaultPlan,
+                                 PipelineExecutor, ProgramRegistry,
+                                 ReplicaPool, TrafficClass,
+                                 make_scenario_schedule, recovery_report,
+                                 replay)
 from repro_torch.serving.server import (compile_for_serving,  # noqa: E402
                                         make_executor, serve, serve_async,
+                                        serve_knee_rescale,
                                         synthetic_stream)
 
 # Published dense peaks (NVIDIA data sheets), at the card's full power
@@ -188,6 +212,17 @@ PIPE_CONFIGS = ((1, 1), (2, 1), (4, 1), (2, 2))
 PIPE_LOGITS = (2, 1)            # the config whose logits are compared
 VGG_PIPE_STAGES = (2, 4)
 VGG_PIPE_BATCHES = 2
+# The bits16 phase: AlexNet at bits=16, batches of SERVE_BATCH.
+BITS16_FRAMES = 32
+# The chaos_elastic phase: the stream with one replica of two killed at
+# its CHAOS_KILL_AT-th batch, paced at CHAOS_LOAD x one replica's rate so
+# that the least-wait router keeps both replicas busy (below one
+# replica's rate it may send every batch to the other one, and the kill
+# never fires); the stream of the elastic knee ramp.
+CHAOS_FRAMES, CHAOS_KILL_AT, CHAOS_LOAD = 384, 3, 2.0
+KNEE_FRAMES = 96
+# The import phase: frames served by the imported LeNet (batch 4).
+IMPORT_FRAMES = 16
 GEMM_MODELS = ("alexnet", "vgg16")
 # The first design's per-shape times at AlexNet batch 16 (__dp4a, 64 x 64
 # tiles; cold L2, median of 10), recorded by this script on an NVIDIA
@@ -1321,6 +1356,312 @@ def phase_pipeline() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 3c: bits=16, the exact integer engine on the card
+# ---------------------------------------------------------------------------
+
+
+def _steps_through(prog, xq) -> list:
+    """One batch through each step of ``prog`` in turn (a stage runner a
+    step), every step's output kept: the int16 activations and the last
+    engine's int64 accumulators."""
+    outs, x = [], xq
+    for i in range(len(prog.steps)):
+        x = prog.compile_stage_runner(i, i + 1)(x)
+        outs.append(x)
+    return outs
+
+
+def phase_bits16() -> dict:
+    """Full-width AlexNet at bits=16 (seed 0, batch 16) on the card, on its
+    one route (the exact integer oracle: int16 activations, int64
+    accumulators from float64 GEMMs over int16 patches): every step's
+    output of one batch, and the final accumulators of every batch through
+    ``EngineExecutor`` and a K = 2 ``PipelineExecutor``, equal the same
+    program run on the CPU in this process, bit for bit (the host-to-card
+    staging rings carry int16). The kernel and f32 routes raise
+    ``NotImplementedError``; no ``gemm_int8`` launches. Wall and device
+    busy ms per batch."""
+    t_phase = time.perf_counter()
+    prog = compile_for_serving("alexnet", bits=16, seed=0, device="cuda")
+    cpu = _program_on_cpu(prog)
+    frames = synthetic_stream("alexnet", BITS16_FRAMES, 0)
+    batches = [frames[i:i + SERVE_BATCH]
+               for i in range(0, BITS16_FRAMES, SERVE_BATCH)]
+    runner, runner_cpu = prog.compile_runner(), cpu.compile_runner()
+    refused = {}
+    for route in ("kernel", "f32"):
+        try:
+            prog.compile_runner(route=route)
+            refused[route] = False
+        except NotImplementedError:
+            refused[route] = True
+    reset_launches()
+    xq = runner.quantize(batches[0])
+    steps_card = [t.cpu() for t in _steps_through(
+        prog, torch.as_tensor(xq, device="cuda"))]
+    steps_cpu = _steps_through(cpu, torch.from_numpy(xq))
+    steps_equal = [bool(torch.equal(a, b))
+                   for a, b in zip(steps_card, steps_cpu)]
+    want = [runner_cpu(runner_cpu.quantize(b)) for b in batches]
+    ex = EngineExecutor(prog, batch_size=SERVE_BATCH, output="logits")
+    ex.runner = cap_ex = _CaptureAcc(ex.runner)
+    ex_logits = np.stack(ex.serve(list(frames)))
+    px = PipelineExecutor(prog, stages=2, batch_size=SERVE_BATCH,
+                          output="logits")
+    px.runners[-1] = cap_px = _CaptureAcc(px.runners[-1])
+    try:
+        px_logits = np.stack(px.serve(list(frames)))
+    finally:
+        px.close()
+    torch.cuda.synchronize()
+    launched = gemm_int8.launches
+
+    def same(accs) -> bool:
+        return len(accs) == len(want) and all(
+            a.dtype == torch.int64 and torch.equal(a.cpu(), w)
+            for a, w in zip(accs, want))
+    want_logits = np.concatenate([runner_cpu.dequantize(w) for w in want])
+    # Time: a warm executor's batch (host included), the chain's wall,
+    # and the device's busy time under the profiler.
+    served = serve("alexnet", frames=4 * BITS16_FRAMES, batch=SERVE_BATCH,
+                   bits=16, output="logits", device="cuda", verbose=False)
+    xq_dev = torch.as_tensor(xq, device="cuda")
+    runner(xq_dev)
+    torch.cuda.synchronize()
+    n = 5
+    t0 = time.perf_counter()
+    for _ in range(n):
+        runner(xq_dev)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) / n * 1e3
+    ops = _device_ops(lambda: runner(xq_dev))
+    busy_ms = sum(us for _, us, _ in ops) / 1e3
+    row = {"phase": "bits16", "model": "alexnet", "batch": SERVE_BATCH,
+           "frames": BITS16_FRAMES, "route": runner.route,
+           "refused_routes": refused,
+           "step_dtypes": [str(t.dtype) for t in steps_card],
+           "steps_identical_to_cpu": steps_equal,
+           "runner_acc_identical_to_cpu": bool(
+               torch.equal(steps_card[-1], want[0])),
+           "executor_acc_identical_to_cpu": same(cap_ex.accs),
+           "pipeline_k2_acc_identical_to_cpu": same(cap_px.accs),
+           "executor_logits_identical": bool(
+               np.array_equal(ex_logits, want_logits)),
+           "pipeline_logits_identical": bool(
+               np.array_equal(px_logits, want_logits)),
+           "pipeline_boundaries": list(px.partition.boundaries),
+           "gemm_int8_launches": launched,
+           "logits_finite": bool(np.isfinite(want_logits).all()),
+           "max_abs_acc": int(max(int(w.abs().max()) for w in want)),
+           "serve_route": served["route"],
+           "serve_steady_fps": served["measured_steady_fps"],
+           "executor_wall_ms_per_batch":
+               1e3 * SERVE_BATCH / served["measured_steady_fps"],
+           "chain_wall_ms_per_batch": wall_ms,
+           "device_busy_ms_per_batch": busy_ms,
+           "device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
+           "top_device_ops_us": [[k[:60], round(us, 1)]
+                                 for k, us, _ in ops[:6]],
+           "phase_s": time.perf_counter() - t_phase}
+    emit(row)
+    ok = (all(refused.values()) and all(steps_equal)
+          and row["runner_acc_identical_to_cpu"]
+          and row["executor_acc_identical_to_cpu"]
+          and row["pipeline_k2_acc_identical_to_cpu"]
+          and row["executor_logits_identical"]
+          and row["pipeline_logits_identical"] and launched == 0
+          and row["logits_finite"] and runner.route == "oracle"
+          and served["route"] == "oracle"
+          and row["step_dtypes"][-1] == "torch.int64"
+          and set(row["step_dtypes"][:-1]) == {"torch.int16"})
+    if not ok:
+        raise SmokeFailure(f"bits=16 check failed: {row}")
+    return row
+
+
+# ---------------------------------------------------------------------------
+# Phase 3d: chaos and the elastic runtime (bits=8, the kernel route)
+# ---------------------------------------------------------------------------
+
+
+def phase_chaos_elastic() -> dict:
+    """Full-width AlexNet (bits=8, seed 0, batch 16, the kernel route):
+    two K = 2 pipeline replicas behind the frontend at twice one
+    replica's rate, one killed mid-stream by ``ChaosExecutor`` (every
+    request resolves completed or failed, none hangs, the survivor
+    carries the stream, ``recovery_report``); then
+    ``serve_knee_rescale`` (a load ramp while the elastic controller
+    watches, a live drain-swap-resume to R = 2; ``hung == 0``). Every
+    served frame's top-1 equals the single executor's on that frame. The
+    ``gemm_int8`` launches of both runs are counted by path (counts set
+    to 0 just before, read just after; the single executor's reference
+    run is outside)."""
+    t_phase = time.perf_counter()
+    prog = compile_for_serving("alexnet", seed=0, device="cuda")
+    stream = synthetic_stream("alexnet", CHAOS_FRAMES, 0)
+    single = EngineExecutor(prog, batch_size=SERVE_BATCH)
+    base_top1 = np.asarray(single.serve(list(stream)))
+    knee_stream = synthetic_stream("alexnet", KNEE_FRAMES, 0)
+    knee_top1 = np.asarray(single.serve(list(knee_stream)))
+    torch.cuda.synchronize()
+
+    reset_launches()
+    reps = [PipelineExecutor(prog, stages=2, batch_size=SERVE_BATCH)
+            for _ in range(2)]
+    for r in reps:
+        r.serve(list(stream[:2 * SERVE_BATCH]))     # build and warm
+    # One warm replica's closed-loop batch time, which sets the pace.
+    t0 = time.perf_counter()
+    reps[1].serve(list(stream[:4 * SERVE_BATCH]))
+    svc = (time.perf_counter() - t0) / 4
+    victim = ChaosExecutor(reps[0], FaultPlan(kill_at_batch=CHAOS_KILL_AT))
+    pool = ReplicaPool(executors=[victim, reps[1]], router_seed=0,
+                       quarantine_after=2, probe_every=4)
+    pool.router.warm_start(svc, 2.0 * svc)
+    fe = AsyncFrontend(pool, max_wait_ms=20.0, max_queue=4096)
+    mix = (TrafficClass("rt", priority=1, deadline_ms=5000.0),)
+    rate = CHAOS_LOAD * SERVE_BATCH / svc
+    sched, _ = make_scenario_schedule("uniform", CHAOS_FRAMES, rate, mix,
+                                      seed=5)
+    t0 = time.perf_counter()
+    reqs = replay(fe, list(stream), sched, raise_failed=False)
+    chaos_s = time.perf_counter() - t0
+    fe.close()
+    pool.close()
+    st = fe.stats
+    ok_top1 = all(int(r.result(timeout=0)) == int(base_top1[a.frame_idx])
+                  for a, r in zip(sched, reqs) if r.outcome == "completed")
+    rec = recovery_report(reqs, fault_t0=victim.t_first_fault,
+                          window_s=0.05, miss_target=0.1)
+    counts = pool.replica_counts()
+    chaos_row = {"phase": "chaos", "model": "alexnet", "replicas": 2,
+                 "stages": 2, "kill_at_batch": CHAOS_KILL_AT,
+                 "replica_batch_ms": 1e3 * svc,
+                 "arrival_fps": rate, "seconds": chaos_s,
+                 "submitted": st.submitted, "completed": st.completed,
+                 "failed": st.failed, "expired": st.expired,
+                 "resolved": st.resolved, "hung": st.hung,
+                 "injected_failures": victim.injected_failures,
+                 "quarantine_events": pool.router.quarantine_events,
+                 "replica_counts": counts,
+                 "completed_top1_identical_to_single": ok_top1,
+                 "recovery_report": rec}
+    emit(chaos_row)
+    if not (st.hung == 0 and st.resolved == CHAOS_FRAMES
+            and st.completed + st.failed == CHAOS_FRAMES
+            and st.failed > 0 and st.completed > 0 and ok_top1
+            and counts[1]["failed_batches"] == 0):
+        raise SmokeFailure(f"chaos check failed: {chaos_row}")
+
+    res = serve_knee_rescale("alexnet", program=prog, frames=KNEE_FRAMES,
+                             batch=SERVE_BATCH, stages=2, seed=0,
+                             max_segments=4, refine_iters=1,
+                             verbose=False, return_outputs=True)
+    torch.cuda.synchronize()
+    by_path = dict(gemm_int8.launches_by_path)
+    launched = gemm_int8.launches
+    served = res.pop("outputs")
+    knee = res.pop("knee")
+    top1_ok = bool(np.array_equal(served["outputs"],
+                                  knee_top1[served["frame_idx"]]))
+    knee_row = {"phase": "knee_rescale", "model": "alexnet",
+                **{k: res[k] for k in (
+                    "batch", "stages", "slo_ms", "miss_target",
+                    "measured_steady_fps_r1", "anchor_qps", "segments",
+                    "rescale_events", "n_rescales", "forced",
+                    "replicas_before", "replicas_after",
+                    "armed_miss_at_trigger", "armed_miss_after_rescale",
+                    "miss_recovered", "hung")},
+                "knee_qps_after": knee["knee_qps"],
+                "knee_replicas": knee["replicas"],
+                "served_frames": int(len(served["frame_idx"])),
+                "top1_identical_to_single": top1_ok,
+                "gemm_int8_launches": launched,
+                "launches_by_path": by_path,
+                "phase_s": time.perf_counter() - t_phase}
+    emit(knee_row)
+    ok = (res["hung"] == 0 and res["n_rescales"] >= 1
+          and res["replicas_after"] == 2 and top1_ok
+          and len(served["frame_idx"]) > 0 and by_path["dp4a"] == 0
+          and by_path["small_n"] > 0
+          and 3 * by_path["large_n"] == 8 * by_path["small_n"])
+    if not ok:
+        raise SmokeFailure(f"elastic check failed: {knee_row}")
+    return {"launches": launched, "by_path": by_path,
+            "batches": by_path["small_n"] // 3}
+
+
+# ---------------------------------------------------------------------------
+# Phase 3e: the compiler front end, an imported LeNet on the card
+# ---------------------------------------------------------------------------
+
+
+def phase_import() -> dict:
+    """``examples/lenet.json`` through ``launch/import_model.py`` on the
+    card (import, lower, quantize, the f32 golden checked on the oracle
+    route, a serve smoke through ``Server``), its ``gemm_int8`` launches
+    counted by path: per batch conv1 (K 25) and conv2 (K 150) on
+    ``large_n``, fc1 (K 400) on ``small_n``, fc2 and fc3 (rows of 120 and
+    84 bytes, off 16-byte strides) on ``dp4a``, as the wrapper's rule
+    predicts. Then the golden of a fresh registration holds on the f32,
+    oracle and kernel routes on the card and on the CPU, and equals the
+    launcher's."""
+    from repro_torch import compiler
+    from repro_torch.launch import import_model
+    t_phase = time.perf_counter()
+    spec = str(ROOT / "examples" / "lenet.json")
+    reset_launches()
+    res = import_model.import_and_serve(
+        spec, device="cuda", serve_frames=IMPORT_FRAMES, batch=4,
+        stages=1, verbose=False)
+    torch.cuda.synchronize()
+    by_path = dict(gemm_int8.launches_by_path)
+    launched = gemm_int8.launches
+    reg = ProgramRegistry()
+    name, golden = reg.register_imported(spec, seed=0, device="cuda")
+    prog = reg.get(name)
+    routes = {}
+    for route in ("f32", "oracle", "kernel"):
+        before = dict(gemm_int8.launches_by_path)
+        for where, p in (("cuda", prog), ("cpu", _program_on_cpu(prog))):
+            try:
+                compiler.check_golden(p, golden, seed=0, route=route)
+                routes[f"{route}_{where}"] = True
+            except compiler.GoldenMismatch as e:
+                routes[f"{route}_{where}"] = str(e)
+        torch.cuda.synchronize()
+        ran = {k: n - before[k] for k, n in
+               gemm_int8.launches_by_path.items()}
+        if route == "kernel":
+            kernel_paths = ran
+    serve = res["serve"]
+    row = {"phase": "import", "model": res["model"], "device": res["device"],
+           "layers": [l["name"] for l in res["layers"]],
+           "golden_acc_crc": res["golden"]["acc_crc"],
+           "golden_top1": res["golden"]["top1"],
+           "golden_equal_to_launcher": int(golden["acc_crc"])
+           == res["golden"]["acc_crc"],
+           "golden_routes": routes,
+           "kernel_route_launches_by_path": kernel_paths,
+           "serve": serve, "gemm_int8_launches": launched,
+           "launches_by_path": by_path, "import_s": res["import_s"],
+           "phase_s": time.perf_counter() - t_phase}
+    emit(row)
+    small = by_path["small_n"]
+    ok = (all(v is True for v in routes.values())
+          and row["golden_equal_to_launcher"]
+          and serve["completed"] == IMPORT_FRAMES
+          and serve["outcomes"] == ["completed"]
+          and serve["route"] == "kernel" and small > 0
+          and by_path["large_n"] == 2 * small
+          and by_path["dp4a"] == 2 * small
+          and kernel_paths == {"large_n": 2, "small_n": 1, "dp4a": 2})
+    if not ok:
+        raise SmokeFailure(f"import check failed: {row}")
+    return {"launches": launched, "by_path": by_path, "batches": small}
+
+
+# ---------------------------------------------------------------------------
 # Phase 4: flash_attention against its plain version
 # ---------------------------------------------------------------------------
 
@@ -2037,6 +2378,11 @@ def main() -> int:
         torch.cuda.empty_cache()
         pipeline = phase_pipeline()
         torch.cuda.empty_cache()
+        phase_bits16()
+        torch.cuda.empty_cache()
+        elastic = phase_chaos_elastic()
+        lenet = phase_import()
+        torch.cuda.empty_cache()
         flash = phase_flash(env)
         lm = phase_lm_forward()
         phase_lm_serve(lm)
@@ -2064,24 +2410,40 @@ def main() -> int:
     pipe_configs = ", ".join(f"K{k}R{r}" for k, r in PIPE_CONFIGS)
     launches_on = {
         "alexnet": {"alexnet": main_path["launches"],
-                    "alexnet-pipeline": pipeline["launches"]},
+                    "alexnet-pipeline": pipeline["launches"],
+                    "alexnet-elastic": elastic["launches"],
+                    "lenet": lenet["launches"]},
         "vgg16": {"vgg16": vgg["launches"],
                   "vgg16-pipeline": pipeline["vgg16_launches"]}}
     launches_per = {
-        "alexnet-pipeline": f"serve_async at {pipe_configs}: "
-                            f"{pipeline['batches']} batches of "
-                            f"{SERVE_BATCH} (calibration and open loop), "
-                            f"11 launches each",
-        "vgg16-pipeline": f"PipelineExecutor at K "
-                          f"{', '.join(map(str, VGG_PIPE_STAGES))}: "
-                          f"{VGG_PIPE_BATCHES} batches of {SERVE_BATCH} "
-                          f"each, 16 launches a batch"}
+        "alexnet": {
+            "alexnet-pipeline": f"serve_async at {pipe_configs}: "
+                                f"{pipeline['batches']} batches of "
+                                f"{SERVE_BATCH} (calibration and open "
+                                f"loop), 11 launches each",
+            "alexnet-elastic": f"two K2 replicas, one killed, then "
+                               f"serve_knee_rescale R1 -> R2: "
+                               f"{elastic['batches']} batches of "
+                               f"{SERVE_BATCH}, 8 large_n + 3 small_n "
+                               f"each",
+            "lenet": f"examples/lenet.json through import_model "
+                     f"(calibration and serve): {lenet['batches']} "
+                     f"batches of 4, 2 large_n + 1 small_n + 2 dp4a "
+                     f"each"},
+        "vgg16": {
+            "vgg16-pipeline": f"PipelineExecutor at K "
+                              f"{', '.join(map(str, VGG_PIPE_STAGES))}: "
+                              f"{VGG_PIPE_BATCHES} batches of "
+                              f"{SERVE_BATCH} each, 16 launches a batch"}}
+    by_path_on = {"alexnet": {"alexnet-elastic": elastic["by_path"],
+                              "lenet": lenet["by_path"]}, "vgg16": {}}
     kernels = [{
         "name": "gemm_int8", "route": "cuda", "source": GEMM_SOURCE,
         "replaces": GEMM_REPLACES,
         "launches": launches_on[model][model],
         "launches_on": launches_on[model],
-        "launches_on_per": launches_per[f"{model}-pipeline"],
+        "launches_on_per": launches_per[model],
+        "launches_on_by_path": by_path_on[model],
         **{k: gemm[model][k] for k in ("max_abs_err", "ms", "plain_ms",
                                        "bound_ms", "bound_by",
                                        "library_ms")},

@@ -8,10 +8,11 @@ buffering, Fig. 2). :class:`EngineExecutor` is the software analogue on a
 frame stream:
 
 * ``submit(frame)`` micro-batches incoming frames to ``batch_size``;
-* a full micro-batch is quantized to int8 on the *host* into a pinned
-  staging buffer, copied to the card with ``non_blocking=True`` and the
-  step chain is launched on the current stream; a ``torch.cuda.Event``
-  recorded after the chain marks the batch done. The device computes
+* a full micro-batch is quantized to int8 (int16 at bits=16) on the
+  *host* into a pinned staging buffer of that dtype, copied to the card
+  with ``non_blocking=True`` and the step chain is launched on the
+  current stream; a ``torch.cuda.Event`` recorded after the chain marks
+  the batch done. The device computes
   batch ``k`` while the host quantizes batch ``k+1`` and argmax-decodes
   batch ``k-1`` (the two "buffer halves" are the bounded in-flight queue);
 * ``drain()`` flushes the partial tail batch (padded to the batch shape)
@@ -33,6 +34,7 @@ from typing import Callable, Iterable
 import numpy as np
 import torch
 
+from repro_torch.core import quant
 from repro_torch.core.program import CompiledRunner, EngineProgram
 
 # In-flight micro-batches. Two mirrors the paper's double-buffered
@@ -61,6 +63,29 @@ def normalize_frames(program: EngineProgram,
             f"frame shape {frames.shape[1:]} does not match the "
             f"compiled program ({hw}, {hw}, {program.model.input_ch})")
     return frames
+
+
+def staging_buffer(program: EngineProgram, batch_size: int) -> torch.Tensor:
+    """One host staging buffer for a quantized batch of ``program``: the
+    batch's shape, the program's input dtype (int8, or int16 at bits=16),
+    pinned for an asynchronous copy to the card."""
+    m = program.model
+    return torch.empty((batch_size, m.input_hw, m.input_hw, m.input_ch),
+                       dtype=quant.int_dtype(program.bits), pin_memory=True)
+
+
+def stage_into(buf: torch.Tensor, xq: np.ndarray) -> torch.Tensor:
+    """Write a quantized host batch into a staging buffer and return the
+    buffer. A batch of another dtype or shape is refused, never cast:
+    numpy's assignment casts unsafely, so an int16 batch written into an
+    int8 buffer would wrap without a word."""
+    view = buf.numpy()
+    if xq.dtype != view.dtype or xq.shape != view.shape:
+        raise ValueError(
+            f"quantized batch {xq.dtype}{list(xq.shape)} does not match "
+            f"the staging buffer {view.dtype}{list(view.shape)}")
+    view[...] = xq
+    return buf
 
 
 def pad_micro_batch(program: EngineProgram, frames: np.ndarray,
@@ -213,17 +238,17 @@ class EngineExecutor:
     # -- the overlap core ----------------------------------------------------
 
     def _to_device(self, xq: np.ndarray) -> torch.Tensor:
-        """Host int8 batch -> device tensor: through a pinned staging
-        buffer and an asynchronous copy on the current stream on CUDA."""
+        """Host quantized batch -> device tensor: through a pinned staging
+        buffer of the program's input dtype (:func:`stage_into` refuses
+        any other) and an asynchronous copy on the current stream on
+        CUDA."""
         if not self._cuda:
             return torch.from_numpy(xq)
         if not self._staging:
-            self._staging = [torch.empty(xq.shape, dtype=torch.int8,
-                                         pin_memory=True)
+            self._staging = [staging_buffer(self.program, self.batch_size)
                              for _ in range(self._max_inflight)]
-        buf = self._staging[self._slot]
+        buf = stage_into(self._staging[self._slot], xq)
         self._slot = (self._slot + 1) % self._max_inflight
-        buf.numpy()[...] = xq
         return buf.to(self.program.device, non_blocking=True)
 
     def _dispatch(self, frames, n_valid: int | None = None,

@@ -36,7 +36,15 @@ Differences from the reference, each forced by PyTorch or by the card:
   (``EngineStep.wk``, made once at lowering): ``wgmma`` reads int8
   operands only K-major, and the kernel route hands the GEMM a view of
   it. The reference layout (``wq``) serves the other routes.
-* bits=16 is not ported yet and raises ``NotImplementedError``.
+* bits=16 runs the exact integer oracle: int16 weights and activations,
+  int64 accumulators from a float64 GEMM over the int16 im2col patches
+  (exact, :func:`_step_oracle16`), a floor shift in int64 and a clip to
+  int16; the last engine emits int64. The reference models the DSP48's
+  48-bit accumulation in float32 instead, which rounds the largest
+  accumulators and, through its float32 ``exp2`` shift, moves a hidden
+  activation by one LSB on up to a few tenths of a percent of its
+  elements. As in the reference, bits=16 has no kernel route and no f32
+  route; its default route is ``"oracle"`` on every device.
 * TF32 is switched off (:func:`exact_float32`) around ``float_forward``,
   where cuDNN's default TF32 could move a calibration amax across a po2
   boundary and change a frozen exponent, and around the f32 route, whose
@@ -56,6 +64,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import quant
+from repro_torch.core.quant import ref_exp2
 from repro_torch.core.allocator import (LayerAlloc, allocate_buffers,
                                         allocate_compute)
 from repro_torch.core.workload import CNNModel, ConvLayer
@@ -74,8 +83,6 @@ DEFAULT_BW = 4.2e9
 DEFAULT_FREQ = 200e6
 
 ROUTES = ("f32", "oracle", "kernel")
-# ln 2 as XLA's float32 exp2 lowering multiplies by it.
-LN2_F32 = 0.6931472
 
 
 def resolve_device(device=None) -> torch.device:
@@ -202,10 +209,11 @@ class EngineStep:
     layer: ConvLayer
     pad: tuple[int, int]           # (lo, hi), both spatial dims
     # compute-step payload (None for pool):
-    wq: torch.Tensor | None = None         # int8 quantized weights
-    # The same weights K-major, for the kernel route: a view of wq's shape
-    # over [M, K16] rows (K16 = K rounded up to 16 bytes) that hold each
-    # output channel's K = R*S*Cg (or F) weights (:func:`k_major_view`).
+    wq: torch.Tensor | None = None         # int8/int16 quantized weights
+    # The same int8 weights K-major, for the kernel route: a view of wq's
+    # shape over [M, K16] rows (K16 = K rounded up to 16 bytes) that hold
+    # each output channel's K = R*S*Cg (or F) weights
+    # (:func:`k_major_view`); None at bits=16, which has no kernel route.
     wk: torch.Tensor | None = None
     bias_q: torch.Tensor | None = None     # int32 bias on the acc format
     shift: torch.Tensor | None = None      # int32 [M]: e_out - (e_in+e_w)
@@ -253,7 +261,7 @@ class EngineProgram:
 
     def out_scale(self) -> np.ndarray:
         """Per-channel float32 po2 scale of the final engine's int32
-        accumulators (logits = acc * out_scale, exactly)."""
+        (int64 at bits=16) accumulators (logits = acc * out_scale)."""
         last = [s for s in self.steps if s.kind != "pool"][-1]
         return np.exp2(np.asarray(last.e_in + last.e_w, np.float32))
 
@@ -266,11 +274,14 @@ class EngineProgram:
     def run(self, x, *, use_kernel: bool = False) -> torch.Tensor:
         """Fixed-point forward, eagerly step by step. ``x`` is float NHWC
         (numpy or tensor); returns float logits on the program's device
-        (the final engine's 32-bit accumulators on their exact po2 scale).
-        ``use_kernel`` runs the MACs through ``gemm_int8``, else through
-        the integer oracle. This is the per-sample reference path; for
-        throughput use :meth:`compile_runner`."""
+        (the final engine's accumulators on their exact po2 scale).
+        ``use_kernel`` runs the MACs through ``gemm_int8`` (refused up
+        front at bits=16), else through the integer oracle. This is the
+        per-sample reference path; for throughput use
+        :meth:`compile_runner`."""
         self._require_steps()
+        if use_kernel:
+            require_kernel(self.bits)
         x = torch.as_tensor(x, dtype=torch.float32, device=self.device)
         xq = quant.quantize_to_exponent(x, self.e_input, self.bits)
         for step in self.steps:
@@ -285,13 +296,24 @@ class EngineProgram:
             * scale.reshape((1,) * (xq.ndim - 1) + (-1,))
 
     def _resolve_route(self, route: str | None) -> str:
-        """The MAC route a runner uses: ``"kernel"`` by default on a CUDA
-        device (the hand-written kernel), ``"f32"`` elsewhere, as in the
-        reference. All routes compute the same integers."""
+        """The MAC route a runner uses: at bits=8 ``"kernel"`` by default on
+        a CUDA device (the hand-written kernel), ``"f32"`` elsewhere, as in
+        the reference; at bits=16 ``"oracle"``, the only route it has (the
+        kernel is int8, and the f32 route's exactness proof holds only for
+        int8 products). All routes compute the same integers."""
         if route is None:
-            route = "kernel" if self.device.type == "cuda" else "f32"
+            if self.bits > 8:
+                route = "oracle"
+            else:
+                route = "kernel" if self.device.type == "cuda" else "f32"
         if route not in ROUTES:
             raise ValueError(f"unknown route {route!r}")
+        if route == "kernel":
+            require_kernel(self.bits)
+        if route == "f32" and self.bits > 8:
+            raise NotImplementedError(
+                "the exact-f32 route holds only for int8 products "
+                "(<= 2^14 per MAC); bits=16 uses route='oracle'")
         return route
 
     def compile_runner(self, *, route: str | None = None) -> "CompiledRunner":
@@ -308,7 +330,8 @@ class EngineProgram:
           K-chunks of at most 1024 products, each partial sum an integer
           <= 2^24, so float32 is exact (:func:`_step_exact_f32`).
         * ``"oracle"`` — exact integer accumulators from a float64 conv /
-          GEMM (:func:`_step_oracle`).
+          GEMM (:func:`_step_oracle`); the only route at bits=16
+          (:func:`_step_oracle16`), and its default there.
         """
         self._require_steps()
         return self.compile_stage_runner(0, len(self.steps), route=route)
@@ -318,9 +341,10 @@ class EngineProgram:
                              device=None) -> "CompiledRunner":
         """The contiguous step range ``[start, stop)`` as one runner — one
         *stage* of the layer-wise pipeline. Activations cross stage
-        boundaries as the same int8 tensors the full chain passes between
-        steps, so chained stage runners reproduce :meth:`compile_runner`
-        bit-exactly. ``compile_runner`` is the case ``[0, len(steps))``.
+        boundaries as the same int8 (int16 at bits=16) tensors the full
+        chain passes between steps, so chained stage runners reproduce
+        :meth:`compile_runner` bit-exactly. ``compile_runner`` is the case
+        ``[0, len(steps))``.
 
         ``device`` pins the stage to one ``torch.device`` (the counterpart
         of the reference's ``jax.Device`` pin): its input is moved there
@@ -365,7 +389,8 @@ class EngineProgram:
                 if s.kind != "pool":
                     wq = s.wq.to(device)
                     s = dataclasses.replace(
-                        s, wq=wq, wk=k_major_view(wq),
+                        s, wq=wq,
+                        wk=None if s.wk is None else k_major_view(wq),
                         bias_q=s.bias_q.to(device), shift=s.shift.to(device))
                 placed.append(s)
             self._placed[key] = placed
@@ -378,9 +403,10 @@ class CompiledRunner:
     chain — the whole chain for :meth:`EngineProgram.compile_runner`
     (``start == 0``, ``stop == len(steps)``), or one pipeline stage.
 
-    ``fn`` maps an int8 activation batch ``[B, H, W, C]`` on the program's
-    device to the range's output — raw final accumulators when the range
-    includes the last engine, int8 activations otherwise. Host-side
+    ``fn`` maps an int8 (int16 at bits=16) activation batch ``[B, H, W,
+    C]`` on the program's device to the range's output — raw final
+    accumulators (int32; int64 at bits=16) when the range includes the
+    last engine, int8/int16 activations otherwise. Host-side
     quantize-in and argmax/dequant-out live here so the executor can
     overlap them with device compute; they exist only at the matching end
     of the chain (first / last stage).
@@ -435,6 +461,8 @@ class CompiledRunner:
                 f"accumulators")
         if isinstance(acc, torch.Tensor):
             acc = acc.cpu().numpy()
+        # float32 as the reference's: exact for int32 and int16, rounded
+        # to 24 bits for bits=16's int64 accumulators past 2^24.
         acc = np.asarray(acc)
         scale = self.program.out_scale()
         return acc.astype(np.float32) * scale.reshape(
@@ -454,6 +482,24 @@ class CompiledRunner:
         """Compiled executables behind ``fn``: -1 ("unknown"), since the
         port runs eagerly and compiles nothing per batch shape."""
         return -1
+
+
+def kernel_available(bits: int = 8) -> tuple[bool, str]:
+    """Whether the kernel route applies at ``bits``, and why not. The
+    build and the card are checked where the kernel first launches."""
+    if bits > 8:
+        return False, ("the gemm_int8 kernel is int8; bits=16 runs the "
+                       "integer oracle (route='oracle')")
+    return True, ""
+
+
+def require_kernel(bits: int = 8) -> None:
+    """Raise up front (when a runner is made, not per step) when the kernel
+    route is asked for and cannot run: a run asking for the kernel must
+    not silently get the oracle."""
+    ok, why = kernel_available(bits)
+    if not ok:
+        raise NotImplementedError(why)
 
 
 # ---------------------------------------------------------------------------
@@ -486,11 +532,14 @@ def _step_kernel(xq: torch.Tensor, step: EngineStep) -> torch.Tensor:
 
 
 def _step_oracle(xq: torch.Tensor, step: EngineStep) -> torch.Tensor:
-    """The integer oracle with the identical fused epilogue. Its MACs are
-    a float64 ``F.conv2d`` / matmul, independent of im2col and of the
-    kernel: every partial sum is an integer far below 2^53, and the
+    """The integer oracle with the identical fused epilogue. At bits=8 its
+    MACs are a float64 ``F.conv2d`` / matmul, independent of im2col and of
+    the kernel: every partial sum is an integer far below 2^53, and the
     rounding before the int32 cast absorbs the last-bit error of a
-    transform-based conv algorithm (it stays many orders below 0.5)."""
+    transform-based conv algorithm (it stays many orders below 0.5).
+    int16 weights (bits=16) take :func:`_step_oracle16`."""
+    if step.wq.dtype != torch.int8:
+        return _step_oracle16(xq, step)
     lyr = step.layer
     if step.kind == "fc":
         acc = matmul_int8_exact(xq.reshape(xq.shape[0], -1), step.wq)
@@ -540,6 +589,66 @@ def _step_exact_f32(xq: torch.Tensor, step: EngineStep) -> torch.Tensor:
     return _epilogue_int32(acc, step)
 
 
+# Max MAC terms per float64 chain on the bits=16 oracle: every int16*int16
+# product has |p| <= 2^30, and float64 represents all integers up to 2^53
+# exactly, so a chain of <= 2^52 / 2^30 = 2^22 products stays exact in any
+# order the GEMM sums it (every partial sum is an integer <= 2^52). The
+# widest engine of the paper's models has K = 25088 (VGG16 fc6).
+_F64_MAX_MACS = 2 ** 22
+
+
+def _matmul_exact_i64(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """int16 ``[N, K] @ [K, M]`` -> exact int64 through one float64 GEMM
+    (a chain of FMAs: exact for K <= ``_F64_MAX_MACS``, refused beyond)."""
+    if x.shape[1] > _F64_MAX_MACS:
+        raise NotImplementedError(
+            f"K = {x.shape[1]} MACs exceeds the exact float64 chain bound "
+            f"({_F64_MAX_MACS}) of the bits=16 oracle")
+    return torch.matmul(x.to(torch.float64),
+                        w.to(torch.float64)).to(torch.int64)
+
+
+def _step_oracle16(xq: torch.Tensor, step: EngineStep) -> torch.Tensor:
+    """The bits=16 engine in exact integer arithmetic: int16 x int16 MACs
+    into int64 accumulators (:func:`_matmul_exact_i64` over the int16
+    im2col patches; never ``F.conv2d``, whose FFT and Winograd algorithms
+    are not chains of FMAs), + bias, ReLU, then ``floor(acc / 2^shift)``
+    (an arithmetic shift; a left shift for a negative one) clipped to
+    int16. The last engine emits the int64 accumulators.
+
+    The reference computes the same engine in float32, which models the
+    DSP48's 48-bit accumulator: it rounds accumulators past 2^24 and
+    shifts by its float32 ``exp2``. The two agree within one LSB on
+    hidden layers and within a float32 rounding on the last
+    (``tests/test_torch_bits16.py``); this one is the same on every
+    device."""
+    lyr = step.layer
+    if step.kind == "fc":
+        acc = _matmul_exact_i64(xq.reshape(xq.shape[0], -1), step.wq)
+    else:
+        acc = conv2d_int8_via(
+            lambda patches, w2d, shift, bias, relu: _matmul_exact_i64(
+                patches, w2d),
+            xq, step.wq, step.shift, None, stride=lyr.stride,
+            padding=(step.pad, step.pad), groups=lyr.groups)
+    acc = acc + step.bias_q.to(torch.int64).reshape(
+        (1,) * (acc.ndim - 1) + (-1,))
+    if step.relu:
+        acc = torch.clamp(acc, min=0)
+    if not step.requantize:
+        return acc
+    sh = step.shift.to(torch.int64).reshape((1,) * (acc.ndim - 1) + (-1,))
+    right = torch.bitwise_right_shift(acc, torch.clamp(sh, min=0))
+    # A left shift of >= 1 takes any |acc| >= 2^16 past the int16 rails,
+    # so clamping there first keeps the sign and the clip and cannot
+    # overflow int64 (2^16 << 31 = 2^47).
+    left = torch.bitwise_left_shift(torch.clamp(acc, -2 ** 16, 2 ** 16),
+                                    torch.clamp(-sh, min=0))
+    y = torch.where(sh >= 0, right, left)
+    qmax = 2 ** 15 - 1
+    return torch.clamp(y, -qmax - 1, qmax).to(torch.int16)
+
+
 def _epilogue_int32(acc: torch.Tensor, step: EngineStep) -> torch.Tensor:
     """The shared fused output stage on exact int32 accumulators."""
     if step.requantize:
@@ -577,10 +686,8 @@ def compile_model(model: CNNModel, params: Params | None = None, *,
     the BRAM budget (plan-only analytics, never the arithmetic).
     """
     device = resolve_device(device)
-    if bits != 8:
-        raise NotImplementedError(
-            "the port runs bits=8 only so far; bits=16 (48-bit DSP "
-            "accumulation model) is still to port")
+    if bits not in (8, 16):
+        raise ValueError(f"bits={bits}: the engine runs 8 or 16")
     workloads = model.layer_workloads(weight_bits=bits)
     allocs = allocate_compute(workloads, theta, objective=objective)
     if bram_total is not None:
@@ -605,16 +712,6 @@ def compile_model(model: CNNModel, params: Params | None = None, *,
     prog.e_input = quant.po2_exponent(amax["__input__"], bits)
     prog.steps = _lower(model, params, amax, prog.e_input, bits)
     return prog
-
-
-def ref_exp2(x) -> torch.Tensor:
-    """The reference's ``jnp.exp2(x)`` for integer ``x`` as float32:
-    ``exp(0.6931472 * x)`` evaluated in float32 by torch on the CPU. It
-    equals XLA's value for every integer in -60..60 except 32, and differs
-    from the exact power of two for |x| >= 13 (any later port of a
-    ``jnp.exp2`` site takes its scale from here)."""
-    x = torch.as_tensor(np.asarray(x, np.float32))
-    return torch.exp(torch.tensor(LN2_F32) * x)
 
 
 @torch.no_grad()
@@ -663,7 +760,7 @@ def _lower(model: CNNModel, params: Params, amax: dict[str, float],
         scale = ref_exp2(-e_w).to(w.device).reshape(
             (1,) * (w.ndim - 1) + (-1,))
         wq = torch.clamp(torch.round(w * scale), -qmax - 1, qmax).to(
-            torch.int8)
+            quant.int_dtype(bits))
         # Bias pre-scaled onto this engine's 32-bit accumulator format
         # (value = q * 2^(e_in + e_w[m])).
         acc_e = e_act + e_w
@@ -674,7 +771,7 @@ def _lower(model: CNNModel, params: Params, amax: dict[str, float],
         wq = wq.contiguous()
         steps.append(EngineStep(
             name=lyr.name, kind=lyr.kind, layer=lyr, pad=pad,
-            wq=wq, wk=k_major_view(wq),
+            wq=wq, wk=k_major_view(wq) if bits <= 8 else None,
             bias_q=torch.as_tensor(bias_q, device=w.device),
             shift=torch.as_tensor(shift, device=w.device), e_in=e_act,
             e_w=e_w, e_out=e_out, relu=not is_last,

@@ -21,6 +21,18 @@ import torch
 
 INT32_MIN = -(2 ** 31)
 INT32_MAX = 2 ** 31 - 1
+# ln 2 as XLA's float32 exp2 lowering multiplies by it.
+LN2_F32 = 0.6931472
+
+
+def ref_exp2(x) -> torch.Tensor:
+    """The reference's ``jnp.exp2(x)`` for integer ``x`` as float32:
+    ``exp(0.6931472 * x)`` evaluated in float32 by torch on the CPU. It
+    equals XLA's value for every integer in -60..60 except 32, and differs
+    from the exact power of two for |x| >= 13 (every port of a
+    ``jnp.exp2`` site takes its scale from here)."""
+    x = torch.as_tensor(np.asarray(x, np.float32))
+    return torch.exp(torch.tensor(LN2_F32) * x)
 
 
 def po2_scale(x: torch.Tensor, axis: int, bits: int = 8) -> torch.Tensor:
@@ -47,7 +59,8 @@ def po2_exponent(amax: float, bits: int = 8) -> int:
     return math.ceil(math.log2(max(float(amax), 1e-12) / qmax))
 
 
-def _int_dtype(bits: int) -> torch.dtype:
+def int_dtype(bits: int) -> torch.dtype:
+    """The activation and weight dtype of a ``bits``-wide program."""
     return torch.int8 if bits <= 8 else torch.int16
 
 
@@ -58,7 +71,7 @@ def quantize_to_exponent(x: torch.Tensor, e: int,
     multiply as the reference."""
     qmax = 2 ** (bits - 1) - 1
     q = torch.clamp(torch.round(x.float() * (2.0 ** (-e))), -qmax - 1, qmax)
-    return q.to(_int_dtype(bits))
+    return q.to(int_dtype(bits))
 
 
 def quantize_to_exponent_np(x, e: int, bits: int = 8) -> np.ndarray:
@@ -70,6 +83,43 @@ def quantize_to_exponent_np(x, e: int, bits: int = 8) -> np.ndarray:
     q = np.clip(np.rint(np.asarray(x, np.float32) * np.float32(2.0 ** (-e))),
                 -qmax - 1, qmax)
     return q.astype(np.int8 if bits <= 8 else np.int16)
+
+
+def _channel_shape(ndim: int, axis: int) -> list[int]:
+    shape = [1] * ndim
+    shape[axis % ndim] = -1
+    return shape
+
+
+def quantize_po2(x: torch.Tensor, axis: int, bits: int = 8):
+    """-> (q int8/int16, e int32 per-channel): x ~= q * 2^e. The scale is
+    the reference's float32 ``jnp.exp2`` (:func:`ref_exp2`)."""
+    e = po2_scale(x, axis, bits)
+    scale = ref_exp2(-e.cpu().numpy()).to(x.device).reshape(
+        _channel_shape(x.ndim, axis))
+    qmax = 2 ** (bits - 1) - 1
+    q = torch.clamp(torch.round(x.float() * scale), -qmax - 1, qmax)
+    return q.to(int_dtype(bits)), e
+
+
+def dequantize_po2(q: torch.Tensor, e: torch.Tensor,
+                   axis: int) -> torch.Tensor:
+    """``q * 2^e`` per channel of ``axis`` in float32, with the reference's
+    float32 ``jnp.exp2`` (:func:`ref_exp2`)."""
+    scale = ref_exp2(torch.as_tensor(e).cpu().numpy()).to(q.device)
+    return q.to(torch.float32) * scale.reshape(_channel_shape(q.ndim, axis))
+
+
+def align_partial_sums(psum: torch.Tensor, e_in: torch.Tensor,
+                       e_common: torch.Tensor, axis: int) -> torch.Tensor:
+    """Left-shift partial sums of per-channel formats onto a common scale
+    (the adder-tree alignment in Fig. 3(c)): ``(psum << max(sh, 0)) >>
+    max(-sh, 0)`` with ``sh = e_in - e_common``, int32 in, int32 out."""
+    sh = (torch.as_tensor(e_in) - torch.as_tensor(e_common)).to(
+        torch.int32).to(psum.device).reshape(_channel_shape(psum.ndim, axis))
+    return torch.bitwise_right_shift(
+        torch.bitwise_left_shift(psum, torch.clamp(sh, min=0)),
+        torch.clamp(-sh, min=0))
 
 
 def saturating_signed_shift(acc32: torch.Tensor,
@@ -103,4 +153,4 @@ def requantize_output(acc32: torch.Tensor, e_acc, e_out,
                             device=acc32.device)
     y = saturating_signed_shift(acc32, shift)
     qmax = 2 ** (bits - 1) - 1
-    return torch.clamp(y, -qmax - 1, qmax).to(_int_dtype(bits))
+    return torch.clamp(y, -qmax - 1, qmax).to(int_dtype(bits))

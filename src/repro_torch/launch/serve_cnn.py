@@ -21,7 +21,8 @@ SLO less than ``--miss-target`` of the time. ``--place-stages`` pins
 stage i to ``cuda:(i % n)`` (transparent on one card). ``--replicas R``
 (with ``--replica-mode pipeline|stage-shard``) serves through R routed
 pipeline replicas (:class:`repro_torch.serving.ReplicaPool`); on one
-card they share it. bits=16 is not ported yet and is refused.
+card they share it. ``--bits 16`` serves the int16 engine through its
+exact integer oracle (the ``gemm_int8`` kernel is int8).
 
 The serving engine itself lives in :mod:`repro_torch.serving.server`.
 
@@ -30,6 +31,8 @@ The serving engine itself lives in :mod:`repro_torch.serving.server`.
   python -m repro_torch.launch.serve_cnn --model alexnet --stages 2 --qos \\
       --slo-ms 200 --traffic-mix "interactive:1:0.25:slo,batch:0:0.75"
   python -m repro_torch.launch.serve_cnn --model alexnet --stages 2 \\
+      --device cpu --quick
+  python -m repro_torch.launch.serve_cnn --model alexnet --bits 16 \\
       --device cpu --quick
 """
 
@@ -49,12 +52,12 @@ def main(argv=None) -> int:
                     choices=sorted(W.CNN_MODELS))
     ap.add_argument("--frames", type=int, default=64)
     ap.add_argument("--batch", type=int, default=16)
-    ap.add_argument("--bits", type=int, default=8, choices=(8,),
-                    help="activation/weight bits (bits=16 is not ported "
-                         "yet)")
+    ap.add_argument("--bits", type=int, default=8, choices=(8, 16),
+                    help="activation/weight bits (16: the oracle route)")
     ap.add_argument("--route", default=None,
                     choices=("f32", "oracle", "kernel"),
-                    help="MAC lowering (default: kernel on cuda, f32 on cpu)")
+                    help="MAC lowering (default: kernel on cuda, f32 on cpu; "
+                         "oracle at --bits 16)")
     ap.add_argument("--eager-frames", type=int, default=0,
                     help="also time N frames through the eager loop")
     ap.add_argument("--output", default="top1",

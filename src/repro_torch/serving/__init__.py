@@ -1,6 +1,5 @@
 """Stage-pipelined async serving subsystem. PyTorch twin of
-``repro/serving/__init__.py`` (the chaos and elastic modules are not
-ported yet).
+``repro/serving/__init__.py``.
 
 The software embodiment of the paper's layer-wise pipeline: Algorithm 1's
 balance objective splits a compiled :class:`~repro_torch.core.program
@@ -107,6 +106,12 @@ from repro_torch.serving.traffic import (SCENARIOS, Arrival,  # noqa: E402
                                    pacing_report, parse_traffic_mix,
                                    record_trace, replay, tag_tenant,
                                    trace_schedule)
+from repro_torch.serving.chaos import (ChaosExecutor,  # noqa: E402
+                                       FaultPlan, ReplicaKilled,
+                                       StageKilled, install_stage_fault,
+                                       recovery_report)
+from repro_torch.serving.elastic import (ElasticController,  # noqa: E402
+                                         ElasticPolicy, RescaleDecision)
 from repro_torch.serving.calibrate import (default_max_wait_ms,  # noqa: E402
                                      pipeline_throughput,
                                      warmed_frontend)
@@ -118,22 +123,29 @@ from repro_torch.serving.server import (ProgramRegistry, Server,  # noqa: E402
 __all__ = [
     "Arrival",
     "AsyncFrontend",
+    "ChaosExecutor",
     "ClassStats",
     "DEFAULT_TENANT",
     "DeadlineExpired",
     "EXECUTOR_MEMBERS",
+    "ElasticController",
+    "ElasticPolicy",
     "Executor",
+    "FaultPlan",
     "FrontendStats",
     "LeastWaitRouter",
     "PipelineExecutor",
     "ProgramRegistry",
+    "ReplicaKilled",
     "ReplicaPool",
     "RequestRejected",
+    "RescaleDecision",
     "SCENARIOS",
     "ServedRequest",
     "Server",
     "ServerConfig",
     "ServiceTimeEstimator",
+    "StageKilled",
     "StagePartition",
     "TenantMux",
     "TrafficClass",
@@ -142,6 +154,7 @@ __all__ = [
     "build_server",
     "default_max_wait_ms",
     "default_mix",
+    "install_stage_fault",
     "make_scenario_schedule",
     "make_schedule",
     "merge_schedules",
@@ -150,6 +163,7 @@ __all__ = [
     "partition_program",
     "pipeline_throughput",
     "record_trace",
+    "recovery_report",
     "replay",
     "stage_devices",
     "step_cycles",

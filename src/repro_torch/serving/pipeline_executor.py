@@ -18,10 +18,12 @@ the same structure at micro-batch granularity:
   upstream engine (backpressure), so at most ``queue_depth`` micro-batches
   sit between any two stages.
 
-Activations cross stage boundaries as the same int8 tensors the whole
-chain passes between steps, so the K-stage pipeline is bit-identical to
-:meth:`EngineProgram.compile_runner` for every route (pinned by
-``tests/test_torch_serving.py``); K=1 degenerates to one worker.
+Activations cross stage boundaries as the same int8 (int16 at bits=16)
+tensors the whole chain passes between steps, and the last stage hands
+the collector its int32 (int64 at bits=16) accumulators, so the K-stage
+pipeline is bit-identical to :meth:`EngineProgram.compile_runner` for
+every route (pinned by ``tests/test_torch_serving.py``); K=1 degenerates
+to one worker.
 
 How a stage waits for the card. The reference's stage worker calls
 ``block_until_ready`` on its output: on one TPU, XLA runs programs in
@@ -35,11 +37,12 @@ event is created with ``blocking=True`` so a waiting worker sleeps
 instead of spinning a core the other stages' host work needs. The wait
 gives ``stage_busy_s`` and hands a finished tensor to the next queue.
 Stage 0 moves the quantized host batch to the card from a pinned staging
-ring of ``queue_depth + 1`` buffers: the submitting thread takes a free
-buffer (blocking while all are in flight), writes the batch into it and
-queues it; stage 0 copies it to the card with ``non_blocking=True`` and
-returns the buffer to the ring once its event has completed, so no buffer
-is rewritten while its copy is in flight. On the CPU the stages run
+ring of ``queue_depth + 1`` buffers in the program's input dtype: the
+submitting thread takes a free buffer (blocking while all are in
+flight), writes the batch into it and queues it; stage 0 copies it to
+the card with ``non_blocking=True`` and returns the buffer to the ring
+once its event has completed, so no buffer is rewritten while its copy
+is in flight. On the CPU the stages run
 synchronously in their threads.
 """
 
@@ -54,7 +57,8 @@ import numpy as np
 import torch
 
 from repro_torch.core.executor import (ServeStats, normalize_frames,
-                                       pad_micro_batch)
+                                       pad_micro_batch, stage_into,
+                                       staging_buffer)
 from repro_torch.core.program import CompiledRunner, EngineProgram
 from repro_torch.serving.partition import (partition_from_boundaries,
                                            partition_program, stage_devices)
@@ -139,11 +143,8 @@ class PipelineExecutor:
         self._cuda = self.runners[0].device.type == "cuda"
         self._free: queue.Queue = queue.Queue()
         if self._cuda:
-            m = program.model
             for _ in range(depth + 1):
-                self._free.put(torch.empty(
-                    (self.batch_size, m.input_hw, m.input_hw, m.input_ch),
-                    dtype=torch.int8, pin_memory=True))
+                self._free.put(staging_buffer(program, self.batch_size))
         self._threads: list[threading.Thread] = []
         self._lock = threading.RLock()
         # Serializes batch assembly + seq assignment + stage-0 enqueue as
@@ -258,9 +259,10 @@ class PipelineExecutor:
             self._put(self._queues[0], ("batch", seq, tag, payload, n_valid))
 
     def _stage_in(self, xq: np.ndarray):
-        """The host int8 batch as stage 0 takes it: on CUDA, a free pinned
-        buffer of the ring holding it (waits while every buffer is in
-        flight); on the CPU, the array itself."""
+        """The host quantized batch as stage 0 takes it: on CUDA, a free
+        pinned buffer of the ring holding it (waits while every buffer is
+        in flight; :func:`stage_into` refuses a batch of another dtype);
+        on the CPU, the array itself."""
         if not self._cuda:
             return xq
         while True:
@@ -270,8 +272,11 @@ class PipelineExecutor:
                 break
             except queue.Empty:
                 continue
-        buf.numpy()[...] = xq
-        return buf
+        try:
+            return stage_into(buf, xq)
+        except ValueError:
+            self._free.put(buf)
+            raise
 
     def serve(self, frames: Iterable[np.ndarray]) -> list[np.ndarray]:
         """Convenience: submit a finite stream and drain."""

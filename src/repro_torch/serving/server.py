@@ -23,8 +23,9 @@ Through Resource Partitioning"):
   :class:`UnknownModelError` for unregistered ids, ``stats()`` with
   per-tenant rollups, :meth:`Server.rescale` for live
   drain-swap-resume reconfiguration (new K, R, or batch built and
-  calibrated in the background, swapped in between micro-batches),
-  idempotent ``close()``.
+  calibrated in the background, swapped in between micro-batches —
+  see ``repro_torch.serving.elastic`` for the controller that automates
+  it), idempotent ``close()``.
 
 The single-model serve paths (:func:`serve`, :func:`serve_async`,
 :func:`serve_qos`, :func:`serve_knee` — the entry points of
@@ -43,10 +44,9 @@ Differences from the reference:
   the served outputs (``return_outputs``); :func:`serve_async` can too,
   in stream order, and reports ``batches_run``, the micro-batches its
   executor's stage chains ran (warmup and calibration included).
-* Not yet ported, each raising ``NotImplementedError``: the elastic
-  runtime (``ServerConfig(auto_rescale=True)``,
-  :func:`serve_knee_rescale`) and the compiler front door
-  (:meth:`ProgramRegistry.register_imported`).
+* :func:`serve_knee_rescale` can return each served frame's output
+  (``return_outputs``), so a caller can hold the frames served across a
+  live rescale against a single executor.
 """
 
 from __future__ import annotations
@@ -71,10 +71,6 @@ from repro_torch.serving.frontend import (DEFAULT_TENANT, AsyncFrontend,
                                           ServedRequest, tenant_key)
 from repro_torch.serving.pipeline_executor import PipelineExecutor
 from repro_torch.serving.replica_pool import ReplicaPool
-
-# What the elastic runtime needs is the next slice of the port.
-_ELASTIC = ("the elastic runtime (serving/elastic.py) is not ported yet; "
-            "it comes with the next slice (bits=16, chaos, elastic)")
 
 class UnknownModelError(KeyError):
     """Submit (or lookup) named a model id the registry never saw."""
@@ -178,14 +174,33 @@ class ProgramRegistry:
     def register_imported(self, source, *, name: str | None = None,
                           bits: int = 8, seed: int = 0,
                           theta: int | None = None,
-                          golden_check: bool = True):
-        """The compiler front door of the reference (import a spec, an
-        ONNX file or a compiler graph, quantize, check its golden,
-        register). The port's ``compiler/`` is not written yet."""
-        raise NotImplementedError(
-            "register_imported needs the compiler front end "
-            "(compiler/, launch/import_model.py), which the port has not "
-            "ported yet")
+                          golden_check: bool = True, device=None):
+        """The compiler front door: import ``source`` (a spec dict,
+        ``.json``/``.onnx`` path, or in-memory compiler ``Graph``),
+        lower it onto the engine contract, quantize it with the shared
+        serving conventions, and register the compiled program.
+
+        Returns ``(name, golden)`` — the id it registered under and the
+        int8 golden parity record. With ``golden_check`` (default) the
+        golden is generated on the exact-f32 MAC route and re-executed
+        on the int32 oracle route before registration: an import that
+        cannot reproduce its own golden across routes never enters the
+        zoo (raises :class:`repro_torch.compiler.GoldenMismatch`).
+        ``device`` defaults to ``cuda``."""
+        from repro_torch import compiler
+
+        model, params = compiler.import_source(source, device=device)
+        if name is None:
+            name = model.name
+        if name in self._programs:
+            raise ValueError(f"model {name!r} already registered")
+        prog = compiler.quantize(model, params, bits=bits, seed=seed,
+                                 theta=theta, device=device)
+        golden = compiler.make_golden(prog, seed=seed, route="f32")
+        if golden_check:
+            compiler.check_golden(prog, golden, seed=seed, route="oracle")
+        self.register(name, prog)
+        return name, golden
 
     def get(self, name: str):
         try:
@@ -247,15 +262,11 @@ class ServerConfig:
     calib_frames: int | None = None    # None: (6 + 2*stages) * batch
     # Elastic runtime: with auto_rescale, every frontend the server
     # mints gets an ElasticController watching it (observe -> decide ->
-    # act on a background thread). rescale_policy overrides
-    # ElasticPolicy fields by name. Not ported yet: refused.
+    # act on a background thread; see repro_torch.serving.elastic).
+    # rescale_policy overrides ElasticPolicy fields by name.
     auto_rescale: bool = False
     rescale_policy: dict | None = None
     rescale_interval_s: float = 0.25
-
-    def __post_init__(self):
-        if self.auto_rescale:
-            raise NotImplementedError(f"auto_rescale: {_ELASTIC}")
 
     def replicas_for(self, name: str) -> int:
         """The replica count for one model: the fleet-wide int, or the
@@ -421,6 +432,7 @@ class Server:
         self._closed = False
         self._frontends: list[AsyncFrontend] = []
         self._default_frontend: AsyncFrontend | None = None
+        self._controller = None            # auto-rescale ElasticController
         # One model serves under the default tenant on its bare
         # executor: the frontend's estimator keys, router warm-start,
         # and lane layout are then exactly the single-model ones — the
@@ -474,7 +486,12 @@ class Server:
         mapping (or None — the calibrated steady rates) for a
         multi-model one. The server closes any still-open frontend it
         minted at :meth:`close`; callers that finish earlier close it
-        themselves (the executor is reusable across frontends)."""
+        themselves (the executor is reusable across frontends). With
+        ``ServerConfig(auto_rescale=True)`` an
+        :class:`~repro_torch.serving.elastic.ElasticController` is
+        attached to the new frontend (observe cadence
+        ``config.rescale_interval_s``, policy overrides from
+        ``config.rescale_policy``)."""
         if self._closed:
             raise RuntimeError("server is closed")
         cfg = self.config
@@ -526,7 +543,30 @@ class Server:
                                tenant_shares=cfg.tenant_shares)
         with self._lock:
             self._frontends.append(fe)
+        if cfg.auto_rescale:
+            self._attach_controller(fe)
         return fe
+
+    def _attach_controller(self, fe: AsyncFrontend) -> None:
+        """Start an :class:`~repro_torch.serving.elastic.ElasticController`
+        watching ``fe`` (``ServerConfig.auto_rescale``). One controller
+        per server: a newer frontend takes over the watch."""
+        from repro_torch.serving.elastic import (ElasticController,
+                                                 ElasticPolicy)
+        if self.multi:
+            raise ValueError("auto_rescale currently watches one model; "
+                             "drive rescale() directly on a multi-model "
+                             "server")
+        cfg = self.config
+        policy = ElasticPolicy(**(cfg.rescale_policy or {}))
+        with self._lock:
+            prev = self._controller
+        if prev is not None:
+            prev.stop()
+        ctrl = ElasticController(self, fe, policy=policy)
+        ctrl.start(interval_s=cfg.rescale_interval_s)
+        with self._lock:
+            self._controller = ctrl
 
     def _ensure_frontend(self) -> AsyncFrontend:
         with self._lock:
@@ -620,9 +660,8 @@ class Server:
                 drain_timeout_s: float = 60.0) -> dict:
         """Live re-partition one model without dropping a request.
 
-        The act half of the elastic runtime (DESIGN.md section 10; the
-        controller that automates it is not ported yet): build the
-        candidate executor — a new K partition via the
+        The act half of the elastic runtime (DESIGN.md section 10): build
+        the candidate executor — a new K partition via the
         Algorithm-1 DP, a changed micro-batch size, or R+-1 replicas —
         **in the background** while the old one keeps serving, warm and
         calibrate it (every stage warms up, steady fps and unloaded
@@ -809,6 +848,10 @@ class Server:
                 return
             self._closed = True
             frontends = list(self._frontends)
+            ctrl = self._controller
+            self._controller = None
+        if ctrl is not None:                 # stop rescales before drain
+            ctrl.stop()
         for fe in frontends:
             fe.close()                       # idempotent per frontend
         if self._mux is not None:
@@ -1556,8 +1599,252 @@ def serve_knee(model_name: str, *, frames: int = 96, batch: int = 16,
     return result
 
 
-def serve_knee_rescale(model_name: str = "alexnet", **kwargs) -> dict:
-    """The reference's load ramp across the R=1 knee with the elastic
-    controller closing the loop live. It needs the elastic runtime, which
-    is not ported yet."""
-    raise NotImplementedError(f"serve_knee_rescale: {_ELASTIC}")
+def serve_knee_rescale(model_name: str = "alexnet", *, frames: int = 96,
+                       batch: int = 16, stages: int = 2, bits: int = 8,
+                       route: str | None = None, seed: int = 0,
+                       theta: int | None = None,
+                       slo_ms: float | None = None,
+                       traffic_mix=None, miss_target: float = 0.01,
+                       start_qps: float | None = None,
+                       ramp_growth: float = 1.3, max_segments: int = 6,
+                       max_factor: float = 4.0, refine_iters: int = 2,
+                       max_wait_ms: float | None = None,
+                       flush_guard_ms: float | None = None,
+                       admission_control: bool = True,
+                       place_stages: bool = False,
+                       scenario: str | None = None,
+                       scenario_params: dict | None = None,
+                       max_replicas: int = 2,
+                       replica_mode: str = "pipeline",
+                       output: str = "top1", program=None,
+                       verbose: bool = True, device=None,
+                       return_outputs: bool = False) -> dict:
+    """Drive a load ramp across the R=1 knee and measure the elastic
+    runtime closing the loop live: an :class:`~repro_torch.serving.elastic
+    .ElasticController` watches the frontend while open-loop segments
+    escalate (``ramp_growth`` per segment, capped at ``max_factor *
+    steady``); when the armed miss rate crosses ``miss_target`` the
+    controller builds an R+1 plan in the background and performs the
+    drain -> swap -> resume between micro-batches — traffic keeps
+    flowing the whole time, and ``hung == 0`` certifies no request was
+    dropped or left unresolved across the swap.
+
+    After the swap a recovery segment replays the anchor rate — the
+    rated pre-ramp load — against the rescaled fleet
+    (``armed_miss_after_rescale`` vs ``armed_miss_at_trigger``), and
+    :func:`serve_knee` re-brackets the
+    knee **on the same server** (``server=`` reuse) so the artifact's
+    nested ``knee`` row is the post-rescale capacity, directly
+    comparable to the base row's pre-rescale knee.
+
+    Quick CI runs can be too short for the policy's sustained-miss
+    window to fire; if the ramp exhausts without a controller event,
+    the rescale is *forced* concurrently with live recovery traffic
+    (``forced: true`` in the artifact) — the drain-swap-resume
+    mechanism is still exercised under load, only the trigger differs.
+
+    The program is compiled on ``device`` (default ``cuda``) unless
+    ``program`` is given. ``return_outputs`` adds ``"outputs"``: the
+    stream index (``frame_idx``) and the output (``outputs``) of every
+    request the ramp, hold and recovery segments served, in completion
+    order of the segments (the re-bracketed knee's are not kept).
+    """
+    from repro_torch.serving.elastic import ElasticController, ElasticPolicy
+    from repro_torch.serving.traffic import (armed_class_names, default_mix,
+                                             make_scenario_schedule, replay,
+                                             resolve_scenario_params)
+
+    if not 0.0 < miss_target < 1.0:
+        raise ValueError(f"miss_target={miss_target} not in (0, 1)")
+    if max_replicas < 2:
+        raise ValueError(f"max_replicas={max_replicas} leaves no room "
+                         "to scale out")
+    if scenario is None:
+        scenario = "uniform"
+    resolve_scenario_params(scenario, 0.0, **(scenario_params or {}))
+    srv, rt, stream = _one_model_server(
+        model_name, frames=frames, batch=batch, stages=stages, bits=bits,
+        route=route, output=output, place_stages=place_stages,
+        replicas=1, replica_mode=replica_mode, seed=seed, theta=theta,
+        max_wait_ms=max_wait_ms, admission_control=admission_control,
+        flush_guard_ms=flush_guard_ms, program=program, device=device)
+    px = rt.executor
+    part = px.partition
+    steady = rt.steady_fps
+    try:
+        if slo_ms is None:
+            slo_ms = _derived_slo_ms(part, px, batch, steady)
+        mix = tuple(traffic_mix) if traffic_mix is not None \
+            else default_mix(slo_ms)
+        armed = armed_class_names(mix)
+        if not armed:
+            raise ValueError("traffic mix has no deadline-armed class — "
+                             "nothing can trigger a rescale")
+        anchor = start_qps if start_qps is not None else steady
+        policy = ElasticPolicy(miss_high=miss_target,
+                               miss_low=miss_target / 4,
+                               sustain=1, cooldown_s=1.0,
+                               max_replicas=max_replicas,
+                               min_window_requests=4)
+        fe = srv.open_frontend(anchor)
+        ctrl = ElasticController(srv, fe, policy=policy)
+        ctrl.start(interval_s=0.15)
+        segments: list[dict] = []
+        served_idx: list[int] = []
+        served_out: list = []
+
+        def _armed_counts(st) -> tuple[int, int]:
+            cls = [st.klass(n) for n in armed if n in st.classes]
+            return (sum(c.submitted for c in cls),
+                    sum(c.expired + c.rejected + c.rejected_wait + c.late
+                        for c in cls))
+
+        def _segment(rate: float, label: str, seg_seed: int) -> dict:
+            sub0, miss0 = _armed_counts(fe.stats_snapshot())
+            schedule, _ = make_scenario_schedule(
+                scenario, len(stream), rate, mix, seed=seg_seed,
+                **(scenario_params or {}))
+            reqs = replay(fe, stream, schedule)
+            if return_outputs:
+                for a, r in zip(schedule, reqs):
+                    if r.outcome == "completed":
+                        served_idx.append(a.frame_idx)
+                        served_out.append(r.result(timeout=0))
+            sub1, miss1 = _armed_counts(fe.stats_snapshot())
+            dsub, dmiss = sub1 - sub0, miss1 - miss0
+            row = {
+                "label": label,
+                "arrival_fps": round(rate, 3),
+                "armed_submitted": dsub,
+                "armed_missed": dmiss,
+                "armed_miss_rate": round(dmiss / dsub if dsub else 0.0, 4),
+                "replicas": getattr(rt.executor, "n_replicas", 1),
+                "rescales_so_far": len(ctrl.history),
+            }
+            segments.append(row)
+            if verbose:
+                print(f"[serve_knee_rescale] {model_name} {label:>9} "
+                      f"{rate:8.2f} qps: armed miss "
+                      f"{row['armed_miss_rate']:6.2%} | R="
+                      f"{row['replicas']} | rescales "
+                      f"{row['rescales_so_far']}")
+            return row
+
+        # Ramp: escalate past the R=1 knee until the controller fires.
+        # Its history gains an event only once the swap *completed*, so
+        # after the ramp, hold segments keep traffic in flight while
+        # ctrl.busy — the background build easily outlasts a short
+        # open-loop segment, and the whole point is a swap with
+        # requests in the air.
+        cap = max(max_factor * steady, anchor)
+        rate, trigger_row = anchor, None
+        for i in range(max(1, int(max_segments))):
+            rate = min(rate * ramp_growth, cap)
+            row = _segment(rate, f"ramp{i}", seed + i)
+            if ctrl.history:
+                trigger_row = row
+                break
+        k = 0
+        while not ctrl.history and (ctrl.busy or k < 2) and k < 60:
+            _segment(rate, f"hold{k}", seed + 100 + k)
+            k += 1
+        ctrl.stop()                    # joins any in-flight rescale
+        events = [dict(ev) for ev in ctrl.history]
+        forced = not events
+        if events and trigger_row is None:
+            # The act completed during a hold segment (or the stop
+            # join); the last segment carried the traffic across it.
+            trigger_row = segments[-1]
+        if forced:
+            # Policy never fired within the ramp; force the mechanism
+            # under live traffic so the artifact still certifies the
+            # drain-swap-resume path end to end.
+            trigger_row = segments[-1]
+            errs: list[BaseException] = []
+
+            def _force() -> None:
+                try:
+                    ev = srv.rescale(model_name, replicas=max_replicas)
+                    ev.update({"action": "scale_out", "reason": "forced",
+                               "signals": None,
+                               "total_s": round(ev["compile_s"]
+                                                + ev["swap_s"], 3)})
+                    events.append(ev)
+                except BaseException as e:  # surfaced after join
+                    errs.append(e)
+
+            t = threading.Thread(target=_force, daemon=True,
+                                 name="forced-rescale")
+            t.start()
+            k = 0
+            while t.is_alive():        # keep requests in flight
+                _segment(trigger_row["arrival_fps"], f"forcehold{k}",
+                         seed + 200 + k)
+                k += 1
+            t.join()
+            if errs:
+                raise errs[0]
+        # Recovery is measured at the anchor (the rated pre-ramp load),
+        # not the escalated trigger rate: the question the artifact
+        # answers is whether the rescaled fleet serves the load the old
+        # topology was rated for, not whether it absorbs an arbitrary
+        # overload the ramp happened to end on.
+        recovery = _segment(anchor, "recovery", seed + 500)
+        fe.close()
+        hung = fe.stats.hung
+        replicas_after = getattr(rt.executor, "n_replicas", 1)
+
+        # Re-bracket the knee on the rescaled server: the nested row is
+        # the post-rescale capacity under the same seed/mix/SLO.
+        knee_row = serve_knee(
+            model_name, frames=frames, batch=batch, bits=bits, seed=seed,
+            slo_ms=slo_ms, traffic_mix=mix, miss_target=miss_target,
+            start_qps=anchor, max_factor=max_factor,
+            refine_iters=refine_iters, max_wait_ms=max_wait_ms,
+            flush_guard_ms=flush_guard_ms,
+            admission_control=admission_control, scenario=scenario,
+            scenario_params=scenario_params, output=output,
+            server=srv, verbose=verbose)
+    finally:
+        srv.close()
+
+    result = {
+        "model": model_name,
+        "bits": bits,
+        "batch": batch,
+        "stages": part.n_stages,
+        "seed": seed,
+        "slo_ms": slo_ms,
+        "miss_target": miss_target,
+        "scenario": scenario,
+        "traffic_mix": [c.to_json() for c in mix],
+        "measured_steady_fps_r1": round(steady, 3),
+        "anchor_qps": round(anchor, 3),
+        "policy": policy.to_json(),
+        "segments": segments,
+        "rescale_events": events,
+        "n_rescales": len(events),
+        "forced": forced,
+        "replicas_before": 1,
+        "replicas_after": replicas_after,
+        "armed_miss_at_trigger": trigger_row["armed_miss_rate"],
+        "armed_miss_after_rescale": recovery["armed_miss_rate"],
+        "miss_recovered": bool(recovery["armed_miss_rate"]
+                               <= trigger_row["armed_miss_rate"]),
+        "hung": hung,
+        "knee": knee_row,
+    }
+    if return_outputs:
+        result["outputs"] = {"frame_idx": np.asarray(served_idx, np.int64),
+                             "outputs": np.stack(served_out)}
+    if verbose:
+        print(f"[serve_knee_rescale] {model_name}: "
+              f"{len(events)} rescale(s)"
+              + (" (forced)" if forced else "")
+              + f" R 1 -> {replicas_after} | miss at trigger "
+              f"{result['armed_miss_at_trigger']:.2%} -> after "
+              f"{result['armed_miss_after_rescale']:.2%} | hung {hung} | "
+              f"post-rescale knee "
+              + (f"{knee_row['knee_qps']:.1f} qps"
+                 if knee_row["knee_qps"] is not None else "not found"))
+    return result

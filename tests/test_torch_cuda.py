@@ -2,7 +2,9 @@
 same CUDA tensors: ``gemm_int8`` bit for bit, ``flash_attention`` and
 ``linear_scan`` within the reference's tolerances (2e-5 in float32, 3e-2
 in bfloat16, as ``tests/test_kernels.py`` states them; each attention
-output row also within a fraction of its own RMS). The CUDA kernels
+output row also within a fraction of its own RMS); the bits=16 engine on
+the card bit for bit against the CPU, and an imported LeNet's golden on
+every route. The CUDA kernels
 have no CPU mode, so these tests are marked ``cuda`` and skip without a
 GPU; on a machine with one (and ``nvcc``) run them with
 
@@ -257,6 +259,79 @@ def test_four_stage_workers_launch_gemm_int8_concurrently():
                    "dp4a": 0}
     np.testing.assert_array_equal(got, np.tile(want, (n_batches
                                                       // distinct, 1)))
+
+
+def _on_cpu(prog):
+    """The same compiled program with its tensors on the CPU."""
+    import dataclasses
+    return dataclasses.replace(prog, steps=prog.steps_on("cpu"),
+                               device=torch.device("cpu"))
+
+
+def test_bits16_on_the_card_equals_the_cpu():
+    """Full-width AlexNet at bits=16 on the card (the exact integer oracle:
+    int16 activations, int64 accumulators) through the whole-chain runner,
+    the single executor (its pinned int16 staging ring) and a K=2
+    ``PipelineExecutor``: bit for bit the same program run on the CPU, and
+    no ``gemm_int8`` launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    import numpy as np
+
+    from repro_torch.core.executor import EngineExecutor
+    from repro_torch.serving import PipelineExecutor
+    from repro_torch.serving.server import (compile_for_serving,
+                                            synthetic_stream)
+    prog = compile_for_serving("alexnet", bits=16, device="cuda")
+    cpu = _on_cpu(prog)
+    frames = synthetic_stream("alexnet", 8, 1)
+    runner, runner_cpu = prog.compile_runner(), cpu.compile_runner()
+    assert runner.route == "oracle"
+    before = gemm_int8.launches
+    xq = runner.quantize(frames[:4])
+    assert xq.dtype == np.int16
+    acc = runner(xq)
+    assert acc.dtype == torch.int64 and acc.is_cuda
+    assert torch.equal(acc.cpu(), runner_cpu(xq))
+    want = runner_cpu.logits(frames)
+    ex = EngineExecutor(prog, batch_size=4, output="logits")
+    np.testing.assert_array_equal(np.stack(ex.serve(list(frames))), want)
+    assert ex._staging[0].dtype == torch.int16
+    assert ex._staging[0].is_pinned()
+    with PipelineExecutor(prog, stages=2, batch_size=4,
+                          output="logits") as px:
+        got = np.stack(px.serve(list(frames)))
+    np.testing.assert_array_equal(got, want)
+    assert gemm_int8.launches == before
+    for route in ("kernel", "f32"):
+        with pytest.raises(NotImplementedError):
+            prog.compile_runner(route=route)
+
+
+def test_lenet_golden_holds_on_every_route_on_the_card():
+    """``examples/lenet.json`` imported on the card: its f32 golden
+    reproduces on the oracle and kernel routes there and on the CPU, and
+    the kernel route launches conv1 and conv2 on ``large_n``, fc1 (K 400)
+    on ``small_n`` and fc2, fc3 (rows of 120 and 84 bytes, not on 16-byte
+    strides) on ``dp4a``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    import os
+
+    from repro_torch import compiler
+    from repro_torch.serving import ProgramRegistry
+    spec = os.path.join(os.path.dirname(__file__), os.pardir, "examples",
+                        "lenet.json")
+    reg = ProgramRegistry()
+    name, golden = reg.register_imported(spec, seed=0, device="cuda")
+    prog = reg.get(name)
+    before = dict(gemm_int8.launches_by_path)
+    compiler.check_golden(prog, golden, seed=0, route="kernel")
+    ran = {p: n - before[p] for p, n in gemm_int8.launches_by_path.items()}
+    assert ran == {"large_n": 2, "small_n": 1, "dp4a": 2}
+    for route in ("f32", "oracle"):
+        compiler.check_golden(prog, golden, seed=0, route=route)
+        compiler.check_golden(_on_cpu(prog), golden, seed=0, route=route)
 
 
 def test_grouped_conv_launches_once_per_group(gen):

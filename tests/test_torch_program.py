@@ -157,8 +157,12 @@ def test_plan_only_and_unported_options():
     assert plan.fps() == ref.fps()
     with pytest.raises(ValueError):
         plan.compile_runner()
-    with pytest.raises(NotImplementedError):
-        prog_t.compile_model(mt, bits=16, device="cpu")
+    # bits=16 plans as the reference does; other widths are refused.
+    plan16 = prog_t.compile_model(mt, theta=900, bits=16, device="cpu")
+    ref16 = prog_j.compile_model(W.CNN_MODELS["zf"](), theta=900, bits=16)
+    assert plan16.fps() == ref16.fps()
+    with pytest.raises(ValueError):
+        prog_t.compile_model(mt, bits=4, device="cpu")
 
 
 @pytest.mark.parametrize("name", ["alexnet", "zf"])

@@ -96,3 +96,40 @@ def test_po2_scale_and_exponent_bit_identical():
         for bits in (8, 16):
             assert qt.po2_exponent(amax, bits) == qj.po2_exponent(amax, bits)
 
+
+
+@pytest.mark.parametrize("bits", [8, 16])
+@pytest.mark.parametrize("axis", [-1, 0])
+def test_quantize_and_dequantize_po2_bit_identical(bits, axis):
+    """``quantize_po2`` / ``dequantize_po2`` against the reference's, with
+    channel scales whose exponents reach past +-13, where the reference's
+    float32 ``exp2`` leaves the exact power of two."""
+    rng = np.random.default_rng(bits)
+    x = (rng.standard_normal((5, 3, 3, 12)) *
+         np.exp2(rng.integers(-20, 8, 12))).astype(np.float32)
+    if axis == 0:
+        x = np.moveaxis(x, -1, 0).copy()
+    q_want, e_want = qj.quantize_po2(jnp.asarray(x), axis, bits)
+    q_got, e_got = qt.quantize_po2(torch.from_numpy(x), axis, bits)
+    assert q_got.dtype == (torch.int8 if bits == 8 else torch.int16)
+    np.testing.assert_array_equal(e_got.numpy(), np.asarray(e_want))
+    np.testing.assert_array_equal(q_got.numpy(), np.asarray(q_want))
+    assert np.abs(np.asarray(e_want)).max() >= 13
+    np.testing.assert_array_equal(
+        qt.dequantize_po2(q_got, e_got, axis).numpy(),
+        np.asarray(qj.dequantize_po2(q_want, e_want, axis)))
+
+
+def test_align_partial_sums_bit_identical():
+    rng = np.random.default_rng(3)
+    psum = rng.integers(-2 ** 20, 2 ** 20, (4, 6, 8)).astype(np.int32)
+    e_in = rng.integers(-8, 8, 8).astype(np.int32)
+    e_common = np.int32(-2)
+    for axis, e in ((-1, e_in), (1, e_in[:6])):
+        want = np.asarray(qj.align_partial_sums(
+            jnp.asarray(psum), jnp.asarray(e), jnp.asarray(e_common), axis))
+        got = qt.align_partial_sums(torch.from_numpy(psum),
+                                    torch.from_numpy(e),
+                                    torch.tensor(e_common), axis)
+        assert got.dtype == torch.int32
+        np.testing.assert_array_equal(got.numpy(), want)

@@ -2,7 +2,7 @@
 tiny model gives the same logits and top-1 ids as the JAX executor,
 padded tail batch included; parameters carry across with
 ``params_from_numpy``; the launcher runs the single-executor path and
-refuses bits=16, which is not ported yet. Every comparison is exact."""
+refuses a bit width other than 8 and 16. Every comparison is exact."""
 
 import json
 
@@ -125,8 +125,8 @@ def test_serve_returns_the_served_outputs():
 
 
 def test_launcher_refuses_unported_paths():
-    """bits=16 is not ported: the command line refuses it before any serve
-    path is chosen."""
+    """The command line refuses a bit width the engine has no format for
+    (8 and 16 are served) before any serve path is chosen."""
     with pytest.raises(SystemExit) as e:
-        serve_cnn.main(["--device", "cpu", "--bits", "16"])
+        serve_cnn.main(["--device", "cpu", "--bits", "4"])
     assert e.value.code == 2

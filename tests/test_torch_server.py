@@ -4,9 +4,8 @@ registry's typed errors, the build -> serve -> stats -> close lifecycle
 over a four-model registry (tiny programs compiled on the CPU from numpy
 weights) with interleaved tagged traffic, tenant fairness under a
 one-tenant flood, Executor protocol conformance and live rescale — plus
-what the port refuses until the next slice (the elastic runtime, the
-compiler front door) and the pipelined serve paths against the
-reference's result schema."""
+the entry points of the elastic runtime and the compiler front door, and
+the pipelined serve paths against the reference's result schema."""
 
 import dataclasses
 import time
@@ -22,7 +21,7 @@ from repro_torch.serving import (AsyncFrontend, Executor, ProgramRegistry,
                                  UnknownModelError, build_server)
 
 
-def _tiny_model(name: str, hw: int, ch: int, seed: int):
+def _tiny_model(name: str, hw: int, ch: int, seed: int, bits: int = 8):
     """One small compiled program per 'model' — distinct input shapes so
     cross-tenant frame mixups cannot pass shape validation silently."""
     m = W.CNNModel(name, hw, ch, (
@@ -34,7 +33,7 @@ def _tiny_model(name: str, hw: int, ch: int, seed: int):
         (2, hw, hw, ch)).astype(np.float32)
     return compile_model(
         m, cnn.params_from_numpy(cnn.init_params_np(m, seed), "cpu"),
-        bits=8, calib_batch=calib, device="cpu")
+        bits=bits, calib_batch=calib, device="cpu")
 
 
 ZOO = (("m-a", 8, 3), ("m-b", 8, 4), ("m-c", 12, 3), ("m-d", 12, 4))
@@ -91,17 +90,14 @@ def test_register_refuses_same_shape_different_bits():
     frames under different integer formats — refused at register."""
     reg = ProgramRegistry()
     reg.register("m8", _tiny_model("m8", 8, 3, seed=0))
-    # The port compiles bits=8 only; the check reads the program's model
-    # and bits, so a bits=16 program is the same program relabelled.
-    p16 = dataclasses.replace(_tiny_model("m16", 8, 3, seed=1), bits=16)
+    p16 = _tiny_model("m16", 8, 3, seed=1, bits=16)
     with pytest.raises(ValueError) as ei:
         reg.register("m16", p16)
     assert "dtype" in str(ei.value) and "m8" in str(ei.value)
     # Same bits, same shape: fine (tenant routing is by model id).
     reg.register("m8b", _tiny_model("m8b", 8, 3, seed=2))
     # Different shape, different bits: no ambiguity, fine.
-    reg.register("m16w", dataclasses.replace(
-        _tiny_model("m16w", 12, 3, seed=3), bits=16))
+    reg.register("m16w", _tiny_model("m16w", 12, 3, seed=3, bits=16))
     # Opaque stand-ins (no model/bits contract) skip the check.
     reg.register("fake", object())
 
@@ -425,18 +421,26 @@ def test_rescale_validation_errors():
 
 
 # ---------------------------------------------------------------------------
-# What the port refuses until the next slice
+# The elastic runtime's and the compiler front door's entry points
 # ---------------------------------------------------------------------------
 
 
 def test_elastic_runtime_and_compiler_front_door_are_refused():
+    """Both are ported: the config takes ``auto_rescale``, and what each
+    entry point refuses is what the reference refuses (bad arguments
+    before any compile, a spec the engine cannot run), with the
+    reference's errors."""
+    from repro_torch.compiler import GraphError
     from repro_torch.serving.server import serve_knee_rescale
-    with pytest.raises(NotImplementedError, match="elastic"):
-        ServerConfig(auto_rescale=True)
-    with pytest.raises(NotImplementedError, match="elastic"):
-        serve_knee_rescale("alexnet")
-    with pytest.raises(NotImplementedError, match="compiler"):
-        ProgramRegistry().register_imported({"name": "x"})
+    assert ServerConfig(auto_rescale=True).auto_rescale
+    with pytest.raises(ValueError, match="miss_target"):
+        serve_knee_rescale("alexnet", miss_target=1.5, device="cpu")
+    with pytest.raises(ValueError, match="max_replicas"):
+        serve_knee_rescale("alexnet", max_replicas=1, device="cpu")
+    reg = ProgramRegistry()
+    with pytest.raises(GraphError):
+        reg.register_imported({"name": "x"}, device="cpu")
+    assert len(reg) == 0
 
 
 # ---------------------------------------------------------------------------

@@ -23,7 +23,8 @@ from repro_torch.models import cnn
 from repro_torch.serving import (AsyncFrontend, PipelineExecutor,
                                  ProgramRegistry, ReplicaPool,
                                  ServerConfig, ServiceTimeEstimator,
-                                 TenantMux, build_server)
+                                 TenantMux, build_server,
+                                 install_stage_fault)
 
 N_PRODUCERS = 8
 N_FRAMES = 64
@@ -43,39 +44,6 @@ def _tiny_program():
     return compile_model(
         m, cnn.params_from_numpy(cnn.init_params_np(m, 0), "cpu"), bits=8,
         calib_batch=calib, device="cpu")
-
-
-class _DyingRunner:
-    """A stage runner that raises from its ``at_call``-th batch on (the
-    processing element dies mid-batch); ``calls`` counts its batches."""
-
-    def __init__(self, runner, stage: int, at_call: int):
-        self._runner = runner
-        self._stage = stage
-        self._at = at_call
-        self.calls = 0
-        self._lock = threading.Lock()
-
-    def __call__(self, payload):
-        with self._lock:
-            self.calls += 1
-            n = self.calls
-        if n >= self._at:
-            raise RuntimeError(f"injected fault: stage {self._stage} died "
-                               f"on its batch {n}")
-        return self._runner(payload)
-
-    def __getattr__(self, attr):
-        return getattr(self._runner, attr)
-
-
-def _install_stage_fault(px, stage: int, at_call: int) -> _DyingRunner:
-    """Arm stage ``stage`` of a real PipelineExecutor to fail from its
-    ``at_call``-th batch (the reference's ``chaos.install_stage_fault``,
-    whose module the port has not ported yet)."""
-    wrapper = _DyingRunner(px.runners[stage], stage, at_call)
-    px.runners[stage] = wrapper
-    return wrapper
 
 
 class SlowEchoExecutor:
@@ -374,7 +342,7 @@ def test_multi_producer_mixed_tenants_reconcile_per_tenant():
 
 def test_stage_death_mid_batch_resolves_every_request():
     """Chaos x stress: a *real* two-stage PipelineExecutor whose stage-1
-    worker dies mid-batch (injected by :func:`_install_stage_fault`) under the
+    worker dies mid-batch (injected by :func:`install_stage_fault`) under the
     full 8-producer flood. The liveness contract must hold through the
     death: every request resolves to completed | failed (no deadlines
     armed, so nothing may expire), the outcome counts reconcile exactly,
@@ -387,7 +355,7 @@ def test_stage_death_mid_batch_resolves_every_request():
     # Stage 1 dies from its 6th micro-batch on: exactly 5 batches make
     # it through the whole pipeline, everything else must fail cleanly
     # (in-flight batches through on_error, later submits synchronously).
-    wrapper = _install_stage_fault(px, stage=1, at_call=6)
+    wrapper = install_stage_fault(px, stage=1, at_call=6)
     px.start()
     fe = AsyncFrontend(px, max_wait_ms=10.0, max_queue=4096)
 
