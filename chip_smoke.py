@@ -103,14 +103,47 @@ line:
    prompt 512, 32 generated: prefill launches ``linear_scan`` 18 times),
    and a teacher-forced decode over the ring cache and the RG-LRU state,
    past the window, held against the kernel forward's logits;
-11. the ``kernels`` line, the card's ``nvidia-smi`` name and power limit,
-   and last ``{"ok": true, "device": {...}}``.
+11. ``autotune`` (right after phase 2, no device work): the static
+   ranker's pick at every AlexNet and VGG16 batch-16 shape beside
+   ``plan_for``'s choice and the fastest tiling phase 2 measured, and its
+   attention tiles beside those ``flash_attention.cu`` is built with;
+   recorded, not gated;
+12. ``vlm``: Qwen2-VL-2B at full width (bf16, seed 0): the cache-less
+   forward on 2 x 2048 patch embeddings with M-RoPE positions whose three
+   components differ (28 ``flash_attention`` launches at GQA 12:2, d
+   128), held against the kernel-free and float32 forwards as Yi-6B's; a
+   teacher-forced decode with the true positions; ``launch.serve.main``
+   (0 launches; the reference's decode positions of 0); the kernel at the
+   path's shape against plain, SDPA and the bound;
+13. ``encdec``: SeamlessM4T-medium at full width: the forward with frames
+   and tokens of 2 x 2048 (36 launches at d 64: 12 non-causal encoder, 12
+   causal decoder, 12 non-causal cross-attention), held as above; a
+   teacher-forced decode passing the frames at every step; served (24
+   launches in prefill, 0 in decode, whose steps skip cross-attention as
+   the reference's do); the kernel at the encoder shape (non-causal)
+   against plain and SDPA;
+14. ``mla_moe``: DeepSeek-V2-236B at full width, depth cut to 3 layers
+   (one dense MLA, two MLA + MoE with 160 routed experts, top-6, 2
+   shared): the forward on 2 x 1024 tokens (0 launches: MLA's q and v
+   head dims differ), its aux loss and each MoE layer's kept share; a
+   teacher-forced decode through the absorbed path at a capacity factor
+   that drops nothing, in bf16 (positions whose routing flipped between
+   near-tied gates counted and set aside) and in float32; served at the
+   published capacity factor;
+15. ``rwkv``: RWKV6-7B at full width: the forward on 2 x 1024 tokens (no
+   kernel), the sequential WKV loop's time, the bf16 forward's drift from
+   a float32 forward, teacher-forced decodes over the shifts and the WKV
+   state in float32 and bf16, served;
+16. the ``kernels`` line (with a ``flash_attention`` entry for each of
+   Yi-6B, RecurrentGemma-2B, Qwen2-VL-2B and SeamlessM4T-medium), the
+   card's ``nvidia-smi`` name and power limit, and last ``{"ok": true,
+   "device": {...}}``.
 """
 
 from __future__ import annotations
 
-import dataclasses
 import contextlib
+import dataclasses
 import json
 import math
 import re
@@ -131,7 +164,7 @@ from repro_torch.configs import ARCHS  # noqa: E402
 from repro_torch.core.executor import EngineExecutor  # noqa: E402
 from repro_torch.core.program import ROUTES  # noqa: E402
 from repro_torch.core.workload import CNN_MODELS  # noqa: E402
-from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels import _build, autotune  # noqa: E402
 from repro_torch.kernels.conv2d_int8 import kernel as gemm_kernel  # noqa
 from repro_torch.kernels.conv2d_int8.kernel import (  # noqa: E402
     gemm_int8, k_major_view, plan_for, plans)
@@ -395,6 +428,50 @@ FLASH_RG_CASES = [
 #   forward's by at most one bf16 ulp at the float32 logits' largest
 #   magnitude, as for Yi-6B.
 RG_ROUTE_TOL = 0.4
+# autotune's attention picks at the LM paths' shapes: (label, S, d, B, H,
+# causal, window).
+AUTOTUNE_ATTN_SHAPES = [
+    ("Yi-6B", 2048, 128, 2, 32, True, 0),
+    ("RecurrentGemma-2B", 4096, 256, 2, 10, True, 2048),
+    ("Qwen2-VL-2B", 2048, 128, 2, 12, True, 0),
+    ("SeamlessM4T-medium encoder, cross", 2048, 64, 2, 16, False, 0),
+    ("SeamlessM4T-medium decoder", 2048, 64, 2, 16, True, 0),
+]
+# The other LM families at full width (seed 0, bf16): the forward's batch
+# and length (the flash kernel's timed shape), the teacher-forced decode,
+# the served batch. DeepSeek-V2's depth is cut to 3 layers (one dense MLA
+# layer, two MLA + MoE with all 160 routed experts), about 19 GB of bf16
+# weights.
+VLM_ARCH, ED_ARCH = "qwen2-vl-2b", "seamless-m4t-medium"
+MLA_ARCH, RWKV_ARCH = "deepseek-v2-236b", "rwkv6-7b"
+VLM_B, VLM_S = 2, 2048
+VLM_TF_PROMPT, VLM_TF_STEPS = 504, 8
+VLM_SERVE_ARGS = ["--arch", VLM_ARCH, "--batch", "4", "--prompt-len", "512",
+                  "--gen", "32", "--seed", "0"]
+ED_B, ED_S = 2, 2048
+ED_TF_PROMPT, ED_TF_STEPS = 504, 8
+ED_SERVE_ARGS = ["--arch", ED_ARCH, "--batch", "4", "--prompt-len", "512",
+                 "--gen", "32", "--seed", "0"]
+MLA_LAYERS = 3
+MLA_B, MLA_S = 2, 1024
+MLA_TF_PROMPT, MLA_TF_STEPS = 256, 16
+MLA_SERVE_ARGS = ["--arch", MLA_ARCH, "--n-layers", str(MLA_LAYERS),
+                  "--batch", "4", "--prompt-len", "256", "--gen", "16",
+                  "--seed", "0"]
+RWKV_B, RWKV_S = 2, 1024
+RWKV_PROFILE_S = 128
+RWKV_TF_PROMPT, RWKV_TF_STEPS = 256, 16
+RWKV_SERVE_ARGS = ["--arch", RWKV_ARCH, "--batch", "4", "--prompt-len", "256",
+                   "--gen", "16", "--seed", "0"]
+# Their tolerances, on bf16 logits, by the Yi-6B rules (LM_ROUTE_TOL).
+VLM_ROUTE_TOL = ED_ROUTE_TOL = LM_ROUTE_TOL
+MLA_TF_TOL = RWKV_TF_TOL = LM_ROUTE_TOL
+RWKV_F32_MEAN_TOL = 0.3
+RWKV_F32_TF_TOL = 1e-2
+# DeepSeek-V2's teacher-forced decode in float32: the absorbed and the
+# decompressed paths contract in other orders, ~1e-6 relative on logits of
+# about 5; a hundredth catches any wrong term, far below a routing flip.
+MLA_F32_TF_TOL = 1e-2
 
 
 class SmokeFailure(Exception):
@@ -693,7 +770,7 @@ def _gemm_model_shapes(model: str, gen, peaks, flush, cases,
     on the same operands with a row-major w (``dp4a_ms``), the plain
     version, one library call, the bound. Returns the per-batch sums."""
     _, peak_ops, _, peak_bytes = peaks
-    shapes = []
+    shapes, tilings = [], []
     for name, N, K, M, launches, groups, emit_int32 in gemm_shapes(
             model, SERVE_BATCH):
         x = _patch_rows(gen, N, K)
@@ -748,8 +825,8 @@ def _gemm_model_shapes(model: str, gen, peaks, flush, cases,
         emit(row)
         if path == "dp4a":
             raise SmokeFailure(f"{model} {name} took the dp4a path")
-        _gemm_tilings(model, name, N, K, M, call(w_k), call(w_k)(), flush,
-                      cases)
+        tilings.append(_gemm_tilings(model, name, N, K, M, call(w_k),
+                                     call(w_k)(), flush, cases))
 
     # Per batch: the sum over the model's launches, which run one after
     # another, so the batch's bound is the sum of theirs; it is bound by
@@ -765,9 +842,10 @@ def _gemm_model_shapes(model: str, gen, peaks, flush, cases,
              "bound_by": "operations" if 2 * by_ops >= per("bound_ms")
              else "bytes",
              "library_ms": per("library_ms") if have_lib else None,
-             "ops": per("ops")}
+             "ops": per("ops"), "tilings": tilings}
     emit({"phase": "gemm_int8_batch", "model": model, "batch": SERVE_BATCH,
-          **batch, "ops_per_s": batch["ops"] / (batch["ms"] * 1e-3),
+          **{k: v for k, v in batch.items() if k != "tilings"},
+          "ops_per_s": batch["ops"] / (batch["ms"] * 1e-3),
           "bound_share": batch["bound_ms"] / batch["ms"]})
     return batch
 
@@ -1772,10 +1850,11 @@ def _to(node, dtype):
     return node.to(dtype)
 
 
-def _forward(params, cfg, tokens, impl):
+def _forward(params, cfg, batch, impl):
+    """The logits of ``T.forward`` on the attention impl ``impl``."""
     L.set_attention_impl(impl)
     try:
-        return T.forward(params, cfg, {"tokens": tokens})[0]
+        return T.forward(params, cfg, batch)[0]
     finally:
         L.set_attention_impl(None)
 
@@ -1798,7 +1877,7 @@ def _is_matmul(kernel_name: str) -> bool:
                for tag in ("gemm", "nvjet", "cutlass", "xmma"))
 
 
-def phase_lm_forward() -> dict:
+def phase_lm_forward(env: dict) -> dict:
     cfg = ARCHS[LM_ARCH]
     t0 = time.perf_counter()
     params = T.init_params(cfg, seed=0, device="cuda")
@@ -1807,79 +1886,41 @@ def phase_lm_forward() -> dict:
     gen = torch.Generator(device="cuda").manual_seed(1)
     tokens = torch.randint(0, cfg.vocab, (LM_B, LM_S), generator=gen,
                            device="cuda")
+    batch = {"tokens": tokens}
 
     # The main path: counts at 0 just before, read just after.
     reset_launches()
-    logits_k = _forward(params, cfg, tokens, "kernel")
+    logits_k = _forward(params, cfg, batch, "kernel")
     torch.cuda.synchronize()
     launches = flash_attention.launches
     emit({"phase": "lm_forward", "arch": LM_ARCH,
           "params": T.param_count(cfg), "init_s": init_s,
-        "tokens": [LM_B, LM_S], "impl": "kernel",
-        "flash_attention_launches": launches,
-        "expected_launches": cfg.n_layers,
-        "gemm_int8_launches": gemm_int8.launches,
-        "logits_shape": list(logits_k.shape),
-        "finite": bool(torch.isfinite(logits_k).all())})
+          "tokens": [LM_B, LM_S], "impl": "kernel",
+          "flash_attention_launches": launches,
+          "expected_launches": cfg.n_layers,
+          "gemm_int8_launches": gemm_int8.launches,
+          "logits_shape": list(logits_k.shape),
+          "finite": bool(torch.isfinite(logits_k).all())})
     if launches != cfg.n_layers or gemm_int8.launches:
         raise SmokeFailure(f"the Yi-6B forward launched flash_attention "
                            f"{launches} times, expected {cfg.n_layers}")
     if not torch.isfinite(logits_k).all():
         raise SmokeFailure("the Yi-6B forward gave non-finite logits")
-
-    # Wall time of a warm forward, and its device time by kernel.
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    _forward(params, cfg, tokens, "kernel")
-    torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3
-    ops = _device_ops(lambda: _forward(params, cfg, tokens, "kernel"))
-    device_ms = sum(us for _, us, _ in ops) / 1e3
-    flash_ms = sum(us for k, us, _ in ops if "flash_fwd" in k) / 1e3
-    matmul = [(us, n) for k, us, n in ops if _is_matmul(k)]
-    emit({"phase": "lm_forward_time", "wall_ms": wall_ms,
-          "device_busy_ms": device_ms, "flash_attention_ms": flash_ms,
-          "matmul_ms": sum(us for us, _ in matmul) / 1e3,
-          "matmul_launches": sum(n for _, n in matmul),
-          "other_ms": device_ms - flash_ms
-          - sum(us for us, _ in matmul) / 1e3,
-          "device_idle_share": max(0.0, 1.0 - device_ms / wall_ms),
-          "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
-          "top_device_ops_us_count": [[k[:60], round(us, 1), n]
-                                      for k, us, n in ops[:8]]})
+    _forward_time(env, "lm_forward",
+                  lambda: _forward(params, cfg, batch, "kernel"))
 
     # The torch impl on the same tokens, and both against float32 on the
     # last positions of a 512-token slice of the first sequence (causal,
     # so the bf16 logits there are those of the same 512 tokens).
-    logits_t = _forward(params, cfg, tokens, "torch")
+    logits_t = _forward(params, cfg, batch, "torch")
     p32 = _to(params, torch.float32)
-    logits_32 = _forward(p32, cfg, tokens[:1, :F32_S], "torch")
+    logits_32 = _forward(p32, cfg, {"tokens": tokens[:1, :F32_S]},
+                         "torch")[:, F32_S - F32_LAST:].clone()
     del p32
     torch.cuda.empty_cache()
-    sl = (slice(0, 1), slice(F32_S - F32_LAST, F32_S))
-    ref = logits_32[:, F32_S - F32_LAST:]
-    kernel_vs_f32 = _close(logits_k[sl], ref)
-    torch_vs_f32 = _close(logits_t[sl], ref)
-    routes = _close(logits_k, logits_t)
-    top1 = float((logits_k.argmax(-1) == logits_t.argmax(-1)).float().mean())
-    check = {"phase": "lm_routes", "kernel_vs_torch": routes,
-             "top1_agreement": top1,
-             "f32_slice": [1, F32_S], "f32_positions_compared": F32_LAST,
-             "f32_logits_max_abs": float(ref.abs().max()),
-             "kernel_vs_f32": kernel_vs_f32, "torch_vs_f32": torch_vs_f32,
-             "kernel_minus_torch_err_vs_f32":
-                 kernel_vs_f32["max_abs_diff"] - torch_vs_f32["max_abs_diff"],
-             "finite": bool(torch.isfinite(logits_t).all()
-                            and torch.isfinite(logits_32).all())}
-    f32_max = check["f32_logits_max_abs"]
-    margin = 2.0 ** (math.floor(math.log2(f32_max)) - 7)   # one bf16 ulp
-    check.update(route_tol=LM_ROUTE_TOL, f32_margin=margin)
-    emit(check)
-    if not (check["finite"]
-            and routes["max_abs_diff"] <= LM_ROUTE_TOL
-            and kernel_vs_f32["max_abs_diff"]
-            <= torch_vs_f32["max_abs_diff"] + margin):
-        raise SmokeFailure(f"Yi-6B logits out of tolerance: {check}")
+    _routes_check("lm", logits_k, logits_t, logits_32,
+                  (slice(0, 1), slice(F32_S - F32_LAST, F32_S)),
+                  LM_ROUTE_TOL)
     return {"params": params, "tokens": tokens, "logits_k": logits_k,
             "launches": launches}
 
@@ -1891,49 +1932,18 @@ def phase_lm_forward() -> dict:
 
 def phase_lm_serve(lm: dict) -> None:
     cfg = ARCHS[LM_ARCH]
-    reset_launches()
-    result = lm_serve.main(SERVE_ARGS)
-    torch.cuda.synchronize()
-    ids = np.asarray(result.pop("ids"))
-    row = {"phase": "lm_serve", **result,
-           "flash_attention_launches": flash_attention.launches,
-           "ids_shape": list(ids.shape),
-           "ids_in_vocab": bool(((ids >= 0) & (ids < cfg.vocab)).all()),
-           "sample_ids": ids[0, :8].tolist()}
-    emit(row)
-    if ids.shape != (4, 32) or not row["ids_in_vocab"]:
-        raise SmokeFailure(f"serve gave ids of shape {ids.shape}")
-    if flash_attention.launches:
-        raise SmokeFailure("prefill/decode launched flash_attention: the "
-                           "kernel's path is the cache-less forward")
-
+    # Prefill and decode attend through the plain core: the kernel's path
+    # is the cache-less forward.
+    _serve("lm", SERVE_ARGS, 0, {})
     # Teacher-forced: prefill TF_PROMPT tokens, decode the next TF_STEPS
     # over the cache, and hold the logits of positions TF_PROMPT - 1 ..
     # TF_PROMPT + TF_STEPS - 1 against the kernel forward's.
     params, tokens = lm["params"], lm["tokens"]
-    # One slot more than the check needs: the decode breakdown's step.
-    cache = T.init_cache(cfg, LM_B, TF_PROMPT + TF_STEPS + 1, device="cuda")
-    logits_p, cache, _ = T.forward(params, cfg,
-                                   {"tokens": tokens[:, :TF_PROMPT]},
-                                   cache=cache)
-    outs = [logits_p[:, -1]]
-    for t in range(TF_PROMPT, TF_PROMPT + TF_STEPS):
-        lg, cache, _ = T.forward(params, cfg,
-                                 {"tokens": tokens[:, t:t + 1]}, cache=cache)
-        outs.append(lg[:, 0])
-    got = torch.stack(outs, 1)
-    want = lm["logits_k"][:, TF_PROMPT - 1:TF_PROMPT + TF_STEPS]
-    check = {"phase": "lm_teacher_forced", "prompt": TF_PROMPT,
-             "steps": TF_STEPS, "vs_kernel_forward": _close(got, want),
-             "top1_agreement": float((got.argmax(-1) == want.argmax(-1))
-                                     .float().mean()),
-             "finite": bool(torch.isfinite(got).all()),
-             "route_tol": LM_ROUTE_TOL}
-    emit(check)
-    if not (check["finite"] and check["vs_kernel_forward"]["max_abs_diff"]
-            <= LM_ROUTE_TOL):
-        raise SmokeFailure(f"teacher-forced decode disagrees with the "
-                           f"kernel forward: {check}")
+    steps = [{"tokens": tokens[:, :TF_PROMPT]}] + [
+        {"tokens": tokens[:, t:t + 1]}
+        for t in range(TF_PROMPT, TF_PROMPT + TF_STEPS)]
+    cache = _teacher_forced("lm", params, cfg, steps, lm["logits_k"][
+        :, TF_PROMPT - 1:TF_PROMPT + TF_STEPS], LM_ROUTE_TOL)
     phase_decode_breakdown(cfg, params, cache, tokens[:, :1])
 
 
@@ -2199,7 +2209,7 @@ def _finite(x, chunk: int = 512) -> bool:
                for s in range(0, x.shape[1], chunk))
 
 
-def phase_rg_forward() -> dict:
+def phase_rg_forward(env: dict) -> dict:
     cfg = ARCHS[RG_ARCH]
     kinds = cfg.layer_kinds()
     n_attn, n_rec = kinds.count("attn_local"), kinds.count("rglru")
@@ -2211,10 +2221,11 @@ def phase_rg_forward() -> dict:
     gen = torch.Generator(device="cuda").manual_seed(1)
     tokens = torch.randint(0, cfg.vocab, (RG_B, RG_S), generator=gen,
                            device="cuda")
+    batch = {"tokens": tokens}
 
     # The main path: counts at 0 just before, read just after.
     reset_launches()
-    logits_k = _forward(params, cfg, tokens, "kernel")
+    logits_k = _forward(params, cfg, batch, "kernel")
     torch.cuda.synchronize()
     counts = launches()
     row = {"phase": "rg_forward", "arch": RG_ARCH,
@@ -2233,26 +2244,8 @@ def phase_rg_forward() -> dict:
         raise SmokeFailure("the RecurrentGemma-2B forward gave non-finite "
                            "logits")
 
-    # Wall time of a warm forward, and its device time by kernel.
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    _forward(params, cfg, tokens, "kernel")
-    torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3
-    ops = _device_ops(lambda: _forward(params, cfg, tokens, "kernel"))
-    device_ms = sum(us for _, us, _ in ops) / 1e3
-    flash_ms = sum(us for k, us, _ in ops if "flash_fwd" in k) / 1e3
-    scan_ms = sum(us for k, us, _ in ops if "linear_scan" in k) / 1e3
-    matmul_ms = sum(us for k, us, _ in ops if _is_matmul(k)) / 1e3
-    emit({"phase": "rg_forward_time", "wall_ms": wall_ms,
-          "device_busy_ms": device_ms, "flash_attention_ms": flash_ms,
-          "linear_scan_ms": scan_ms, "matmul_ms": matmul_ms,
-          "matmul_launches": sum(n for k, _, n in ops if _is_matmul(k)),
-          "other_ms": device_ms - flash_ms - scan_ms - matmul_ms,
-          "device_idle_share": max(0.0, 1.0 - device_ms / wall_ms),
-          "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
-          "top_device_ops_us_count": [[k[:60], round(us, 1), n]
-                                      for k, us, n in ops[:12]]})
+    _forward_time(env, "rg_forward",
+                  lambda: _forward(params, cfg, batch, "kernel"))
 
     # The kernel-free forward on the same tokens, and both against float32
     # (kernel-free too) on the last positions of a slice of the first
@@ -2260,43 +2253,21 @@ def phase_rg_forward() -> dict:
     # are those of the same tokens).
     reset_launches()
     with _kernel_free():
-        logits_t = _forward(params, cfg, tokens, "torch")
+        logits_t = _forward(params, cfg, batch, "torch")
         torch.cuda.synchronize()
         plain_counts = launches()
         p32 = _to(params, torch.float32)
-        logits_32 = _forward(p32, cfg, tokens[:1, :RG_F32_S], "torch")[
-            :, RG_F32_S - RG_F32_LAST:].clone()
+        logits_32 = _forward(p32, cfg, {"tokens": tokens[:1, :RG_F32_S]},
+                             "torch")[:, RG_F32_S - RG_F32_LAST:].clone()
         del p32
     torch.cuda.empty_cache()
     if any(plain_counts.values()):
         raise SmokeFailure(f"the kernel-free forward launched {plain_counts}")
-    sl = (slice(0, 1), slice(RG_F32_S - RG_F32_LAST, RG_F32_S))
-    kernel_vs_f32 = _close(logits_k[sl], logits_32)
-    torch_vs_f32 = _close(logits_t[sl], logits_32)
-    routes = _close_chunked(logits_k, logits_t)
-    check = {"phase": "rg_routes", "kernel_vs_kernel_free": routes,
-             "top1_agreement": _top1_agreement(logits_k, logits_t),
-             "f32_slice": [1, RG_F32_S], "f32_positions_compared":
-                 RG_F32_LAST,
-             "f32_logits_max_abs": float(logits_32.abs().max()),
-             "kernel_vs_f32": kernel_vs_f32,
-             "kernel_free_vs_f32": torch_vs_f32,
-             "kernel_minus_kernel_free_err_vs_f32":
-                 kernel_vs_f32["max_abs_diff"] - torch_vs_f32["max_abs_diff"],
-             "finite": _finite(logits_t) and bool(
-                 torch.isfinite(logits_32).all())}
+    _routes_check("rg", logits_k, logits_t, logits_32,
+                  (slice(0, 1), slice(RG_F32_S - RG_F32_LAST, RG_F32_S)),
+                  RG_ROUTE_TOL)
     del logits_t
     torch.cuda.empty_cache()
-    f32_max = check["f32_logits_max_abs"]
-    margin = 2.0 ** (math.floor(math.log2(f32_max)) - 7)   # one bf16 ulp
-    check.update(route_tol=RG_ROUTE_TOL, f32_margin=margin)
-    emit(check)
-    if not (check["finite"]
-            and routes["max_abs_diff"] <= RG_ROUTE_TOL
-            and kernel_vs_f32["max_abs_diff"]
-            <= torch_vs_f32["max_abs_diff"] + margin):
-        raise SmokeFailure(f"RecurrentGemma-2B logits out of tolerance: "
-                           f"{check}")
     return {"params": params, "tokens": tokens, "logits_k": logits_k,
             "launches": counts}
 
@@ -2310,24 +2281,10 @@ def phase_rg_forward() -> dict:
 def phase_rg_serve(rg: dict) -> dict:
     cfg = ARCHS[RG_ARCH]
     n_rec = cfg.layer_kinds().count("rglru")
-    reset_launches()
-    result = lm_serve.main(RG_SERVE_ARGS)
-    torch.cuda.synchronize()
-    counts = launches()
-    ids = np.asarray(result.pop("ids"))
-    row = {"phase": "rg_serve", **result, "launches": counts,
-           "ids_shape": list(ids.shape),
-           "ids_in_vocab": bool(((ids >= 0) & (ids < cfg.vocab)).all()),
-           "sample_ids": ids[0, :8].tolist()}
-    emit(row)
-    if ids.shape != (4, 32) or not row["ids_in_vocab"]:
-        raise SmokeFailure(f"serve gave ids of shape {ids.shape}")
     # Prefill runs each RG-LRU layer's scan once; decode steps take
     # rglru_step and the ring cache's direct core, and no kernel.
-    if counts != {"gemm_int8": 0, "flash_attention": 0,
-                  "linear_scan": n_rec}:
-        raise SmokeFailure(f"serve launched {counts}, expected "
-                           f"{n_rec} linear_scan (prefill) and nothing else")
+    counts = _serve("rg", RG_SERVE_ARGS, 0, {"linear_scan": n_rec})[
+        "launches"]
 
     # Teacher-forced: prefill RG_TF_PROMPT tokens into a ring of the
     # window's 2048 slots, decode the next RG_TF_STEPS (the ring wraps
@@ -2368,11 +2325,659 @@ def phase_rg_serve(rg: dict) -> dict:
     phase_decode_breakdown(cfg, params, cache, tokens[:, :1])
     return {"launches": counts}
 
+# ---------------------------------------------------------------------------
+# Phase: autotune, the static tiling ranker beside the measured tilings
+# ---------------------------------------------------------------------------
+
+
+def phase_autotune(env: dict, gemm: dict) -> dict:
+    """``kernels/autotune.py``'s pick at every AlexNet and VGG16 batch-16
+    shape beside ``plan_for``'s choice and the fastest tiling the
+    ``gemm_int8_tilings`` lines measured (the pick's time over the
+    fastest), and its attention tiles beside the ones ``flash_attention.cu``
+    is built with. No device work; recorded, not gated."""
+    rows = []
+    for model in GEMM_MODELS:
+        for t in gemm[model]["tilings"]:
+            pick = autotune.pick_gemm_blocks(t["N"], t["K"], t["M"])
+            label = _plan_label(pick.plan)
+            row = {"phase": "autotune_gemm", "model": model,
+                   "engine": t["engine"], "N": t["N"], "K": t["K"],
+                   "M": t["M"], "autotune": label, "plan_for": t["chosen"],
+                   "fastest": t["fastest"],
+                   "autotune_over_fastest": t["ms"][label]
+                   / t["ms"][t["fastest"]],
+                   "plan_for_over_fastest": t["chosen_over_fastest"],
+                   "mxu_occupancy": pick.mxu_occupancy,
+                   "sm_fill": pick.sm_fill, "smem_bytes": pick.smem_bytes,
+                   "card": env["nvidia_smi"]}
+            rows.append(row)
+            emit(row)
+    for label, S, d, B, H, causal, window in AUTOTUNE_ATTN_SHAPES:
+        pick = autotune.pick_attention_blocks(S, d, batch=B, heads=H,
+                                              causal=causal, window=window)
+        emit({"phase": "autotune_attention", "shape": label, "S": S, "d": d,
+              "B": B, "H": H, "causal": causal, "window": window,
+              "autotune": [pick.bq, pick.bkv],
+              "built": list(autotune.built_attention_blocks(d)),
+              "mxu_occupancy": pick.mxu_occupancy, "sm_fill": pick.sm_fill,
+              "smem_bytes": pick.smem_bytes, "regs": pick.regs})
+    summary = {"phase": "autotune", "shapes": len(rows),
+               "autotune_is_fastest": sum(r["autotune"] == r["fastest"]
+                                          for r in rows),
+               "plan_for_is_fastest": sum(r["plan_for"] == r["fastest"]
+                                          for r in rows),
+               "autotune_is_plan_for": sum(r["autotune"] == r["plan_for"]
+                                           for r in rows),
+               "autotune_worst_over_fastest": max(
+                   r["autotune_over_fastest"] for r in rows),
+               "plan_for_worst_over_fastest": max(
+                   r["plan_for_over_fastest"] for r in rows)}
+    emit(summary)
+    return summary
+
+
+# ---------------------------------------------------------------------------
+# The other LM families at full width: shared checks
+# ---------------------------------------------------------------------------
+
+
+def _flash_at_path(env: dict, label: str, B: int, S: int, H: int, KV: int,
+                   d: int, causal: bool, seed: int) -> dict:
+    """``flash_attention`` at a model path's shape (bf16): held against its
+    plain version (``_check_flash``), then timed cold beside the plain
+    version, one ``scaled_dot_product_attention`` call (K/V heads repeated
+    and every operand permuted outside the timed call; the port never
+    calls it) and the bound."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(
+        torch.bfloat16) for shape in ((B, S, H, d), (B, S, KV, d),
+                                      (B, S, KV, d)))
+    err = _check_flash(label, q, k, v, causal, 0)
+    flush = torch.empty(64 << 20, dtype=torch.int8, device="cuda")
+    ms = _time_cold_ms(lambda: flash_attention(q, k, v, causal=causal),
+                       flush)
+    plain_ms = _time_cold_ms(lambda: attention_ref(q, k, v, causal=causal),
+                             flush)
+    qh = q.permute(0, 2, 1, 3)
+    kh, vh = (t.repeat_interleave(H // KV, dim=2).permute(0, 2, 1, 3)
+              for t in (k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    library_ms, library_note, backend = None, None, None
+    try:
+        library_note = "max |diff| vs kernel %.3g" % float(
+            (sdpa(qh, kh, vh, is_causal=causal).permute(0, 2, 1, 3).float()
+             - flash_attention(q, k, v, causal=causal).float()).abs().max())
+        library_ms = _time_cold_ms(
+            lambda: sdpa(qh, kh, vh, is_causal=causal), flush)
+        backend = _sdpa_backend(lambda: sdpa(qh, kh, vh, is_causal=causal))
+    except RuntimeError as e:           # a yardstick, not the port
+        library_note = f"scaled_dot_product_attention refused: {e}"[:200]
+    del flush
+    _, _, peak_bf16, peak_bytes = card_peaks(env["device"])
+    pairs = S * (S + 1) // 2 if causal else S * S
+    flops = 4 * d * pairs * B * H                # QK^T and PV
+    nbytes = 2 * B * S * d * (2 * H + 2 * KV)    # q, k, v, o once, bf16
+    t_ops, t_bytes = flops / peak_bf16 * 1e3, nbytes / peak_bytes * 1e3
+    row = {"phase": "flash_attention_path", "path": label,
+           "shape": [B, S, H, KV, d], "dtype": "bfloat16", "causal": causal,
+           "flops": flops, "bytes": nbytes, "ms": ms, "plain_ms": plain_ms,
+           "library_ms": library_ms, "library": library_note,
+           "library_backend": backend, "bound_ms": max(t_ops, t_bytes),
+           "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+           "tflops": flops / ms / 1e9, "max_abs_err": err,
+           "card": env["nvidia_smi"]}
+    emit(row)
+    return row
+
+
+def _wall_ms(fn, reps: int) -> float:
+    """The median wall time of ``reps`` synchronised calls of ``fn``."""
+    walls = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(walls))
+
+
+def _forward_time(env: dict, label: str, fn, profile=None,
+                  reps: int = 3) -> dict:
+    """Wall time of warm calls of ``fn`` (the median of ``reps``); device
+    busy time by kernel from one profiled call of ``profile`` (``fn`` by
+    default), and the idle share against unprofiled calls of the same
+    (the host's speed moves the wall time between runs)."""
+    wall_ms = _wall_ms(fn, reps)
+    profile_wall_ms = wall_ms if profile is None else _wall_ms(profile, reps)
+    ops = _device_ops(profile or fn)
+    device_ms = sum(us for _, us, _ in ops) / 1e3
+    flash_ms = sum(us for k, us, _ in ops if "flash_fwd" in k) / 1e3
+    scan_ms = sum(us for k, us, _ in ops if "linear_scan" in k) / 1e3
+    matmul_ms = sum(us for k, us, _ in ops if _is_matmul(k)) / 1e3
+    row = {"phase": f"{label}_time", "wall_ms_median": wall_ms,
+           "reps": reps,
+           "profiled_call_wall_ms": profile_wall_ms,
+           "device_busy_ms": device_ms, "flash_attention_ms": flash_ms,
+           "linear_scan_ms": scan_ms, "matmul_ms": matmul_ms,
+           "matmul_launches": sum(n for k, _, n in ops if _is_matmul(k)),
+           "other_ms": device_ms - flash_ms - scan_ms - matmul_ms,
+           "device_idle_share": max(0.0, 1.0 - device_ms / profile_wall_ms),
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "top_device_ops_us_count": [[k[:60], round(us, 1), n]
+                                       for k, us, n in ops[:10]],
+           "card": env["nvidia_smi"]}
+    emit(row)
+    return row
+
+
+def _routes_check(label, logits_k, logits_t, logits_32, sl, route_tol):
+    """The Yi-6B rules: the kernel forward within ``route_tol`` of the
+    kernel-free one, and its error against float32 (on the slice ``sl``
+    the float32 forward computed) at most the kernel-free one's plus one
+    bf16 ulp at the float32 logits' largest magnitude."""
+    kernel_vs_f32 = _close(logits_k[sl], logits_32)
+    free_vs_f32 = _close(logits_t[sl], logits_32)
+    routes = _close_chunked(logits_k, logits_t)
+    f32_max = float(logits_32.abs().max())
+    margin = 2.0 ** (math.floor(math.log2(f32_max)) - 7)   # one bf16 ulp
+    check = {"phase": f"{label}_routes", "kernel_vs_kernel_free": routes,
+             "top1_agreement": _top1_agreement(logits_k, logits_t),
+             "f32_logits_max_abs": f32_max, "kernel_vs_f32": kernel_vs_f32,
+             "kernel_free_vs_f32": free_vs_f32,
+             "kernel_minus_kernel_free_err_vs_f32":
+                 kernel_vs_f32["max_abs_diff"] - free_vs_f32["max_abs_diff"],
+             "finite": _finite(logits_t) and bool(
+                 torch.isfinite(logits_32).all()),
+             "route_tol": route_tol, "f32_margin": margin}
+    emit(check)
+    if not (check["finite"] and routes["max_abs_diff"] <= route_tol
+            and kernel_vs_f32["max_abs_diff"]
+            <= free_vs_f32["max_abs_diff"] + margin):
+        raise SmokeFailure(f"{label} logits out of tolerance: {check}")
+    return check
+
+
+def _teacher_forced(label, params, cfg, steps_in, want, tol, extra=None,
+                    dtype=None):
+    """Prefill ``steps_in[0]`` into a cache, decode each later batch of
+    ``steps_in`` one token at a time, and hold the last prefill logits and
+    each step's against ``want`` [B, steps, V]."""
+    prompt = steps_in[0]
+    first = next(iter(prompt.values()))
+    B, P = first.shape[:2]
+    cache = T.init_cache(cfg, B, P + len(steps_in), dtype=dtype,
+                         device="cuda")
+    reset_launches()
+    logits_p, cache, _ = T.forward(params, cfg, prompt, cache=cache)
+    outs = [logits_p[:, -1]]
+    for step in steps_in[1:]:
+        lg, cache, _ = T.forward(params, cfg, step, cache=cache)
+        outs.append(lg[:, 0])
+    got = torch.stack(outs, 1)
+    torch.cuda.synchronize()
+    check = {"phase": f"{label}_teacher_forced", "dtype": str(want.dtype),
+             "prompt": P,
+             "steps": len(steps_in) - 1, "launches": launches(),
+             "vs_forward": _close(got, want),
+             "top1_agreement": float((got.argmax(-1) == want.argmax(-1))
+                                     .float().mean()),
+             "want_max_abs": float(want.abs().max()),
+             "finite": bool(torch.isfinite(got).all()), "tol": tol,
+             **(extra or {})}
+    emit(check)
+    if not (check["finite"] and check["vs_forward"]["max_abs_diff"] <= tol):
+        raise SmokeFailure(f"{label}: teacher-forced decode disagrees with "
+                           f"the forward: {check}")
+    return cache
+
+
+def _serve(label, args, expect_prefill, expect) -> dict:
+    """``launch.serve.main`` with its launches counted: ``flash_attention``
+    in the prefill (``main``'s own count) and every kernel in the whole
+    run, against ``expect`` (a kernel it leaves out must launch 0 times)."""
+    reset_launches()
+    result = lm_serve.main(args)
+    torch.cuda.synchronize()
+    counts = launches()
+    ids = np.asarray(result.pop("ids"))
+    vocab = ARCHS[result["arch"]].vocab
+    row = {"phase": f"{label}_serve", **result, "launches": counts,
+           "expected_prefill_flash_attention": expect_prefill,
+           "ids_shape": list(ids.shape),
+           "ids_in_vocab": bool(((ids >= 0) & (ids < vocab)).all()),
+           "sample_ids": ids[0, :8].tolist()}
+    emit(row)
+    want_shape = (int(args[args.index("--batch") + 1]),
+                  int(args[args.index("--gen") + 1]))
+    if ids.shape != want_shape or not row["ids_in_vocab"]:
+        raise SmokeFailure(f"{label} serve gave ids of shape {ids.shape}")
+    if result["prefill_flash_attention_launches"] != expect_prefill or \
+            counts != {k: expect.get(k, 0) for k in counts}:
+        raise SmokeFailure(f"{label} serve launched {counts} (prefill "
+                           f"{result['prefill_flash_attention_launches']}), "
+                           f"expected {expect} ({expect_prefill} "
+                           f"flash_attention in prefill)")
+    return row
+
+
+def _init(cfg) -> tuple:
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    return params, time.perf_counter() - t0
+
+
+# ---------------------------------------------------------------------------
+# Phase vlm: Qwen2-VL-2B (M-RoPE, GQA 12:2, d 128)
+# ---------------------------------------------------------------------------
+
+
+def _vlm_positions(B: int, S: int) -> torch.Tensor:
+    """M-RoPE positions whose three components differ, as an image's
+    patches have them: a temporal index and the row and column of a
+    64-wide grid."""
+    i = torch.arange(S, device="cuda", dtype=torch.int32)
+    return torch.stack([i, i // 64, i % 64], -1)[None].expand(B, S, 3)
+
+
+def phase_vlm(env: dict) -> dict:
+    cfg = ARCHS[VLM_ARCH]
+    params, init_s = _init(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    embeds = torch.randn((VLM_B, VLM_S, cfg.d_model), generator=gen,
+                         device="cuda").to(torch.bfloat16)
+    positions = _vlm_positions(VLM_B, VLM_S)
+    batch = {"embeds": embeds, "positions": positions}
+
+    # The main path: counts at 0 just before, read just after.
+    reset_launches()
+    logits_k = _forward(params, cfg, batch, "kernel")
+    torch.cuda.synchronize()
+    counts = launches()
+    row = {"phase": "vlm_forward", "arch": VLM_ARCH,
+           "params": T.param_count(cfg), "init_s": init_s,
+           "embeds": [VLM_B, VLM_S, cfg.d_model],
+           "mrope_sections": list(cfg.mrope_sections), "launches": counts,
+           "expected_flash_attention": cfg.n_layers,
+           "logits_shape": list(logits_k.shape), "finite": _finite(logits_k)}
+    emit(row)
+    if counts != {"gemm_int8": 0, "flash_attention": cfg.n_layers,
+                  "linear_scan": 0} or not row["finite"]:
+        raise SmokeFailure(f"the Qwen2-VL-2B forward launched {counts}, "
+                           f"expected {cfg.n_layers} flash_attention; "
+                           f"finite {row['finite']}")
+    _forward_time(env, "vlm_forward",
+                  lambda: _forward(params, cfg, batch, "kernel"))
+
+    logits_t = _forward(params, cfg, batch, "torch")
+    p32 = _to(params, torch.float32)
+    logits_32 = _forward(p32, cfg, {
+        "embeds": embeds[:1, :F32_S].float(),
+        "positions": positions[:1, :F32_S]}, "torch")[
+        :, F32_S - F32_LAST:].clone()
+    del p32
+    torch.cuda.empty_cache()
+    _routes_check("vlm", logits_k, logits_t, logits_32,
+                  (slice(0, 1), slice(F32_S - F32_LAST, F32_S)),
+                  VLM_ROUTE_TOL)
+    del logits_t
+
+    # Teacher-forced with the true positions, against the kernel forward.
+    P, n = VLM_TF_PROMPT, VLM_TF_STEPS
+    steps = [{"embeds": embeds[:, :P], "positions": positions[:, :P]}] + [
+        {"embeds": embeds[:, t:t + 1], "positions": positions[:, t:t + 1]}
+        for t in range(P, P + n)]
+    cache = _teacher_forced("vlm", params, cfg, steps,
+                            logits_k[:, P - 1:P + n], VLM_ROUTE_TOL)
+    phase_decode_breakdown(cfg, params, cache, torch.ones(
+        (VLM_B, 1), dtype=torch.long, device="cuda"))
+    del params, logits_k, cache
+    torch.cuda.empty_cache()
+
+    # Served: the reference's decode inputs, M-RoPE position 0 at every
+    # step (ROADMAP C5); prefill and decode attend through the plain core.
+    serve_row = _serve("vlm", VLM_SERVE_ARGS, 0, {})
+    flash = _flash_at_path(env, "Qwen2-VL-2B", VLM_B, VLM_S, cfg.n_heads,
+                           cfg.n_kv_heads, cfg.head_dim, True, seed=3)
+    torch.cuda.empty_cache()
+    return {"launches": counts, "flash": flash, "serve": serve_row}
+
+
+# ---------------------------------------------------------------------------
+# Phase encdec: SeamlessM4T-medium (non-causal encoder and cross-attention
+# at d 64)
+# ---------------------------------------------------------------------------
+
+
+def phase_encdec(env: dict) -> dict:
+    cfg = ARCHS[ED_ARCH]
+    params, init_s = _init(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab, (ED_B, ED_S), generator=gen,
+                           device="cuda")
+    frames = torch.randn((ED_B, ED_S, cfg.d_model), generator=gen,
+                         device="cuda").to(torch.bfloat16)
+    batch = {"tokens": tokens, "enc_embeds": frames}
+    expected = cfg.n_enc_layers + 2 * cfg.n_layers
+
+    reset_launches()
+    logits_k = _forward(params, cfg, batch, "kernel")
+    torch.cuda.synchronize()
+    counts = launches()
+    row = {"phase": "encdec_forward", "arch": ED_ARCH,
+           "params": T.param_count(cfg), "init_s": init_s,
+           "tokens": [ED_B, ED_S], "enc_embeds": [ED_B, ED_S, cfg.d_model],
+           "launches": counts, "expected_flash_attention": expected,
+           "logits_shape": list(logits_k.shape), "finite": _finite(logits_k)}
+    emit(row)
+    if counts != {"gemm_int8": 0, "flash_attention": expected,
+                  "linear_scan": 0} or not row["finite"]:
+        raise SmokeFailure(f"the Seamless forward launched {counts}, "
+                           f"expected {expected} flash_attention "
+                           f"(encoder, decoder, cross); finite "
+                           f"{row['finite']}")
+    _forward_time(env, "encdec_forward",
+                  lambda: _forward(params, cfg, batch, "kernel"))
+
+    # The encoder is bidirectional, so the float32 forward runs the first
+    # sequence whole (a slice of the frames would encode other frames).
+    logits_t = _forward(params, cfg, batch, "torch")
+    p32 = _to(params, torch.float32)
+    logits_32 = _forward(p32, cfg, {
+        "tokens": tokens[:1], "enc_embeds": frames[:1].float()}, "torch")[
+        :, ED_S - F32_LAST:].clone()
+    del p32
+    torch.cuda.empty_cache()
+    _routes_check("encdec", logits_k, logits_t, logits_32,
+                  (slice(0, 1), slice(ED_S - F32_LAST, ED_S)), ED_ROUTE_TOL)
+    del logits_t
+
+    # Teacher-forced, the frames passed at every step (the decoder then
+    # cross-attends as the forward does), against the kernel forward.
+    P, n = ED_TF_PROMPT, ED_TF_STEPS
+    steps = [{"tokens": tokens[:, :P], "enc_embeds": frames}] + [
+        {"tokens": tokens[:, t:t + 1], "enc_embeds": frames}
+        for t in range(P, P + n)]
+    cache = _teacher_forced("encdec", params, cfg, steps,
+                            logits_k[:, P - 1:P + n], ED_ROUTE_TOL)
+    # A step as served: tokens only (ROADMAP C6).
+    phase_decode_breakdown(cfg, params, cache, tokens[:, :1])
+    del params, logits_k, cache
+    torch.cuda.empty_cache()
+
+    # Served: prefill encodes (12 launches) and cross-attends over frames
+    # of the prompt's length (12); decode steps pass tokens only and skip
+    # cross-attention, as the reference's do (ROADMAP C6).
+    n = cfg.n_enc_layers + cfg.n_layers
+    serve_row = _serve("encdec", ED_SERVE_ARGS, n, {"flash_attention": n})
+    flash = _flash_at_path(env, "SeamlessM4T-medium", ED_B, ED_S,
+                           cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, False,
+                           seed=4)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    q, k, v = (torch.randn((ED_B, 1000, cfg.n_heads, cfg.head_dim),
+                           generator=gen, device="cuda").to(torch.bfloat16)
+               for _ in range(3))
+    flash["max_abs_err"] = max(flash["max_abs_err"], _check_flash(
+        "Seamless decoder, causal, ragged S", q, k, v, True, 0))
+    torch.cuda.empty_cache()
+    return {"launches": counts, "flash": flash, "serve": serve_row}
+
+
+# ---------------------------------------------------------------------------
+# Phase mla_moe: DeepSeek-V2-236B at full width, depth cut to 3 layers
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def _recorded_routes():
+    """Every ``moe_route`` call of the block's MoE layers, in call order."""
+    calls, route = [], L.moe_route
+
+    def recording(p, c, xt):
+        calls.append(route(p, c, xt))
+        return calls[-1]
+
+    L.moe_route = recording
+    try:
+        yield calls
+    finally:
+        L.moe_route = route
+
+
+def _topk_sets(calls, B: int, lengths: list, last: list) -> torch.Tensor:
+    """Each MoE layer's top-k ids as sorted sets [layers, B, positions, k]
+    from calls made layer by layer over chunks of ``lengths`` tokens a
+    sequence, keeping the last ``last[i]`` positions of chunk i."""
+    n_moe = len(calls) // len(lengths)
+    per_layer = [[] for _ in range(n_moe)]
+    for i, (S, keep) in enumerate(zip(lengths, last)):
+        for j in range(n_moe):
+            topi = calls[i * n_moe + j]["topi"]
+            per_layer[j].append(topi.reshape(B, S, -1)[:, S - keep:])
+    return torch.stack([torch.cat(c, 1) for c in per_layer]).sort(-1).values
+
+
+def _mla_teacher_forced(label, params, cfg, tokens, tol) -> dict:
+    """Prefill MLA_TF_PROMPT tokens, decode MLA_TF_STEPS through the
+    absorbed path, and hold the logits against a forward of the same
+    tokens, position by position where every MoE layer routed the token
+    to the same experts in both. A routing flip between near-tied gates
+    (the bf16 rounding of the two paths differs) sends the token to
+    another expert: a different function, not an error of the path; the
+    flips are counted."""
+    B = tokens.shape[0]
+    P, n = MLA_TF_PROMPT, MLA_TF_STEPS
+    with _recorded_routes() as calls:
+        want = T.forward(params, cfg, {"tokens": tokens[:, :P + n]})[0][
+            :, P - 1:P + n]
+    routes_fwd = _topk_sets(calls, B, [P + n], [n + 1])
+    # One slot more than the check needs: the decode breakdown's step.
+    cache = T.init_cache(cfg, B, P + n + 1, dtype=want.dtype, device="cuda")
+    with _recorded_routes() as calls:
+        logits_p, cache, _ = T.forward(params, cfg, {"tokens": tokens[:, :P]},
+                                       cache=cache)
+        outs = [logits_p[:, -1]]
+        for t in range(P, P + n):
+            lg, cache, _ = T.forward(params, cfg,
+                                     {"tokens": tokens[:, t:t + 1]},
+                                     cache=cache)
+            outs.append(lg[:, 0])
+    got = torch.stack(outs, 1)
+    routes_dec = _topk_sets(calls, B, [P] + [1] * n, [1] * (n + 1))
+    same = (routes_fwd == routes_dec).all(-1).all(0)       # [B, n + 1]
+    diff = (got.float() - want.float()).abs().amax(-1)     # [B, n + 1]
+    check = {"phase": f"{label}_teacher_forced", "dtype": str(want.dtype),
+             "prompt": P, "steps": n,
+             "capacity_factor": cfg.moe_capacity_factor,
+             "positions": same.numel(),
+             "positions_with_a_routing_flip": int((~same).sum()),
+             "max_abs_diff_same_routing": float(diff[same].max())
+             if same.any() else None,
+             "max_abs_diff_all": float(diff.max()),
+             "top1_agreement": float((got.argmax(-1) == want.argmax(-1))
+                                     .float().mean()),
+             "want_max_abs": float(want.abs().max()),
+             "finite": bool(torch.isfinite(got).all()), "tol": tol}
+    emit(check)
+    if not (check["finite"] and 2 * int(same.sum()) >= same.numel()
+            and check["max_abs_diff_same_routing"] <= tol):
+        raise SmokeFailure(f"{label}: the absorbed decode disagrees with the "
+                           f"forward: {check}")
+    return cache
+
+
+def phase_mla_moe(env: dict) -> dict:
+    cfg = ARCHS[MLA_ARCH].scaled(n_layers=MLA_LAYERS)
+    kinds = cfg.layer_kinds()
+    params, init_s = _init(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab, (MLA_B, MLA_S), generator=gen,
+                           device="cuda")
+    reset_launches()
+    with _recorded_routes() as calls:
+        logits, _, aux = T.forward(params, cfg, {"tokens": tokens})
+    torch.cuda.synchronize()
+    counts = launches()
+    row = {"phase": "mla_moe_forward", "arch": MLA_ARCH,
+           "reduced": f"n_layers {ARCHS[MLA_ARCH].n_layers} -> {MLA_LAYERS}",
+           "layer_kinds": kinds, "params": T.param_count(cfg),
+           "init_s": init_s, "tokens": [MLA_B, MLA_S], "launches": counts,
+           "aux_loss": float(aux),
+           "capacity_factor": cfg.moe_capacity_factor,
+           "moe_capacity_and_kept_share": [
+               (r["C"], float(r["kept"].float().mean())) for r in calls],
+           "logits_shape": list(logits.shape), "finite": _finite(logits),
+           "logits_max_abs": float(logits.abs().max())}
+    emit(row)
+    del calls
+    if any(counts.values()) or not row["finite"] \
+            or not math.isfinite(row["aux_loss"]):
+        raise SmokeFailure(f"the DeepSeek-V2 forward launched {counts} "
+                           f"(MLA's q and v dims differ: no kernel), finite "
+                           f"{row['finite']}, aux {row['aux_loss']}")
+    del logits
+    _forward_time(env, "mla_moe_forward",
+                  lambda: T.forward(params, cfg, {"tokens": tokens}))
+
+    # Teacher-forced through the absorbed path, at a capacity factor at
+    # which no token is dropped (C >= T at every step, factor >= E / k): a
+    # full pass and a token-by-token decode drop differently at 1.25, as
+    # the reference's own test says. In bf16, and in float32, where the
+    # two paths round alike to ~1e-6 and no gate flips.
+    cfg_tf = cfg.scaled(moe_capacity_factor=float(math.ceil(
+        cfg.moe_n_experts / cfg.moe_top_k)))
+    cache = _mla_teacher_forced("mla_moe", params, cfg_tf, tokens,
+                                MLA_TF_TOL)
+    phase_decode_breakdown(cfg, params, cache, tokens[:, :1])
+    del cache
+    p32 = _to(params, torch.float32)
+    del params
+    torch.cuda.empty_cache()
+    _mla_teacher_forced("mla_moe_f32", p32, cfg_tf, tokens, MLA_F32_TF_TOL)
+    del p32
+    torch.cuda.empty_cache()
+    serve_row = _serve("mla_moe", MLA_SERVE_ARGS, 0, {})
+    torch.cuda.empty_cache()
+    return {"launches": counts, "serve": serve_row}
+
+
+# ---------------------------------------------------------------------------
+# Phase rwkv: RWKV6-7B (the sequential WKV loop, no kernel)
+# ---------------------------------------------------------------------------
+
+
+def phase_rwkv(env: dict) -> dict:
+    cfg = ARCHS[RWKV_ARCH]
+    params, init_s = _init(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab, (RWKV_B, RWKV_S), generator=gen,
+                           device="cuda")
+    reset_launches()
+    t0 = time.perf_counter()
+    logits = T.forward(params, cfg, {"tokens": tokens})[0]
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    counts = launches()
+    row = {"phase": "rwkv_forward", "arch": RWKV_ARCH,
+           "params": T.param_count(cfg), "init_s": init_s,
+           "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+           "tokens": [RWKV_B, RWKV_S], "launches": counts,
+           "first_call_ms": first_ms, "logits_shape": list(logits.shape),
+           "finite": _finite(logits)}
+    emit(row)
+    if any(counts.values()) or not row["finite"]:
+        raise SmokeFailure(f"the RWKV6 forward launched {counts}; finite "
+                           f"{row['finite']}")
+    # The profile covers a forward of 2 x RWKV_PROFILE_S tokens: a whole
+    # one makes ~10 launches per token per layer, too many events to sum.
+    _forward_time(env, "rwkv_forward",
+                  lambda: T.forward(params, cfg, {"tokens": tokens}),
+                  profile=lambda: T.forward(params, cfg, {
+                      "tokens": tokens[:, :RWKV_PROFILE_S]}), reps=1)
+
+    # The sequential WKV loop alone, at one layer's shape.
+    nh, hd = cfg.d_model // cfg.head_dim, cfg.head_dim
+    lp = params["seg0"][0]["rwkv"]
+    r, k, v = (torch.randn((RWKV_B, RWKV_S, nh, hd), generator=gen,
+                           device="cuda").to(torch.bfloat16)
+               for _ in range(3))
+    w = torch.rand((RWKV_B, RWKV_S, nh, hd), generator=gen, device="cuda")
+    s0 = torch.zeros((RWKV_B, nh, hd, hd), device="cuda")
+    R.rwkv6_wkv_scan(lp, r, k, v, w, s0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    R.rwkv6_wkv_scan(lp, r, k, v, w, s0)
+    torch.cuda.synchronize()
+    scan_ms = (time.perf_counter() - t0) * 1e3
+    emit({"phase": "rwkv_wkv_loop", "shape": [RWKV_B, RWKV_S, nh, hd],
+          "ms": scan_ms, "us_per_step": scan_ms * 1e3 / RWKV_S,
+          "layers": cfg.n_layers,
+          "ms_per_forward": scan_ms * cfg.n_layers,
+          "card": env["nvidia_smi"]})
+
+    # A float32 forward of the first sequence, all of it. RWKV6 at these
+    # random weights drifts far in bf16 from float32 (the reference does
+    # too: tests/test_torch_family_layers.py holds the port's drift to the
+    # reference's), so the bf16 forward is held to the drift's mean.
+    p32 = _to(params, torch.float32)
+    logits_32 = T.forward(p32, cfg, {"tokens": tokens[:1]})[0]
+    check = {"phase": "rwkv_vs_f32", "bf16_vs_f32": _close_chunked(
+                 logits[:1], logits_32),
+             "top1_agreement": _top1_agreement(logits[:1], logits_32),
+             "f32_logits_max_abs": float(logits_32.abs().max()),
+             "finite": _finite(logits_32), "mean_tol": RWKV_F32_MEAN_TOL}
+    emit(check)
+    if not (check["finite"] and check["bf16_vs_f32"]["mean_abs_diff"]
+            <= RWKV_F32_MEAN_TOL):
+        raise SmokeFailure(f"RWKV6 bf16 logits drift from float32 past the "
+                           f"bound: {check}")
+
+    # Teacher-forced over the two token shifts and the WKV state, against
+    # the forward, in float32 and in bf16. At these random weights the
+    # recurrence magnifies rounding: two forwards that differ only in how
+    # many tokens their matmuls take at once (the prefill's 256, a step's
+    # 1, the forward's 1024) land apart by more than rounding. So each
+    # dtype's control is a forward over just the compared tokens against
+    # the long forward, and the decode may differ by twice the control's
+    # spread (or the tolerance, if larger); a wrong state carried between
+    # steps moves logits by their own size.
+    P, n = RWKV_TF_PROMPT, RWKV_TF_STEPS
+    for label, prm, lg, tol, b in (
+            ("rwkv_f32", p32, logits_32, RWKV_F32_TF_TOL, 1),
+            ("rwkv", params, logits, RWKV_TF_TOL, RWKV_B)):
+        want = lg[:b, P - 1:P + n]
+        control = T.forward(prm, cfg, {"tokens": tokens[:b, :P + n]})[0][
+            :, P - 1:P + n]
+        spread = _close(control, want)["max_abs_diff"]
+        steps = [{"tokens": tokens[:b, :P]}] + [
+            {"tokens": tokens[:b, t:t + 1]} for t in range(P, P + n)]
+        cache = _teacher_forced(label, prm, cfg, steps, want,
+                                max(tol, 2 * spread),
+                                {"control_max_abs_diff": spread,
+                                 "tol_rule": f"max({tol}, 2 x control)"},
+                                dtype=lg.dtype)
+    phase_decode_breakdown(cfg, params, cache, tokens[:, :1])
+    del p32, logits_32, cache
+    del params, logits
+    torch.cuda.empty_cache()
+    serve_row = _serve("rwkv", RWKV_SERVE_ARGS, 0, {})
+    torch.cuda.empty_cache()
+    return {"launches": counts, "serve": serve_row, "wkv_loop_ms": scan_ms}
+
+
+LM_FAMILY_PHASES = {"vlm": phase_vlm, "encdec": phase_encdec,
+                    "mla_moe": phase_mla_moe, "rwkv": phase_rwkv}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     try:
         env = phase_environment()
         gemm = phase_gemm(env)
+        phase_autotune(env, gemm)
         main_path = phase_main_path()
         vgg = phase_vgg16()
         torch.cuda.empty_cache()
@@ -2384,17 +2989,25 @@ def main() -> int:
         lenet = phase_import()
         torch.cuda.empty_cache()
         flash = phase_flash(env)
-        lm = phase_lm_forward()
+        lm = phase_lm_forward(env)
         phase_lm_serve(lm)
         yi_launches = lm["launches"]
         del lm
         torch.cuda.empty_cache()
         scan = phase_scan(env)
         flash_rg = phase_flash_rg(env)
-        rg = phase_rg_forward()
+        rg = phase_rg_forward(env)
         phase_rg_serve(rg)
         rg_launches = rg["launches"]
         del rg
+        torch.cuda.empty_cache()
+        family = {}
+        for name, phase in LM_FAMILY_PHASES.items():
+            t0 = time.perf_counter()
+            family[name] = phase(env)
+            emit({"phase": f"{name}_done",
+                  "phase_s": time.perf_counter() - t0})
+            torch.cuda.empty_cache()
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -2480,7 +3093,27 @@ def main() -> int:
         "path": RG_ARCH,
         "per": f"one launch at the RecurrentGemma-2B forward's shape "
                f"(B {RG_B}, S {RG_S}, D {rg_cfg.lru_width}, fp32); one per "
-               f"RG-LRU layer of a forward or a prefill"}]
+               f"RG-LRU layer of a forward or a prefill"}] + [{
+        "name": "flash_attention", "route": "cuda", "source": FLASH_SOURCE,
+        "replaces": FLASH_REPLACES,
+        "launches": family[name]["launches"]["flash_attention"],
+        **{k: family[name]["flash"][k] for k in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")},
+        "launches_on": {f"{arch}-serve": family[name]["serve"]["launches"][
+            "flash_attention"]},
+        "path": arch, "per": per}
+        for name, arch, per in (
+            ("vlm", VLM_ARCH,
+             f"one launch at the Qwen2-VL-2B shape (B {VLM_B}, S {VLM_S}, "
+             f"H 12, KV 2, d 128, bf16, causal); one per layer of a forward "
+             f"(M-RoPE positions)"),
+            ("encdec", ED_ARCH,
+             f"one launch at the SeamlessM4T-medium encoder and "
+             f"cross-attention shape (B {ED_B}, S {ED_S}, H 16, KV 16, d 64, "
+             f"bf16, non-causal); a forward launches one per encoder layer, "
+             f"decoder layer and cross-attention, a prefill one per encoder "
+             f"layer and cross-attention"))]
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(env["nvidia_smi"], flush=True)
     emit({"kernels": kernels})

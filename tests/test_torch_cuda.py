@@ -415,6 +415,91 @@ def test_flash_attention_reads_strided_views(gen, S, d):
     _assert_rows_close(got, want, 5e-2)
 
 
+# The other LM families' shapes: Qwen2-VL-2B (GQA 12:2, d 128, causal),
+# SeamlessM4T-medium (d 64: its encoder and its cross-attention with
+# Sq = Skv, non-causal; its decoder, causal).
+FAMILY_ATTN_CASES = [(2, 1024, 12, 2, 128, True), (2, 1024, 16, 16, 64, False),
+                     (2, 1024, 16, 16, 64, True)]
+
+
+@pytest.mark.parametrize("B,S,H,KV,d,causal", FAMILY_ATTN_CASES)
+def test_flash_attention_at_the_family_shapes(gen, B, S, H, KV, d, causal):
+    q = torch.randn((B, S, H, d), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    k, v = (torch.randn((B, S, KV, d), generator=gen, device="cuda").to(
+        torch.bfloat16) for _ in range(2))
+    got = flash_attention(q, k, v, causal=causal)
+    want = attention_ref(q.float(), k.float(), v.float(), causal=causal)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want, rtol=3e-2, atol=3e-2)
+    _assert_rows_close(got, want, 5e-2)
+
+
+def test_flash_attention_takes_cross_attention_projections(gen):
+    """Seamless's cross-attention: keys and values projected from the
+    encoder's output and reshaped (the layout the model passes), queries
+    from the decoder, one length, no mask."""
+    B, S, D, H, d = 2, 512, 1024, 16, 64
+    enc = torch.randn((B, S, D), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    wk, wv = (torch.randn((D, H * d), generator=gen, device="cuda").to(
+        torch.bfloat16) / 32 for _ in range(2))
+    k, v = (enc @ wk).reshape(B, S, H, d), (enc @ wv).reshape(B, S, H, d)
+    q = torch.randn((B, S, H, d), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    got = flash_attention(q, k, v, causal=False)
+    want = attention_ref(q.float(), k.float(), v.float(), causal=False)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want, rtol=3e-2, atol=3e-2)
+    _assert_rows_close(got, want, 5e-2)
+
+
+def _family_inputs(cfg, B, S):
+    gen = torch.Generator().manual_seed(1)
+    if cfg.frontend_stub and cfg.family != "enc_dec":
+        i = torch.arange(S)
+        pos = torch.stack([i, i // 8, i % 8], -1)[None].expand(B, S, 3)
+        return {"embeds": torch.randn((B, S, cfg.d_model), generator=gen),
+                "positions": pos}
+    batch = {"tokens": torch.randint(0, cfg.vocab, (B, S), generator=gen)}
+    if cfg.family == "enc_dec":
+        batch["enc_embeds"] = torch.randn((B, S, cfg.d_model), generator=gen)
+    return batch
+
+
+def _tree_to(node, device):
+    if isinstance(node, dict):
+        return {k: _tree_to(v, device) for k, v in node.items()}
+    if isinstance(node, list):
+        return [_tree_to(v, device) for v in node]
+    return node.to(device)
+
+
+@pytest.mark.parametrize("arch", ["qwen2-vl-2b", "seamless-m4t-medium",
+                                  "deepseek-v2-236b", "rwkv6-7b"])
+def test_family_forward_on_the_card_matches_the_cpu(gen, arch):
+    """One reduced forward of each new family in float32 on the card (the
+    attention layers through ``flash_attention``: one launch per layer,
+    and Seamless's per encoder layer and cross-attention too; none for
+    MLA, whose q and v dims differ, and RWKV) against the same forward on
+    the CPU (the plain attention). rtol/atol 1e-4: the float32 kernel's
+    2e-5 carried through the reduced layers."""
+    from repro_torch.configs import ARCHS, reduced
+    from repro_torch.models import transformer as T
+    cfg = reduced(ARCHS[arch])
+    params = T.init_params(cfg, seed=0, device="cpu", dtype=torch.float32)
+    batch = _family_inputs(cfg, 2, 128)
+    want = T.forward(params, cfg, batch)[0]
+    before = flash_attention.launches
+    got = T.forward(_tree_to(params, "cuda"), cfg, _tree_to(batch, "cuda"))[0]
+    torch.cuda.synchronize()
+    expect = {"qwen2-vl-2b": cfg.n_layers,
+              "seamless-m4t-medium": cfg.n_enc_layers + 2 * cfg.n_layers
+              }.get(arch, 0)
+    assert flash_attention.launches - before == expect
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+
+
 def test_flash_attention_refuses_what_it_cannot_take(gen):
     q = torch.randn((1, 64, 2, 48), generator=gen, device="cuda")
     with pytest.raises(ValueError, match="head dims"):
