@@ -134,10 +134,30 @@ line:
    kernel), the sequential WKV loop's time, the bf16 forward's drift from
    a float32 forward, teacher-forced decodes over the shifts and the WKV
    state in float32 and bf16, served;
-16. the ``kernels`` line (with a ``flash_attention`` entry for each of
-   Yi-6B, RecurrentGemma-2B, Qwen2-VL-2B and SeamlessM4T-medium), the
-   card's ``nvidia-smi`` name and power limit, and last ``{"ok": true,
-   "device": {...}}``.
+16. ``train`` (phase 17 in the code's headings): ``linear_scan``'s
+   gradient (the forward and the reversed backward launch) against
+   autograd through its plain version on the card at a ragged S, S 1, a
+   chunk + 1 and the training shape (2, 1024, 2560), both directions
+   timed beside the plain version and their bounds; one
+   ``make_train_step`` of every reduced config in float32 on the card
+   against the CPU (every gradient leaf, loss, grad norm, the updated
+   params; the reduced RecurrentGemma's 3 + 3 ``linear_scan`` launches, no
+   ``flash_attention``); full-width RecurrentGemma-2B trained for 5 steps
+   at 2 x 1024 (bf16, float32 AdamW moments): steps 1-4 through
+   ``launch/train.py::main`` with its one checkpoint, step 4's, in a
+   temporary directory (a checkpoint is 34.7 GB: the run writes one),
+   step 5 carrying the run's state on; the state held equal to its
+   checkpoint; finite losses and grad norms, exactly 18 + 18
+   ``linear_scan`` launches and no ``flash_attention`` a step, step wall
+   ms, tokens/s, MFU, peak memory; every floating parameter's gradient
+   nonzero; step 5 replayed from step 4's checkpoint equal to the run's
+   step 5 bit for bit; one warm step profiled (device busy by kind, idle
+   share against the unprofiled steps' wall) and one timed by parts;
+17. the ``kernels`` line (with a ``flash_attention`` entry for each of
+   Yi-6B, RecurrentGemma-2B, Qwen2-VL-2B and SeamlessM4T-medium, and
+   ``linear_scan`` entries for the forward, and for training's forward
+   and backward), the card's ``nvidia-smi`` name and power limit, and
+   last ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -148,8 +168,11 @@ import json
 import math
 import re
 from concurrent.futures import ThreadPoolExecutor
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 from pathlib import Path
@@ -160,7 +183,9 @@ sys.path.insert(0, str(ROOT / "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from repro_torch.configs import ARCHS  # noqa: E402
+from repro_torch import checkpointing as ckpt  # noqa: E402
+from repro_torch import optim  # noqa: E402
+from repro_torch.configs import ARCHS, reduced  # noqa: E402
 from repro_torch.core.executor import EngineExecutor  # noqa: E402
 from repro_torch.core.program import ROUTES  # noqa: E402
 from repro_torch.core.workload import CNN_MODELS  # noqa: E402
@@ -178,7 +203,9 @@ from repro_torch.kernels.rglru_scan import kernel as scan_kernel  # noqa
 from repro_torch.kernels.rglru_scan.kernel import linear_scan  # noqa: E402
 from repro_torch.kernels.rglru_scan.ref import linear_scan_ref  # noqa: E402
 from repro_torch.launch import serve as lm_serve  # noqa: E402
+from repro_torch.data.pipeline import DataConfig, make_stream  # noqa
 from repro_torch.launch import steps as lm_steps  # noqa: E402
+from repro_torch.launch import train as lm_train  # noqa: E402
 from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models import recurrent as R  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
@@ -492,7 +519,7 @@ def card_peaks(name: str) -> tuple[str, float, float, float]:
 def reset_launches() -> None:
     gemm_kernel.reset_launches()
     flash_attention.launches = 0
-    linear_scan.launches = 0
+    _build.reset_count(linear_scan, ("forward", "backward"))
 
 
 def launches() -> dict:
@@ -2972,6 +2999,480 @@ LM_FAMILY_PHASES = {"vlm": phase_vlm, "encdec": phase_encdec,
                     "mla_moe": phase_mla_moe, "rwkv": phase_rwkv}
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: training (the RG-LRU's forward and backward through linear_scan)
+# ---------------------------------------------------------------------------
+
+
+# linear_scan's gradient against autograd through its plain version on the
+# card: (label, B, S, D). A ragged S, one step, a chunk and one step, and
+# the RecurrentGemma-2B training shape (batch 2 x 1024 tokens, D 2560).
+SCAN_GRAD_CASES = [("ragged S", 2, 77, 100), ("S 1", 2, 1, 2560),
+                   ("one chunk + 1", 2, 257, 2560),
+                   ("RecurrentGemma-2B training", 2, 1024, 2560)]
+TRAIN_ARCH = "recurrentgemma-2b"
+# Five full-width steps: launch/train.py's main runs steps 1-4 and writes
+# its one checkpoint, step 4's (the loop saves its last step); step 5
+# carries the run's state on, then is replayed from step 4's checkpoint.
+# A full-width state is 34.7 GB on disk (bf16 params widened to float32,
+# float32 moments): the run writes it once, and needs about 36 GB of
+# free disk where a run checkpointing steps 4 and 5 would write 70 GB.
+TRAIN_B, TRAIN_S, TRAIN_STEPS = 2, 1024, 5
+# Reduced configs, card against CPU, float32: each gradient leaf within
+# 1e-4 of its largest |g| (the CPU tests' tolerance against the
+# reference), the loss and grad norm at rtol 1e-5 / 1e-4; the params after
+# one step within 1e-5, but for at most 0.1% of the elements within 2 lr
+# (Adam's step-1 move of g / (|g| + eps) where |g| is near rounding noise).
+TRAIN_GRAD_TOL, TRAIN_PARAM_TOL, TRAIN_FLIP_SHARE, TRAIN_LR = \
+    1e-4, 1e-5, 1e-3, 1e-3
+TRAIN_RB, TRAIN_RS = 2, 16
+
+
+def _scan_grads(scan, a, b, dh):
+    a = a.clone().requires_grad_()
+    b = b.clone().requires_grad_()
+    h = scan(a, b)
+    return (h.detach(), *torch.autograd.grad(h, (a, b), dh))
+
+
+def _check_scan_grad(label, B, S, D, gen) -> float:
+    """The kernel's gradient (the forward and the reversed backward scan,
+    one launch each) against autograd through ``linear_scan_ref`` on the
+    card: h, da and db within 2e-5 and each row within 2e-5 of its RMS;
+    whether they are equal bit for bit (both round each step's product,
+    then its sum) is printed."""
+    a = torch.rand((B, S, D), generator=gen, device="cuda") * 0.299 + 0.7
+    b = torch.randn((B, S, D), generator=gen, device="cuda")
+    dh = torch.randn((B, S, D), generator=gen, device="cuda")
+    before = dict(linear_scan.launches_by_path)
+    got = _scan_grads(linear_scan, a, b, dh)
+    torch.cuda.synchronize()
+    ran = {k: linear_scan.launches_by_path[k] - before[k] for k in before}
+    want = _scan_grads(linear_scan_ref, a, b, dh)
+    err, exact, ok = 0.0, True, ran == {"forward": 1, "backward": 1}
+    for g, w in zip(got, want):
+        diff = (g - w).abs()
+        err = max(err, float(diff.max()))
+        exact = exact and torch.equal(g, w)
+        rms = w.square().mean(-1, keepdim=True).sqrt()
+        ok = ok and bool((diff <= SCAN_TOL * rms).all()) and bool(
+            torch.allclose(g, w, rtol=SCAN_TOL, atol=SCAN_TOL))
+    emit({"phase": "linear_scan_grad_case", "case": label,
+          "shape": [B, S, D], "launches": ran, "max_abs_err": err,
+          "exact": exact, "tol": SCAN_TOL, "ok": ok})
+    if not ok:
+        raise SmokeFailure(f"linear_scan's gradient disagrees with autograd "
+                           f"through its plain version on {label}: max "
+                           f"|err| {err}, launches {ran}")
+    return err
+
+
+def _scan_grad_times(env, B, S, D) -> dict:
+    """Forward launch, backward launch and the whole backward (flips, the
+    launch, da = g * h_prev) at the training shape, fp32, beside the plain
+    version and the bounds, 4 bytes an element: forward a, b read and h
+    written; the whole backward a, h and dL/dh read, da and db written;
+    the backward launch alone its a and dL/dh read and g written."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    a = torch.rand((B, S, D), generator=gen, device="cuda") * 0.299 + 0.7
+    b = torch.randn((B, S, D), generator=gen, device="cuda")
+    dh = torch.randn((B, S, D), generator=gen, device="cuda")
+    a_rev = torch.cat([torch.zeros_like(a[:, :1]), a.flip(1)[:, :S - 1]], 1)
+    dh_rev = dh.flip(1).contiguous()
+    ar, br = a.clone().requires_grad_(), b.clone().requires_grad_()
+    h_k = linear_scan(ar, br)
+    h_p = linear_scan_ref(ar, br)
+    flush = torch.empty(64 << 20, dtype=torch.int8, device="cuda")
+    row = {"phase": "linear_scan_grad_times", "shape": [B, S, D],
+           "dtype": "float32",
+           "forward_ms": _time_cold_ms(lambda: linear_scan(a, b), flush),
+           "backward_launch_ms": _time_cold_ms(
+               lambda: scan_kernel._scan(a_rev, dh_rev, "backward"), flush),
+           "backward_ms": _time_cold_ms(lambda: torch.autograd.grad(
+               h_k, (ar, br), dh, retain_graph=True), flush),
+           "plain_forward_ms": _time_cold_ms(
+               lambda: linear_scan_ref(a, b), flush, iters=3),
+           "plain_backward_ms": _time_cold_ms(lambda: torch.autograd.grad(
+               h_p, (ar, br), dh, retain_graph=True), flush, iters=3)}
+    del flush
+    key, _, _, peak_bytes = card_peaks(env["device"])
+    n = B * S * D
+    for d, nbytes, flops in (("forward", 3 * 4 * n, 2 * n),
+                             ("backward", 5 * 4 * n, 3 * n),
+                             ("backward_launch", 3 * 4 * n, 2 * n)):
+        t_ops = flops / F32_PEAKS[key] * 1e3
+        t_bytes = nbytes / peak_bytes * 1e3
+        row[f"{d}_bytes"], row[f"{d}_flops"] = nbytes, flops
+        row[f"{d}_bound_ms"] = max(t_ops, t_bytes)
+        row[f"{d}_bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
+    row["card"] = env["nvidia_smi"]
+    emit(row)
+    return row
+
+
+def _batch_np(cfg, seed=1) -> dict:
+    """numpy inputs and labels for a reduced ``cfg`` (the CPU tests')."""
+    rng = np.random.default_rng(seed)
+    B, S = TRAIN_RB, TRAIN_RS
+    batch = {"labels": rng.integers(0, cfg.vocab, (B, S)).astype(np.int32)}
+    if cfg.frontend_stub and cfg.family != "enc_dec":
+        batch["embeds"] = rng.standard_normal(
+            (B, S, cfg.d_model)).astype(np.float32)
+        batch["positions"] = np.broadcast_to(
+            np.arange(S)[None, :, None] + np.array([0, 3, 7]),
+            (B, S, 3)).astype(np.int32).copy()
+    else:
+        batch["tokens"] = rng.integers(0, cfg.vocab, (B, S)).astype(np.int32)
+    if cfg.family == "enc_dec":
+        batch["enc_embeds"] = rng.standard_normal(
+            (B, S, cfg.d_model)).astype(np.float32)
+    return batch
+
+
+def _grads(params, cfg, batch) -> list:
+    """Every leaf's gradient of ``loss_fn``, as ``make_train_step`` takes
+    them."""
+    return optim.adamw.tree_leaves(
+        lm_steps.value_and_grad(params, cfg, batch)[1])
+
+
+def _reduced_card_vs_cpu() -> dict:
+    """Every reduced config at float32: one ``make_train_step`` on the card
+    (kernels) and on the CPU (plain versions) from the same weights and
+    batch; each gradient leaf, the loss, the grad norm and the updated
+    params compared."""
+    out = {}
+    for arch in sorted(ARCHS):
+        cfg = reduced(ARCHS[arch])
+        batch = _batch_np(cfg)
+        runs = {}
+        for device in ("cpu", "cuda"):
+            params = T.init_params(cfg, seed=0, device="cpu",
+                                   dtype=torch.float32)
+            params = optim.adamw.tree_map(lambda t: t.to(device), params)
+            bt = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+            grads = _grads(params, cfg, bt)
+            step = lm_steps.make_train_step(cfg, lr=TRAIN_LR, remat=False)
+            reset_launches()
+            params, _, m = step(params, optim.adamw_init(
+                params, cfg.opt_moment_dtype), bt)
+            if device == "cuda":
+                torch.cuda.synchronize()
+            runs[device] = (grads, params, m, dict(
+                linear_scan.launches_by_path,
+                flash_attention=flash_attention.launches))
+        (g_c, p_c, m_c, _), (g_k, p_k, m_k, counts) = runs["cpu"], \
+            runs["cuda"]
+        grad_rel = max(float((a.cpu() - b).abs().max())
+                       / max(float(b.abs().max()), 1e-30)
+                       for a, b in zip(g_k, g_c))
+        off = n = 0
+        worst = 0.0
+        for a, b in zip(optim.adamw.tree_leaves(p_k),
+                        optim.adamw.tree_leaves(p_c)):
+            d = (a.detach().cpu() - b.detach()).abs()
+            off += int((d > TRAIN_PARAM_TOL).sum())
+            n += d.numel()
+            worst = max(worst, float(d.max()))
+        n_rec = cfg.layer_kinds().count("rglru")
+        row = {"phase": "train_reduced", "arch": arch,
+               "loss": float(m_k["loss"]), "loss_cpu": float(m_c["loss"]),
+               "grad_norm": float(m_k["grad_norm"]),
+               "grad_norm_cpu": float(m_c["grad_norm"]),
+               "grad_rel_max": grad_rel, "param_off_share": off / n,
+               "param_max_diff": worst, "launches": counts,
+               "expected": {"forward": n_rec, "backward": n_rec,
+                            "flash_attention": 0}}
+        row["ok"] = (
+            math.isclose(row["loss"], row["loss_cpu"], rel_tol=1e-5)
+            and math.isclose(row["grad_norm"], row["grad_norm_cpu"],
+                             rel_tol=TRAIN_GRAD_TOL)
+            and grad_rel <= TRAIN_GRAD_TOL
+            and row["param_off_share"] <= TRAIN_FLIP_SHARE
+            and worst <= 2 * TRAIN_LR + TRAIN_PARAM_TOL
+            and counts == row["expected"])
+        emit(row)
+        if not row["ok"]:
+            raise SmokeFailure(f"the reduced {arch} train step on the card "
+                               f"disagrees with the CPU: {row}")
+        out[arch] = row
+    return out
+
+
+def _restore_state(ckpt_dir, step, cfg):
+    """The train state of ``step`` restored onto the card (the structure
+    built on the meta device, nothing allocated twice)."""
+    meta = T.init_params(cfg, device="meta")
+    like = (meta, optim.adamw_init(meta, cfg.opt_moment_dtype))
+    return ckpt.restore(ckpt_dir, step, like, device="cuda")
+
+
+def _equal_to_checkpoint(state, ckpt_dir, step) -> dict:
+    """Whether every leaf of ``state`` (params, AdamW state) equals the
+    checkpoint of ``step`` bit for bit (bf16 widened to float32 in the
+    file, exactly)."""
+    path = Path(ckpt_dir) / f"step_{step}" / "shard_0.npz"
+    differ, n = [], 0
+    with np.load(path) as z:
+        for p, leaf in ckpt.checkpoint._items(state):
+            key = ckpt.checkpoint._key(p)
+            want = torch.from_numpy(z[key]).to("cuda")
+            n += 1
+            if not torch.equal(leaf.detach().to(want.dtype), want):
+                differ.append(key)
+    return {"leaves": n, "differ": differ[:10], "n_differ": len(differ)}
+
+
+def _step_phase_ms(params, opt, cfg, batch, lr) -> dict:
+    """One more step timed with CUDA events by the two parts
+    ``make_train_step`` runs: ``value_and_grad`` (the forward with the
+    loss, then the backward) and ``apply_grads`` (the clip in place, then
+    AdamW), at their defaults; and, between them, the in-place clip alone
+    on the same gradients (``apply_grads`` then clips them again; the
+    state is not used after)."""
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    torch.cuda.synchronize()
+    ev[0].record()
+    _, grads = lm_steps.value_and_grad(params, cfg, batch)
+    ev[1].record()
+    optim.clip_by_global_norm_(grads)
+    ev[2].record()
+    lm_steps.apply_grads(params, grads, opt, lr=lr,
+                         moment_dtype=cfg.opt_moment_dtype)
+    ev[3].record()
+    torch.cuda.synchronize()
+    return {name: ev[i].elapsed_time(ev[i + 1]) for i, name in enumerate(
+        ("value_and_grad_ms", "clip_ms", "apply_grads_ms"))}
+
+
+def _profiled_step(env, step, state, batch, warm_ms) -> dict:
+    """One train step under the profiler: device busy time by kind
+    (GEMMs, linear_scan forward and backward split by launch order, the
+    head's log-softmax, everything else) and the idle share, against the
+    profiled call's own wall (the profiler's overhead included) and
+    against ``warm_ms``, the unprofiled steps' median wall."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        out = step(*state, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = sorted((e for e in prof.events()
+                      if e.device_type == torch.autograd.DeviceType.CUDA
+                      and _device_us(e) > 0
+                      and not e.key.startswith("Activity Buffer")),
+                     key=lambda e: e.time_range.start)
+    busy = sum(_device_us(e) for e in kernels) / 1e3
+    scans = [e for e in kernels if "linear_scan" in e.key]
+    half = len(scans) // 2
+    split = {
+        "matmul_ms": sum(_device_us(e) for e in kernels
+                         if _is_matmul(e.key)) / 1e3,
+        "linear_scan_forward_ms": sum(_device_us(e) for e in scans[:half])
+        / 1e3,
+        "linear_scan_backward_ms": sum(_device_us(e) for e in scans[half:])
+        / 1e3,
+        "log_softmax_ms": sum(_device_us(e) for e in kernels
+                              if "softmax" in e.key.lower()) / 1e3}
+    split["other_ms"] = busy - sum(split.values())
+    by_kernel: dict = {}
+    for e in kernels:
+        us, n = by_kernel.get(e.key, (0.0, 0))
+        by_kernel[e.key] = (us + _device_us(e), n + 1)
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:12]
+    row = {"phase": "train_profiled_step", "profiled_wall_ms": wall_ms,
+           "device_busy_ms": busy, "kernels": len(kernels),
+           "device_idle_share": max(0.0, 1.0 - busy / warm_ms),
+           "warm_step_wall_ms": warm_ms,
+           "device_idle_share_of_profiled_call": max(0.0,
+                                                     1.0 - busy / wall_ms),
+           "linear_scan_launches": len(scans),
+           "linear_scan_share": (split["linear_scan_forward_ms"]
+                                 + split["linear_scan_backward_ms"])
+           / max(busy, 1e-9),
+           **split,
+           "top_device_ops_us_count": [[k[:60], round(us, 1), n]
+                                       for k, (us, n) in top],
+           "card": env["nvidia_smi"]}
+    emit(row)
+    return out, row
+
+
+def phase_train(env: dict) -> dict:
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    max_err = max(_check_scan_grad(label, B, S, D, gen)
+                  for label, B, S, D in SCAN_GRAD_CASES)
+    times = _scan_grad_times(env, *SCAN_GRAD_CASES[-1][1:])
+    _reduced_card_vs_cpu()
+    torch.cuda.empty_cache()
+
+    # Full width through launch/train.py: the main path, counts at 0 just
+    # before, read just after.
+    cfg = ARCHS[TRAIN_ARCH]
+    n_rec = cfg.layer_kinds().count("rglru")
+    per_step = {"linear_scan_forward": n_rec, "linear_scan_backward": n_rec,
+                "flash_attention": 0}
+    main_steps = TRAIN_STEPS - 1
+    with tempfile.TemporaryDirectory(prefix="train_ckpt_") as ckpt_dir:
+        state_gb = 12 * T.param_count(cfg) / 1e9      # 4 + 4 + 4 bytes
+        free_gb = shutil.disk_usage(ckpt_dir).free / 1e9
+        if free_gb < state_gb + 2:
+            raise SmokeFailure(f"{free_gb:.1f} GB free under {ckpt_dir}: "
+                               f"a {state_gb:.1f} GB checkpoint does not "
+                               f"fit")
+        args = ["--arch", TRAIN_ARCH, "--steps", str(main_steps),
+                "--batch", str(TRAIN_B), "--seq", str(TRAIN_S),
+                "--ckpt", ckpt_dir, "--ckpt-every", str(main_steps),
+                "--log-every", "1"]
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        res = lm_train.main(args)
+        torch.cuda.synchronize()
+        main_s = time.perf_counter() - t0
+        counts = {"linear_scan": linear_scan.launches,
+                  "linear_scan_by_path": dict(linear_scan.launches_by_path),
+                  "flash_attention": flash_attention.launches,
+                  "gemm_int8": gemm_int8.launches}
+        params, opt = res.pop("state")
+        # The state the run holds equals its checkpoint, leaf for leaf.
+        saved = _equal_to_checkpoint((params, opt), ckpt_dir, main_steps)
+        stream = make_stream(cfg, DataConfig(global_batch=TRAIN_B,
+                                             seq_len=TRAIN_S,
+                                             vocab=cfg.vocab),
+                             device="cuda")
+        stream.seek(main_steps)
+        batch = next(stream)
+
+        # Every floating leaf gets a nonzero gradient on step 5's batch (a
+        # gradient cut by a kernel would leave the RG-LRU's gates, lam, wx
+        # and conv at 0).
+        reset_launches()
+        grads = _grads(params, cfg, batch)
+        torch.cuda.synchronize()
+        grad_counts = dict(linear_scan.launches_by_path,
+                           flash_attention=flash_attention.launches)
+        zero = [ckpt.checkpoint._key(p) for (p, _), g in zip(
+            ckpt.checkpoint._items(params), grads) if not bool(g.any())]
+        n_leaves = len(grads)
+        del grads
+
+        # Step 5, the run's state carried on (the schedule of a 5-step
+        # run), counted and timed as main's steps are.
+        lr = optim.wsd_schedule(3e-4, warmup=min(100, TRAIN_STEPS // 10 + 1),
+                                total=TRAIN_STEPS)
+        step = lm_steps.make_train_step(cfg, lr=lr, remat=False)
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, m5 = step(params, opt, batch)
+        torch.cuda.synchronize()
+        step5_ms = (time.perf_counter() - t0) * 1e3
+        step5_counts = {"linear_scan_forward":
+                        linear_scan.launches_by_path["forward"],
+                        "linear_scan_backward":
+                        linear_scan.launches_by_path["backward"],
+                        "flash_attention": flash_attention.launches}
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        p5 = [t.detach().to("cpu", copy=True)
+              for t in optim.adamw.tree_leaves(params)]
+        del params, opt
+        torch.cuda.empty_cache()
+
+        losses = res["losses"] + [float(m5["loss"])]
+        gnorms = res["grad_norms"] + [float(m5["grad_norm"])]
+        step_list = res["step_ms"] + [step5_ms]
+        per_step_counts = res["launches"] + [step5_counts]
+        finite = all(math.isfinite(x) for x in losses + gnorms)
+        step_ms = float(np.median(step_list[1:]))
+        tokens = TRAIN_B * TRAIN_S
+        n_params = res["params"]
+        n_attn = cfg.layer_kinds().count("attn_local")
+        ctx = min(TRAIN_S, cfg.window or TRAIN_S)
+        # Causal attention within the window: QK^T and PV, 2 flops a MAC,
+        # x3 for forward and backward.
+        attn_flops = 3 * 2 * 2 * TRAIN_B * sum(
+            min(i + 1, ctx) for i in range(TRAIN_S)) * cfg.n_heads \
+            * cfg.head_dim * n_attn
+        flops = 6 * n_params * tokens + attn_flops
+        _, _, peak_bf16, _ = card_peaks(env["device"])
+        row = {"phase": "train_full_width", "arch": TRAIN_ARCH,
+               "params": n_params, "batch": TRAIN_B, "seq": TRAIN_S,
+               "steps": TRAIN_STEPS, "main_steps": main_steps,
+               "dtype": cfg.dtype, "moments": cfg.opt_moment_dtype,
+               "main_s": main_s, "losses": losses, "grad_norms": gnorms,
+               "finite": finite, "restarts": res["restarts"],
+               "step_ms": step_list, "step_ms_median_warm": step_ms,
+               "tokens_per_s": tokens / step_ms * 1e3,
+               "model_flops": flops, "mfu": flops / (step_ms * 1e-3)
+               / peak_bf16, "peak_memory_gb": peak_gb,
+               "launches": counts, "launches_per_step": per_step_counts,
+               "expected_per_step": per_step,
+               "checkpoints": sorted(os.listdir(ckpt_dir)),
+               "state_equals_checkpoint": saved,
+               "disk_free_gb_before": free_gb, "state_gb": state_gb,
+               "card": env["nvidia_smi"]}
+        emit(row)
+        if not finite or res["restarts"]:
+            raise SmokeFailure(f"full-width training: losses {losses}, "
+                               f"grad norms {gnorms}, restarts "
+                               f"{res['restarts']}")
+        if any(n != per_step for n in per_step_counts) or \
+                counts["gemm_int8"]:
+            raise SmokeFailure(f"full-width training launched "
+                               f"{per_step_counts} a step, expected "
+                               f"{per_step}")
+        del res
+
+        # Step 5 replayed from step 4's checkpoint: the run's step 5 bit
+        # for bit (two runs of one step from one state), and the params
+        # moved. Then one warm step profiled, and one timed by parts.
+        t0 = time.perf_counter()
+        params, opt = _restore_state(ckpt_dir, main_steps, cfg)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        p4 = [t.detach().to("cpu", copy=True)
+              for t in optim.adamw.tree_leaves(params)]
+        params, opt, _ = step(params, opt, batch)
+        replay = [ckpt.checkpoint._key(p) for (p, t), want in zip(
+            ckpt.checkpoint._items(params), p5)
+            if not torch.equal(t.detach().cpu(), want)]
+        moved = [sum(int((a != b).sum()) for a, b in zip(p4, p5)),
+                 sum(a.numel() for a in p4)]
+        unmoved = [ckpt.checkpoint._key(p) for (p, _), a, b in zip(
+            ckpt.checkpoint._items(params), p4, p5) if torch.equal(a, b)]
+        del p4, p5
+        (params, opt, _), prof_row = _profiled_step(
+            env, step, (params, opt), next(stream), step_ms)
+        parts = _step_phase_ms(params, opt, cfg, next(stream), lr)
+        del params, opt
+        torch.cuda.empty_cache()
+    det = {"phase": "train_checks", "grad_launches": grad_counts,
+           "leaves": n_leaves, "zero_grad_leaves": zero,
+           "state_equals_checkpoint": saved["n_differ"] == 0,
+           "replay_differs": replay, "elements_moved_by_step_5": moved,
+           "leaves_unmoved_by_step_5": unmoved, "restore_s": restore_s,
+           "step_parts_ms": parts, "phase_s": time.perf_counter() - t_phase}
+    emit(det)
+    if grad_counts != {"forward": n_rec, "backward": n_rec,
+                       "flash_attention": 0}:
+        raise SmokeFailure(f"the full-width loss and gradients launched "
+                           f"{grad_counts}")
+    if zero:
+        raise SmokeFailure(f"floating leaves with an all-zero gradient: "
+                           f"{zero}")
+    if saved["n_differ"] or replay or not moved[0]:
+        raise SmokeFailure(f"the state differs from its checkpoint, or step "
+                           f"5 replayed from step 4's checkpoint is not the "
+                           f"run's step 5, or the params did not move: "
+                           f"{det}")
+    return {"max_abs_err": max_err, "times": times, "full": row,
+            "profile": prof_row, "launches": per_step}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     try:
@@ -3008,6 +3509,7 @@ def main() -> int:
             emit({"phase": f"{name}_done",
                   "phase_s": time.perf_counter() - t0})
             torch.cuda.empty_cache()
+        train = phase_train(env)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -3113,7 +3615,28 @@ def main() -> int:
              f"cross-attention shape (B {ED_B}, S {ED_S}, H 16, KV 16, d 64, "
              f"bf16, non-causal); a forward launches one per encoder layer, "
              f"decoder layer and cross-attention, a prefill one per encoder "
-             f"layer and cross-attention"))]
+             f"layer and cross-attention"))] + [{
+        "name": "linear_scan", "route": "cuda", "source": SCAN_SOURCE,
+        "replaces": SCAN_REPLACES, "direction": d,
+        "launches": train["full"]["launches"]["linear_scan_by_path"][d],
+        "max_abs_err": train["max_abs_err"],
+        "ms": train["times"][ms], "plain_ms": train["times"][f"plain_{d}_ms"],
+        "bound_ms": train["times"][f"{d}_bound_ms"],
+        "bound_by": train["times"][f"{d}_bound_by"], "library_ms": None,
+        "library_note": "null: no single PyTorch call computes the "
+                        "recurrence or its gradient",
+        "path": f"{TRAIN_ARCH}-train",
+        "per": f"one launch at the training shape (B {TRAIN_B}, S "
+               f"{TRAIN_S}, D {rg_cfg.lru_width}, fp32); {per}"}
+        for d, ms, per in (
+            ("forward", "forward_ms",
+             f"one per RG-LRU layer of a training step's forward "
+             f"({TRAIN_STEPS - 1} steps of launch/train.py)"),
+            ("backward", "backward_ms",
+             "one per RG-LRU layer of a training step's backward (the "
+             "same kernel over reversed time); ms is the whole backward "
+             "(the flips, the launch, da = g * h_prev), as its bound and "
+             "plain_ms (autograd through the plain version) are"))]
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(env["nvidia_smi"], flush=True)
     emit({"kernels": kernels})

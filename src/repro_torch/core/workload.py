@@ -3,9 +3,10 @@
 The paper's allocator (Algorithms 1 and 2) operates on per-layer workload
 numbers: MAC count ``pi_i = H*W*R*S*C*M``, weight volume, and activation row
 sizes. This module provides those numbers for CNN graphs exactly as the
-paper defines them. It is a copy of ``repro/core/workload.py`` without the
-transformer-family workloads (``lm_layer_workloads``), which arrive with the
-port's LM slice.
+paper defines them, and for the transformer-family configs
+(``lm_layer_workloads``, which the elastic re-plan of
+``runtime/fault_tolerance.py`` feeds to the allocator). It is a copy of
+``repro/core/workload.py``.
 
 Conventions
 -----------
@@ -241,6 +242,127 @@ def yolo() -> CNNModel:
 
 
 CNN_MODELS = {"vgg16": vgg16, "alexnet": alexnet, "zf": zfnet, "yolo": yolo}
+
+
+# ---------------------------------------------------------------------------
+# Transformer-family workloads (assigned architectures)
+# ---------------------------------------------------------------------------
+
+
+def lm_layer_workloads(
+    cfg,
+    *,
+    seq_len: int,
+    batch: int,
+    mode: Literal["train", "prefill", "decode"] = "train",
+    dtype_bytes: int = 2,
+) -> list[LayerWorkload]:
+    """Per-layer workload for a transformer config (see configs/base.py).
+
+    ``macs`` counts the forward pass per global step (train multiplies by 3
+    inside the allocator's time model, not here). ``decode`` counts one new
+    token against a ``seq_len`` KV cache.
+    """
+    d = cfg.d_model
+    toks = batch * (1 if mode == "decode" else seq_len)
+    kv_len = seq_len
+    n_ffn_mats = 3 if cfg.mlp_kind in ("swiglu", "geglu") else 2
+    out: list[LayerWorkload] = []
+
+    emb_bytes = cfg.vocab * d * dtype_bytes
+    out.append(LayerWorkload(
+        name="embed", macs=0, weight_bytes=emb_bytes,
+        act_in_bytes=toks * 4, act_out_bytes=toks * d * dtype_bytes,
+        kind="embed", C=d, M=d))
+
+    # Encoder layers (enc-dec archs): bidirectional attn + mlp, processing
+    # the encoder sequence (same length by our shape convention).
+    for i in range(cfg.n_enc_layers or 0):
+        dh = cfg.head_dim
+        w_attn = (d * cfg.n_heads * dh + 2 * d * cfg.n_kv_heads * dh
+                  + cfg.n_heads * dh * d)
+        w_ffn = n_ffn_mats * d * cfg.d_ff
+        enc_toks = batch * seq_len if mode != "decode" else batch
+        macs = enc_toks * (w_attn + w_ffn) \
+            + enc_toks * kv_len * cfg.n_heads * dh * 2
+        out.append(LayerWorkload(
+            name=f"enc{i}", macs=macs,
+            weight_bytes=(w_attn + w_ffn) * dtype_bytes,
+            act_in_bytes=enc_toks * d * dtype_bytes,
+            act_out_bytes=enc_toks * d * dtype_bytes,
+            kind="enc", C=d, M=d, H=seq_len, W=batch))
+
+    for i in range(cfg.n_layers):
+        blk = cfg.block_kind(i)  # "attn" | "rglru" | "rwkv" | "moe" | ...
+        macs = 0
+        wbytes = 0
+        if blk in ("attn", "attn_local", "moe", "mla", "mla_moe"):
+            if blk.startswith("mla"):
+                # MLA: q/kv low-rank projections + score/av + out proj.
+                q_rank = getattr(cfg, "q_lora_rank", 0) or d
+                kv_rank = getattr(cfg, "kv_lora_rank", 512)
+                dh = cfg.head_dim
+                rope_dim = getattr(cfg, "rope_head_dim", 64)
+                nh = cfg.n_heads
+                w_attn = (d * q_rank + q_rank * nh * (dh + rope_dim)
+                          + d * (kv_rank + rope_dim)
+                          + kv_rank * nh * (dh + dh)
+                          + nh * dh * d)
+            else:
+                dh = cfg.head_dim
+                w_attn = (d * cfg.n_heads * dh
+                          + 2 * d * cfg.n_kv_heads * dh
+                          + cfg.n_heads * dh * d)
+            ctx = min(kv_len, getattr(cfg, "window", None) or kv_len) \
+                if blk == "attn_local" else kv_len
+            score_macs = toks * ctx * cfg.n_heads * cfg.head_dim * 2
+            if cfg.n_enc_layers:   # enc-dec decoder: + cross-attention
+                w_attn *= 2
+                score_macs *= 2
+            macs += toks * w_attn + score_macs
+            wbytes += w_attn * dtype_bytes
+        if blk in ("rglru",):
+            # Griffin block: wx, wy, wo (3 d x dr) + 2 recurrence gates
+            # (2 dr^2); the recurrence itself is elementwise.
+            dr = cfg.lru_width or d
+            w_rec = 3 * d * dr + 2 * dr * dr
+            macs += toks * w_rec
+            wbytes += w_rec * dtype_bytes
+        if blk in ("rwkv",):
+            # RWKV6 time-mix: r,k,v,g,o projections (5 d^2) + decay lora.
+            w_rec = 5 * d * d
+            macs += toks * w_rec
+            wbytes += w_rec * dtype_bytes
+        # FFN part
+        if blk.endswith("moe"):
+            n_act = cfg.moe_top_k + cfg.moe_n_shared
+            w_ffn_tot = (cfg.moe_n_experts + cfg.moe_n_shared) * 3 * d * cfg.moe_d_ff
+            macs += toks * n_act * 3 * d * cfg.moe_d_ff
+            wbytes += w_ffn_tot * dtype_bytes
+        elif blk == "rwkv":
+            # channel mix: cm_wr (d^2) + cm_wk (d x ff) + cm_wv (ff x d)
+            w_ffn = d * d + 2 * d * cfg.d_ff
+            macs += toks * w_ffn
+            wbytes += w_ffn * dtype_bytes
+        else:
+            macs += toks * n_ffn_mats * d * cfg.d_ff
+            wbytes += n_ffn_mats * d * cfg.d_ff * dtype_bytes
+        out.append(LayerWorkload(
+            name=f"layer{i}", macs=macs, weight_bytes=wbytes,
+            act_in_bytes=toks * d * dtype_bytes,
+            act_out_bytes=toks * d * dtype_bytes,
+            kind=blk, C=d, M=d, H=seq_len, W=batch))
+
+    out.append(LayerWorkload(
+        name="lm_head", macs=toks * d * cfg.vocab,
+        # tied embeddings: the head reuses the embedding bytes (already
+        # counted), but its MACs still happen.
+        weight_bytes=(0 if cfg.tie_embeddings
+                      else cfg.vocab * d * dtype_bytes),
+        act_in_bytes=toks * d * dtype_bytes,
+        act_out_bytes=toks * cfg.vocab * dtype_bytes,
+        kind="head", C=d, M=cfg.vocab))
+    return out
 
 
 def total_params(layers: Sequence[LayerWorkload], dtype_bytes: int = 2) -> int:

@@ -9,6 +9,12 @@ always launches the kernel, or raises. ``flash_attention.launches`` counts
 the kernel's launches and nothing else. bf16 at d 64, 128 and 256 runs
 the TMA/wgmma kernel, whose tensor maps the C entry point encodes from the
 strides passed here at every launch.
+
+The kernel has no backward, as the reference's Pallas kernel has no VJP
+(``jax.grad`` refuses it): a call that autograd would record (grad
+enabled and q, k or v requiring grad) raises on every device, the CPU
+included, rather than return an output whose gradient is silently cut.
+Training attends on the plain path (``models/layers.py``'s dispatch).
 """
 
 from __future__ import annotations
@@ -54,7 +60,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     KV must divide H: query head h attends with key/value head
     h // (H // KV). Query i sits at position i + Skv - Sq for the causal
     (key <= query) and window (key > query - window) masks.
+    Not differentiable: raises when autograd would record the call.
     """
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        raise RuntimeError(
+            "flash_attention has no gradient (the reference's Pallas "
+            "kernel has no VJP either): attend on the plain path "
+            "(set_attention_impl('torch') or None) or call it under "
+            "torch.no_grad()")
     if q.ndim != 4 or k.ndim != 4 or k.shape != v.shape:
         raise ValueError(f"expected q [B,Sq,H,d] and k, v [B,Skv,KV,d] of "
                          f"one shape, got {tuple(q.shape)}, "

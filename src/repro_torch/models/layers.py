@@ -218,7 +218,11 @@ def _sdpa_chunked(q, k, v, *, causal: bool, window: int, q_offset: int,
 # reference's "pallas": the Hopper flash_attention). None picks "kernel"
 # for CUDA tensors and "torch" for CPU tensors, so the card runs the
 # port's kernel by default (a recorded divergence: the reference defaults
-# to "jax").
+# to "jax"), and "torch" for any call autograd records: the kernel has no
+# gradient, as the reference's has none, and the reference trains on
+# "jax". An explicit "kernel" stays "kernel" under autograd, and the
+# kernel then raises, as the reference's "pallas" does under jax.grad.
+# This is a dispatch rule, not a fallback: nothing is caught or retried.
 ATTN_IMPLS = ("torch", "kernel")
 _ATTN_IMPL: str | None = None
 
@@ -231,10 +235,13 @@ def set_attention_impl(impl: str | None) -> None:
     _ATTN_IMPL = impl
 
 
-def attention_impl(device: torch.device) -> str:
-    """The impl in force for tensors on ``device``."""
+def attention_impl(device: torch.device, *operands: torch.Tensor) -> str:
+    """The impl in force for a call on ``operands``, tensors on
+    ``device``."""
     if _ATTN_IMPL is not None:
         return _ATTN_IMPL
+    if torch.is_grad_enabled() and any(t.requires_grad for t in operands):
+        return "torch"
     return "kernel" if device.type == "cuda" else "torch"
 
 
@@ -253,7 +260,7 @@ def sdpa(q, k, v, *, causal: bool = True, window: int = 0, q_offset=0,
     """Dispatch between the direct, chunked and kernel attention cores, on
     the reference's conditions."""
     Sq, Skv = q.shape[1], k.shape[1]
-    if (attention_impl(q.device) == "kernel" and kv_len is None
+    if (attention_impl(q.device, q, k, v) == "kernel" and kv_len is None
             and kpos is None and Sq == Skv and Sq % min(128, Sq) == 0
             and q.shape[-1] == v.shape[-1]):
         return _sdpa_kernel(q, k, v, causal=causal, window=window)

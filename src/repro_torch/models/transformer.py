@@ -16,6 +16,13 @@ state), ``mla`` (DeepSeek's MLA over a latent cache), ``moe`` and
 ``rwkv`` (RWKV6 time-mix and channel-mix, whose cache is the two token
 shifts and the WKV state). An encoder-decoder model's attention layers
 also cross-attend to the encoder's output.
+
+``loss_fn`` is the training loss (float32 log-softmax, the masked mean
+over ``labels >= 0``, plus 0.01 times the MoE aux loss); ``forward`` is
+differentiable, and with ``remat=True`` each layer of a segment of 3 or
+more layers is recomputed in the backward
+(``torch.utils.checkpoint``), where the reference's ``jax.checkpoint``
+wraps its scanned segments' body.
 """
 
 from __future__ import annotations
@@ -26,6 +33,7 @@ from typing import Any
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
@@ -57,6 +65,12 @@ class Segment:
     kind: str
     start: int
     count: int
+
+    @property
+    def scanned(self) -> bool:
+        """Whether the reference scans this segment's layers (and so
+        rematerialises them under ``remat``)."""
+        return self.count >= 3
 
 
 def segments(cfg: ModelConfig) -> list[Segment]:
@@ -308,9 +322,8 @@ def _cross_attend(lp: Params, cfg: ModelConfig, x, positions, enc_out):
     return x + h
 
 
-@torch.no_grad()
 def forward(params: Params, cfg: ModelConfig, batch: dict,
-            cache: Params | None = None):
+            cache: Params | None = None, remat: bool = False):
     """Returns (logits [B,S,V], new_cache, aux_loss).
 
     batch: {"tokens" [B,S]} or {"embeds" [B,S,D]} (the VLM's patch
@@ -323,6 +336,12 @@ def forward(params: Params, cfg: ModelConfig, batch: dict,
     positions, MLA's latent) are written into the cache's tensors in
     place, and the returned cache shares them with the one passed in; a
     recurrent layer's state comes back as new tensors.
+
+    Differentiable: autograd records it when a parameter requires grad
+    (the serve steps call it under ``torch.inference_mode``). With
+    ``remat`` and no cache, each layer of a segment the reference scans
+    (``Segment.scanned``) keeps only its input for the backward and is
+    recomputed there.
     """
     if "tokens" in batch:
         tokens = batch["tokens"]
@@ -344,12 +363,22 @@ def forward(params: Params, cfg: ModelConfig, batch: dict,
     new_cache: Params = {}
     for si, seg in enumerate(segments(cfg)):
         layer_caches = cache[f"seg{si}"] if cache is not None else None
+
+        def one_layer(x, lp, lc, kind=seg.kind):
+            x, nc, aux = _layer_apply(kind, lp, cfg, x, positions, lc)
+            if enc_out is not None and kind in ATTN_KINDS:
+                x = _cross_attend(lp, cfg, x, positions, enc_out)
+            return x, nc, aux
+
+        rematted = remat and cache is None and seg.scanned
         ncs = []
         for i, lp in enumerate(params[f"seg{si}"]):
             lc = layer_caches[i] if layer_caches is not None else None
-            x, nc, aux = _layer_apply(seg.kind, lp, cfg, x, positions, lc)
-            if enc_out is not None and seg.kind in ATTN_KINDS:
-                x = _cross_attend(lp, cfg, x, positions, enc_out)
+            if rematted:
+                x, nc, aux = checkpoint(one_layer, x, lp, lc,
+                                        use_reentrant=False)
+            else:
+                x, nc, aux = one_layer(x, lp, lc)
             aux_total = aux_total + aux
             ncs.append(nc)
         if cache is not None:
@@ -362,6 +391,29 @@ def forward(params: Params, cfg: ModelConfig, batch: dict,
     else:
         logits = L.apply_dense(params["lm_head"], x)
     return logits, (new_cache if cache is not None else None), aux_total
+
+
+def loss_fn(params: Params, cfg: ModelConfig, batch: dict,
+            remat: bool = False):
+    """(loss + 0.01 * aux, {"loss", "aux"}): the next-token cross-entropy
+    in float32, averaged over the positions whose label is >= 0, and the
+    MoE load-balance loss."""
+    logits, _, aux = forward(params, cfg, batch, remat=remat)
+    labels = batch["labels"]
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -logp.gather(-1, labels.clamp(min=0)[..., None].long())[..., 0]
+    mask = (labels >= 0).float()
+    loss = (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return loss + 0.01 * aux, {"loss": loss, "aux": aux}
+
+
+def trainable(params: Params) -> Params:
+    """Mark every floating leaf of ``params`` ``requires_grad_()``, in
+    place; returns ``params``."""
+    for t in _leaves(params):
+        if t.is_floating_point():
+            t.requires_grad_()
+    return params
 
 
 def param_count(cfg: ModelConfig) -> int:

@@ -201,9 +201,9 @@ class _SwitchyCounts:
     """Stands in for a kernel wrapper's count attributes, read and written
     through a property (Python calls) for the same reason."""
 
-    def __init__(self):
+    def __init__(self, *paths):
         self._launches = 0
-        self.launches_by_path = _SwitchyDict(large_n=0, small_n=0, dp4a=0)
+        self.launches_by_path = _SwitchyDict.fromkeys(paths, 0)
 
     @property
     def launches(self):
@@ -218,21 +218,25 @@ class _SwitchyCounts:
                          ids=["gemm_int8", "flash_attention", "linear_scan"])
 def test_launch_counts_stay_exact_under_eight_threads(kernel):
     """Eight threads counting launches at once through ``_build.count``,
-    as each wrapper counts its own (with a path for ``gemm_int8``), the
-    interpreter switching threads every microsecond and able to switch
-    inside each ``+= 1`` (the counts are read and written through Python
-    calls here): no count is lost."""
+    as each wrapper counts its own (with a path for ``gemm_int8``, and the
+    direction, forward or backward, for ``linear_scan``, counted where its
+    one launch site ``_scan`` launches), the interpreter switching threads
+    every microsecond and able to switch inside each ``+= 1`` (the counts
+    are read and written through Python calls here): no count is lost."""
     import inspect
     import sys
     import threading
 
     fn = {gemm_kernel: "gemm_int8", flash_kernel: "flash_attention",
           scan_kernel: "linear_scan"}[kernel]
-    args = ("path",) if kernel is gemm_kernel else ()
+    site = "_scan" if kernel is scan_kernel else fn
+    args = ("path",) if kernel in (gemm_kernel, scan_kernel) else ()
     assert f"_build.count({', '.join((fn, *args))})" in inspect.getsource(
-        getattr(kernel, fn))
-    counts = _SwitchyCounts()
-    args = ("large_n",) if kernel is gemm_kernel else ()
+        getattr(kernel, site))
+    paths = {gemm_kernel: ("large_n", "small_n", "dp4a"),
+             scan_kernel: ("forward", "backward")}.get(kernel, ())
+    counts = _SwitchyCounts(*paths)
+    args = paths[:1]
     n = 3000
     old = sys.getswitchinterval()
     sys.setswitchinterval(1e-6)
@@ -248,6 +252,6 @@ def test_launch_counts_stay_exact_under_eight_threads(kernel):
         sys.setswitchinterval(old)
     assert not any(t.is_alive() for t in threads)
     assert counts.launches == 8 * n
-    if kernel is gemm_kernel:
+    if paths:
         assert dict(counts.launches_by_path) == {
-            "large_n": 8 * n, "small_n": 0, "dp4a": 0}
+            p: 8 * n if p == paths[0] else 0 for p in paths}

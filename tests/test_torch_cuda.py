@@ -3,8 +3,10 @@ same CUDA tensors: ``gemm_int8`` bit for bit, ``flash_attention`` and
 ``linear_scan`` within the reference's tolerances (2e-5 in float32, 3e-2
 in bfloat16, as ``tests/test_kernels.py`` states them; each attention
 output row also within a fraction of its own RMS); the bits=16 engine on
-the card bit for bit against the CPU, and an imported LeNet's golden on
-every route. The CUDA kernels
+the card bit for bit against the CPU, an imported LeNet's golden on
+every route, ``linear_scan``'s gradient against autograd through its
+plain version, and a reduced RecurrentGemma train step against the CPU.
+The CUDA kernels
 have no CPU mode, so these tests are marked ``cuda`` and skip without a
 GPU; on a machine with one (and ``nvcc``) run them with
 
@@ -582,3 +584,82 @@ def test_linear_scan_refuses_what_it_cannot_take(gen):
         linear_scan(a.half(), a.half())
     with pytest.raises(ValueError, match="several devices"):
         linear_scan(a, a.cpu())
+
+
+# ---------------------------------------------------------------------------
+# Training: linear_scan's gradient and a reduced train step on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("B,S,D", [(2, 77, 100), (2, 1, 2560),
+                                   (2, 257, 2560), (2, 1024, 2560)])
+def test_linear_scan_backward_matches_plain_version(gen, B, S, D):
+    """The kernel's gradient (one forward and one backward launch, the
+    backward over reversed time) against autograd through
+    ``linear_scan_ref`` on the card: within 2e-5, and bit for bit since
+    both round each step's product, then its sum."""
+    a = torch.rand((B, S, D), generator=gen, device="cuda") * 0.299 + 0.7
+    b = torch.randn((B, S, D), generator=gen, device="cuda")
+    dh = torch.randn((B, S, D), generator=gen, device="cuda")
+
+    def grads(scan):
+        x, y = a.clone().requires_grad_(), b.clone().requires_grad_()
+        h = scan(x, y)
+        return (h.detach(), *torch.autograd.grad(h, (x, y), dh))
+
+    before = dict(linear_scan.launches_by_path)
+    got = grads(linear_scan)
+    torch.cuda.synchronize()
+    assert {k: linear_scan.launches_by_path[k] - before[k]
+            for k in before} == {"forward": 1, "backward": 1}
+    for g, w in zip(got, grads(linear_scan_ref)):
+        torch.testing.assert_close(g, w, rtol=2e-5, atol=2e-5)
+        assert torch.equal(g, w)
+
+
+def test_reduced_recurrentgemma_train_step_on_the_card_matches_the_cpu(gen):
+    """One ``make_train_step`` of the reduced RecurrentGemma-2B in float32
+    on the card (the RG-LRU's scan forward and backward through the
+    kernel: 3 + 3 launches; attention on the plain path under autograd: 0
+    ``flash_attention``) against the same step on the CPU: loss and grad
+    norm at rtol 1e-5 / 1e-4, params within 1e-5 except at most 0.1% of
+    the elements within 2 lr."""
+    import numpy as np
+    from repro_torch import optim
+    from repro_torch.configs import ARCHS, reduced
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as T
+
+    cfg = reduced(ARCHS["recurrentgemma-2b"])
+    rng = np.random.default_rng(1)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab, (2, 16)))
+             for k in ("tokens", "labels")}
+    n_rec = cfg.layer_kinds().count("rglru")
+    out = {}
+    for device in ("cpu", "cuda"):
+        params = _tree_to(T.init_params(cfg, seed=0, device="cpu",
+                                        dtype=torch.float32), device)
+        opt = optim.adamw_init(params)
+        step = steps.make_train_step(cfg, lr=1e-3, remat=False)
+        before = (dict(linear_scan.launches_by_path),
+                  flash_attention.launches)
+        params, _, m = step(params, opt, _tree_to(batch, device))
+        if device == "cuda":
+            torch.cuda.synchronize()
+            assert {k: linear_scan.launches_by_path[k] - before[0][k]
+                    for k in before[0]} == {"forward": n_rec,
+                                            "backward": n_rec}
+            assert flash_attention.launches == before[1]
+        out[device] = (params, m)
+    (pc, mc), (pk, mk) = out["cpu"], out["cuda"]
+    torch.testing.assert_close(mk["loss"].cpu(), mc["loss"], rtol=1e-5,
+                               atol=0)
+    torch.testing.assert_close(mk["grad_norm"].cpu(), mc["grad_norm"],
+                               rtol=1e-4, atol=0)
+    off = n = 0
+    for a, b in zip(optim.adamw.tree_leaves(pk), optim.adamw.tree_leaves(pc)):
+        d = (a.detach().cpu() - b.detach()).abs()
+        assert float(d.max()) <= 2e-3 + 1e-5
+        off += int((d > 1e-5).sum())
+        n += d.numel()
+    assert off <= 1e-3 * n

@@ -97,3 +97,104 @@ def test_wrapper_validates_before_dispatch():
     # CPU tensors run the plain version and launch nothing.
     torch.testing.assert_close(linear_scan(a, b), ref_t.linear_scan_ref(a, b))
     assert linear_scan.launches == before
+
+
+# ---------------------------------------------------------------------------
+# The gradient: the reversed scan against autograd through the plain version
+# ---------------------------------------------------------------------------
+
+
+def _grads(fn, a, b, dh):
+    a = a.clone().requires_grad_()
+    b = b.clone().requires_grad_()
+    h = fn(a, b)
+    da, db = torch.autograd.grad(h, (a, b), dh)
+    return h.detach(), da, db
+
+
+@pytest.mark.parametrize("B,S,D", [(1, 1, 8), (2, 37, 5), (3, 96, 16),
+                                   (1, 257, 33), (2, 1024, 8)])
+def test_backward_equals_autograd_through_the_plain_version(B, S, D):
+    """``linear_scan``'s gradient (the same scan over reversed time, then
+    da = g * h_prev) equals autograd through ``linear_scan_ref`` exactly:
+    each step rounds the product, then the sum, in both."""
+    a, b = (torch.from_numpy(x) for x in _ab(B * S + D, B, S, D))
+    dh = torch.from_numpy(np.random.default_rng(S).standard_normal(
+        (B, S, D)).astype(np.float32))
+    before = dict(linear_scan.launches_by_path)
+    got = _grads(linear_scan, a, b, dh)
+    want = _grads(ref_t.linear_scan_ref, a, b, dh)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    assert linear_scan.launches_by_path == before    # the CPU launches none
+
+
+def test_backward_with_the_h0_fold():
+    """The RG-LRU's carry folded in as step 0 (``models.recurrent
+    .rglru_scan``'s ``cat``) differentiates through the fold: the grads of
+    a, b and h0 equal autograd through ``linear_scan_ref(a, b, h0)``."""
+    a, b = (torch.from_numpy(x) for x in _ab(11, 2, 40, 16))
+    h0 = torch.from_numpy(np.random.default_rng(12).standard_normal(
+        (2, 16)).astype(np.float32))
+    dh = torch.from_numpy(np.random.default_rng(13).standard_normal(
+        (2, 40, 16)).astype(np.float32))
+    leaves = [t.clone().requires_grad_() for t in (a, b, h0)]
+    af = torch.cat([torch.ones_like(leaves[0][:, :1]), leaves[0]], 1)
+    bf = torch.cat([leaves[2][:, None], leaves[1]], 1)
+    got = torch.autograd.grad(linear_scan(af, bf)[:, 1:], leaves, dh)
+    leaves2 = [t.clone().requires_grad_() for t in (a, b, h0)]
+    want = torch.autograd.grad(ref_t.linear_scan_ref(*leaves2), leaves2, dh)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+def test_backward_returns_the_operands_dtypes():
+    """bf16 a and b: grads in bf16, each the rounding of the float32
+    gradient through the plain version (the forward keeps h in float32
+    for the backward, as autograd through the plain version does)."""
+    a, b = (torch.from_numpy(x) for x in _ab(14, 2, 50, 8))
+    a16, b16 = a.bfloat16(), b.bfloat16()
+    dh = torch.from_numpy(np.random.default_rng(15).standard_normal(
+        (2, 50, 8)).astype(np.float32)).bfloat16()
+    h, da, db = _grads(linear_scan, a16, b16, dh)
+    assert (h.dtype, da.dtype, db.dtype) == (torch.bfloat16,) * 3
+    _, da_w, db_w = _grads(ref_t.linear_scan_ref, a16, b16, dh.float())
+    torch.testing.assert_close(da, da_w.bfloat16(), rtol=0, atol=0)
+    torch.testing.assert_close(db, db_w.bfloat16(), rtol=0, atol=0)
+    # Only the operand that requires grad gets one.
+    bb = b.clone().requires_grad_()
+    (gb,) = torch.autograd.grad(linear_scan(a, bb).sum(), (bb,))
+    assert gb.shape == b.shape
+
+
+def test_rglru_scan_differentiates_through_the_kernel_wrapper():
+    """``models.recurrent.rglru_scan`` (gates, the h0 fold, the scan): the
+    gradients of its parameters and inputs through ``linear_scan`` equal
+    those through the plain version."""
+    from repro_torch.configs import ARCHS, reduced
+    from repro_torch.models import recurrent as R
+
+    cfg = reduced(ARCHS["recurrentgemma-2b"])
+    gen = torch.Generator().manual_seed(0)
+    p = R.rglru_block_init(gen, cfg, torch.float32, "cpu")
+    rec = {k: p[k] for k in ("w_input_gate", "w_rec_gate", "lam")}
+    xr = torch.randn((2, 24, cfg.lru_width), generator=gen)
+    h0 = torch.randn((2, cfg.lru_width), generator=gen)
+
+    def grads(scan):
+        R.linear_scan = scan
+        try:
+            leaves = [rec["w_input_gate"]["w"], rec["w_rec_gate"]["w"],
+                      rec["lam"], xr, h0]
+            for t in leaves:
+                t.requires_grad_()
+            y, h_last = R.rglru_scan(rec, xr, h0)
+            return torch.autograd.grad((y.sum() + h_last.square().sum()),
+                                       leaves)
+        finally:
+            R.linear_scan = linear_scan
+
+    for g, w in zip(grads(linear_scan),
+                    grads(lambda a, b: ref_t.linear_scan_ref(a, b)
+                          .to(b.dtype))):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
