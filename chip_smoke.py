@@ -153,10 +153,34 @@ line:
    nonzero; step 5 replayed from step 4's checkpoint equal to the run's
    step 5 bit for bit; one warm step profiled (device busy by kind, idle
    share against the unprofiled steps' wall) and one timed by parts;
-17. the ``kernels`` line (with a ``flash_attention`` entry for each of
+17. ``int8`` (phase 18 in the code's headings): full-width Yi-6B (seed
+   0, bf16) quantized on the card by ``quantize_params_int8``: every
+   int8 code and float32 scale of layers 0 and 31 and the head, and the
+   bf16 weight ``apply_dense`` multiplies, equal to the same on the CPU
+   bit for bit; the int8 cache-less forward on 2 x 2048 tokens with its
+   32 ``flash_attention`` launches counted, within ``LM_ROUTE_TOL`` of
+   the int8 forward on the plain attention, its distance and top-1
+   agreement from the bf16 forward, its time; bf16 and int8 served in
+   turns (bf16, int8, int8, bf16) through ``make_prefill_step`` and
+   ``make_serve_step`` at batch 4, prompt 512, 32 tokens (time to first
+   token, tokens/s, no launch), each decode step broken down (wall,
+   busy, idle, kernels), the greedy tokens' agreement, the params' bytes
+   and ``memory_allocated``; DeepSeek-V2 cut to 3 layers, int8: the
+   forward beside bf16 with the routing flips counted, and the absorbed
+   decode teacher-forced by phase ``mla_moe``'s rules in bf16 and
+   float32;
+18. ``dryrun`` (phase 19): ``python -m repro_torch.launch.dryrun --all
+   --mesh pod`` in spawned processes that see no card (each cell's
+   status, seconds, bytes per device, FLOPs), every runnable cell ok and
+   the rest skipped; RecurrentGemma-2B's ``abstract_state`` bytes equal
+   to the state phase ``train`` held, the int8 Yi-6B params' bytes equal
+   to phase ``int8``'s, and the meta FLOPs of the 2 x 1024 train step
+   beside phase ``train``'s ``model_flops``;
+19. the ``kernels`` line (with a ``flash_attention`` entry for each of
    Yi-6B, RecurrentGemma-2B, Qwen2-VL-2B and SeamlessM4T-medium, and
    ``linear_scan`` entries for the forward, and for training's forward
-   and backward), the card's ``nvidia-smi`` name and power limit, and
+   and backward; the Yi-6B entry's ``launches_on`` holds the int8
+   forward's), the card's ``nvidia-smi`` name and power limit, and
    last ``{"ok": true, "device": {...}}``.
 """
 
@@ -204,8 +228,12 @@ from repro_torch.kernels.rglru_scan.kernel import linear_scan  # noqa: E402
 from repro_torch.kernels.rglru_scan.ref import linear_scan_ref  # noqa: E402
 from repro_torch.launch import serve as lm_serve  # noqa: E402
 from repro_torch.data.pipeline import DataConfig, make_stream  # noqa
+from repro_torch.launch import dryrun as lm_dryrun  # noqa: E402
 from repro_torch.launch import steps as lm_steps  # noqa: E402
 from repro_torch.launch import train as lm_train  # noqa: E402
+from repro_torch.launch.mesh import production_mesh_shape  # noqa: E402
+from repro_torch.launch.shapes import (SHAPES, ShapeCase,  # noqa: E402
+                                       cell_is_runnable)
 from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models import recurrent as R  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
@@ -1870,11 +1898,13 @@ def phase_flash(env: dict) -> dict:
 
 
 def _to(node, dtype):
+    """The tree's floating leaves cast to ``dtype``; int8 weights and
+    their float32 scales' neighbours keep their codes."""
     if isinstance(node, dict):
         return {k: _to(v, dtype) for k, v in node.items()}
     if isinstance(node, list):
         return [_to(v, dtype) for v in node]
-    return node.to(dtype)
+    return node.to(dtype) if node.is_floating_point() else node
 
 
 def _forward(params, cfg, batch, impl):
@@ -1974,12 +2004,13 @@ def phase_lm_serve(lm: dict) -> None:
     phase_decode_breakdown(cfg, params, cache, tokens[:, :1])
 
 
-def phase_decode_breakdown(cfg, params, cache, tok) -> None:
+def phase_decode_breakdown(cfg, params, cache, tok,
+                           weights: str = "bf16") -> dict:
     """Where a warm decode step's time goes at full width: wall time of
     single synchronised steps, the host's enqueue time of a run of steps,
     and one profiled step's device time by kernel. Every step is given
     the same cache, so each writes the same slot and attends over the
-    same length."""
+    same length. ``weights`` names the params' form in the row."""
     decode = lm_steps.make_serve_step(cfg)
     pos = cache["_pos"]
 
@@ -2003,18 +2034,40 @@ def phase_decode_breakdown(cfg, params, cache, tok) -> None:
     ops = _device_ops(step)
     device_ms = sum(us for _, us, _ in ops) / 1e3
     wall_ms = float(np.median(walls))
-    param_bytes = T.param_count(cfg) * params["embed"].element_size()
+    param_bytes = _tree_bytes(params)
     _, _, _, peak_bytes = card_peaks(torch.cuda.get_device_name(0))
-    emit({"phase": "lm_decode_breakdown", "arch": cfg.name,
-          "batch": tok.shape[0],
-          "cache_len": pos, "wall_ms_median": wall_ms,
-          "wall_ms_min": min(walls), "host_enqueue_ms": enqueue_ms,
-          "device_busy_ms": device_ms,
-          "device_idle_share": max(0.0, 1.0 - device_ms / wall_ms),
-          "weight_read_bound_ms": param_bytes / peak_bytes * 1e3,
-          "kernels": sum(c for _, _, c in ops),
-          "top_device_ops_us_count": [[k[:60], round(us, 1), c]
-                                      for k, us, c in ops[:8]]})
+    row = {"phase": "lm_decode_breakdown", "arch": cfg.name,
+           "weights": weights, "batch": tok.shape[0],
+           "cache_len": pos, "wall_ms_median": wall_ms,
+           "wall_ms_min": min(walls), "host_enqueue_ms": enqueue_ms,
+           "device_busy_ms": device_ms,
+           "device_idle_share": max(0.0, 1.0 - device_ms / wall_ms),
+           "weight_read_bound_ms": param_bytes / peak_bytes * 1e3,
+           "kernels": sum(c for _, _, c in ops),
+           "top_device_ops_us_count": [[k[:60], round(us, 1), c]
+                                       for k, us, c in ops[:8]]}
+    emit(row)
+    return row
+
+
+def _tree_bytes(tree) -> int:
+    """Bytes of a tree's tensors (dicts, lists, named tuples), each
+    storage counted once: what was allocated for them, before the caching
+    allocator's rounding."""
+    seen = {}
+
+    def walk(node):
+        if isinstance(node, dict):
+            node = list(node.values())
+        if isinstance(node, (list, tuple)):
+            for v in node:
+                walk(v)
+        elif isinstance(node, torch.Tensor):
+            st = node.untyped_storage()
+            seen[(st.data_ptr(), str(st.device))] = st.nbytes()
+
+    walk(tree)
+    return sum(seen.values())
 
 
 # ---------------------------------------------------------------------------
@@ -3338,6 +3391,9 @@ def phase_train(env: dict) -> dict:
                   "flash_attention": flash_attention.launches,
                   "gemm_int8": gemm_int8.launches}
         params, opt = res.pop("state")
+        # The bytes of the state the run holds (phase dryrun holds them
+        # against abstract_state's).
+        state_bytes = _tree_bytes((params, opt))
         # The state the run holds equals its checkpoint, leaf for leaf.
         saved = _equal_to_checkpoint((params, opt), ckpt_dir, main_steps)
         stream = make_stream(cfg, DataConfig(global_batch=TRAIN_B,
@@ -3414,7 +3470,7 @@ def phase_train(env: dict) -> dict:
                "checkpoints": sorted(os.listdir(ckpt_dir)),
                "state_equals_checkpoint": saved,
                "disk_free_gb_before": free_gb, "state_gb": state_gb,
-               "card": env["nvidia_smi"]}
+               "state_bytes": state_bytes, "card": env["nvidia_smi"]}
         emit(row)
         if not finite or res["restarts"]:
             raise SmokeFailure(f"full-width training: losses {losses}, "
@@ -3473,6 +3529,372 @@ def phase_train(env: dict) -> dict:
             "profile": prof_row, "launches": per_step}
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: int8 weight-only serving (quantize_params_int8 on the card)
+# ---------------------------------------------------------------------------
+
+
+# Yi-6B served from int8 weights through the port's steps, as
+# examples/serve_batched.py serves, beside bf16 in the same run: batch,
+# prompt, tokens generated (the launcher's SERVE_ARGS).
+INT8_SERVE_B, INT8_SERVE_P, INT8_SERVE_GEN = 4, 512, 32
+
+
+def _tree_cpu(node):
+    if isinstance(node, dict):
+        return {k: _tree_cpu(v) for k, v in node.items()}
+    if isinstance(node, list):
+        return [_tree_cpu(v) for v in node]
+    return node.to("cpu")
+
+
+def _paths(node, path=""):
+    """(path, leaf) pairs of a tree of dicts and lists."""
+    if isinstance(node, dict):
+        for k, v in node.items():
+            yield from _paths(v, f"{path}/{k}")
+    elif isinstance(node, list):
+        for i, v in enumerate(node):
+            yield from _paths(v, f"{path}/{i}")
+    else:
+        yield path, node
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    return t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+
+
+def _int8_exact(params, qparams) -> dict:
+    """Layer 0, the last layer and the head, quantized on the card, against
+    the same bf16 leaves quantized on the CPU: every int8 code and float32
+    scale, and the bf16 weight ``apply_dense`` multiplies, bit for bit."""
+    def pick(tree):
+        return {"seg0": [tree["seg0"][0], tree["seg0"][-1]],
+                "lm_head": tree["lm_head"]}
+
+    want = L.quantize_params_int8(_tree_cpu(pick(params)))
+    got = pick(qparams)
+    leaves_w, leaves_g = dict(_paths(want)), dict(_paths(got))
+    differ = [p for p, w in leaves_w.items()
+              if p not in leaves_g or leaves_g[p].dtype != w.dtype
+              or not torch.equal(_bits(leaves_g[p].cpu()), _bits(w))]
+    dense = [p.rsplit("/", 1)[0] for p in leaves_w if p.endswith("/w_scale")]
+
+    def node(tree, path):
+        for key in path.strip("/").split("/"):
+            tree = tree[int(key)] if isinstance(tree, list) else tree[key]
+        return tree
+
+    dequant_differ = [
+        p for p in dense if not torch.equal(
+            _bits(L.apply_dense_weight(node(got, p), torch.bfloat16).cpu()),
+            _bits(L.apply_dense_weight(node(want, p), torch.bfloat16)))]
+    return {"leaves": len(leaves_w), "leaves_differ": differ,
+            "int8_leaves": sum(t.dtype == torch.int8
+                               for t in leaves_w.values()),
+            "dense_layers": len(dense), "dequantized_differ": dequant_differ}
+
+
+def _serve_steps(cfg, params, seed: int = 1) -> dict:
+    """Prefill and greedy decode through ``make_prefill_step`` and
+    ``make_serve_step`` at INT8_SERVE_B x INT8_SERVE_P, INT8_SERVE_GEN
+    tokens: time to first token (the prefill and its argmax, synchronised),
+    decode tokens/s over the INT8_SERVE_GEN - 1 steps, the launches, the
+    ids, and the cache and last token (one slot to spare, for the decode
+    breakdown's step)."""
+    B, P, n = INT8_SERVE_B, INT8_SERVE_P, INT8_SERVE_GEN
+    prefill = lm_steps.make_prefill_step(cfg)
+    decode = lm_steps.make_serve_step(cfg)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    prompt = torch.randint(0, cfg.vocab, (B, P), generator=g, device="cuda")
+    cache = T.init_cache(cfg, B, P + n + 1, device="cuda")
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    last, cache = prefill(params, cache, {"tokens": prompt})
+    tok = last.float().argmax(-1)[:, None]
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    outs = [tok]
+    for _ in range(n - 1):
+        nxt, cache = decode(params, cache, {"tokens": tok})
+        tok = nxt[:, None]
+        outs.append(tok)
+    ids = torch.cat(outs, 1)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    return {"ttft_ms": (t1 - t0) * 1e3, "decode_s": t2 - t1,
+            "decode_tok_s": (n - 1) * B / (t2 - t1),
+            "end_to_end_tok_s": n * B / (t2 - t0), "launches": launches(),
+            "ids": ids, "cache": cache, "tok": tok}
+
+
+def _int8_deepseek() -> dict:
+    """DeepSeek-V2 cut to MLA_LAYERS layers, int8 (MLA's projections and
+    ``wkv_b``, the router and the routed and shared experts): the int8
+    forward against the bf16 one with the routing flips quantization
+    causes counted, then the absorbed decode teacher-forced against the
+    int8 forward by phase mla_moe's rules, in bf16 and in float32."""
+    cfg = ARCHS[MLA_ARCH].scaled(n_layers=MLA_LAYERS)
+    params, _ = _init(cfg)
+    qparams = L.quantize_params_int8(params)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab, (MLA_B, MLA_S), generator=gen,
+                           device="cuda")
+    with _recorded_routes() as calls:
+        logits_b = T.forward(params, cfg, {"tokens": tokens})[0]
+    routes_b = _topk_sets(calls, MLA_B, [MLA_S], [MLA_S])
+    del params
+    torch.cuda.empty_cache()
+    reset_launches()
+    with _recorded_routes() as calls:
+        logits_q, _, aux = T.forward(qparams, cfg, {"tokens": tokens})
+    torch.cuda.synchronize()
+    counts = launches()
+    routes_q = _topk_sets(calls, MLA_B, [MLA_S], [MLA_S])
+    same_set = (routes_b == routes_q).all(-1)              # [layers, B, S]
+    row = {"phase": "int8_mla_moe_forward", "arch": MLA_ARCH,
+           "reduced": f"n_layers {ARCHS[MLA_ARCH].n_layers} -> {MLA_LAYERS}",
+           "tokens": [MLA_B, MLA_S], "launches": counts,
+           "aux_loss": float(aux), "finite": _finite(logits_q),
+           "int8_vs_bf16": _close_chunked(logits_q, logits_b),
+           "top1_agreement_vs_bf16": _top1_agreement(logits_q, logits_b),
+           "moe_layers": same_set.shape[0],
+           "positions": same_set[0].numel(),
+           "positions_with_a_routing_flip": int((~same_set.all(0)).sum()),
+           "flip_share_by_layer": [float((~s).float().mean())
+                                   for s in same_set]}
+    emit(row)
+    del logits_b, logits_q, calls
+    if any(counts.values()) or not row["finite"]:
+        raise SmokeFailure(f"the int8 DeepSeek-V2 forward launched {counts} "
+                           f"or gave non-finite logits: {row}")
+    cfg_tf = cfg.scaled(moe_capacity_factor=float(math.ceil(
+        cfg.moe_n_experts / cfg.moe_top_k)))
+    _mla_teacher_forced("int8_mla_moe", qparams, cfg_tf, tokens, MLA_TF_TOL)
+    q32 = _to(qparams, torch.float32)
+    del qparams
+    torch.cuda.empty_cache()
+    _mla_teacher_forced("int8_mla_moe_f32", q32, cfg_tf, tokens,
+                        MLA_F32_TF_TOL)
+    del q32
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_int8(env: dict) -> dict:
+    t_phase = time.perf_counter()
+    cfg = ARCHS[LM_ARCH]
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab, (LM_B, LM_S), generator=gen,
+                           device="cuda")
+    batch = {"tokens": tokens}
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    params, init_s = _init(cfg)
+    alloc_bf16 = torch.cuda.memory_allocated() - base
+    t0 = time.perf_counter()
+    qparams = L.quantize_params_int8(params)
+    torch.cuda.synchronize()
+    quant_s = time.perf_counter() - t0
+    # What the int8 tree allocated: its new codes and scales (the
+    # quantization's temporaries are freed by now) and the leaves it
+    # shares with the bf16 tree (the embedding, the norms).
+    alloc_int8 = torch.cuda.memory_allocated() - base - alloc_bf16 + (
+        _tree_bytes(params) + _tree_bytes(qparams)
+        - _tree_bytes((params, qparams)))
+    exact = _int8_exact(params, qparams)
+    emit({"phase": "int8_quantize", "arch": LM_ARCH,
+          "params": T.param_count(cfg), "init_s": init_s,
+          "quantize_s": quant_s, **exact})
+    if exact["leaves_differ"] or exact["dequantized_differ"]:
+        raise SmokeFailure(f"quantize_params_int8 on the card differs from "
+                           f"the CPU: {exact}")
+
+    # The main path: the int8 forward, counts at 0 just before, read just
+    # after; then the same int8 weights on the plain attention, and the
+    # bf16 forward of the weights they came from.
+    reset_launches()
+    logits_q = _forward(qparams, cfg, batch, "kernel")
+    torch.cuda.synchronize()
+    counts = launches()
+    logits_t = _forward(qparams, cfg, batch, "torch")
+    routes = _close_chunked(logits_q, logits_t)
+    del logits_t
+    logits_b = _forward(params, cfg, batch, "kernel")
+    row = {"phase": "int8_forward", "arch": LM_ARCH,
+           "tokens": [LM_B, LM_S], "launches": counts,
+           "expected_flash_attention": cfg.n_layers,
+           "kernel_vs_kernel_free": routes, "route_tol": LM_ROUTE_TOL,
+           "int8_vs_bf16": _close_chunked(logits_q, logits_b),
+           "top1_agreement_vs_bf16": _top1_agreement(logits_q, logits_b),
+           "finite": _finite(logits_q),
+           "logits_max_abs": float(logits_q.abs().max())}
+    emit(row)
+    del logits_q, logits_b
+    if counts != {"gemm_int8": 0, "flash_attention": cfg.n_layers,
+                  "linear_scan": 0} or not row["finite"] \
+            or routes["max_abs_diff"] > LM_ROUTE_TOL:
+        raise SmokeFailure(f"the int8 Yi-6B forward: {row}")
+    _forward_time(env, "int8_forward",
+                  lambda: _forward(qparams, cfg, batch, "kernel"))
+
+    # Served from bf16 and int8 in turns (bf16, int8, int8, bf16), the
+    # same prompt; each decode step's time broken down once.
+    runs = {}
+    for weights in ("bf16", "int8", "int8", "bf16"):
+        r = _serve_steps(cfg, qparams if weights == "int8" else params)
+        runs.setdefault(weights, []).append(r)
+    for weights, rs in runs.items():
+        r = rs[0]
+        emit({"phase": "int8_serve", "arch": LM_ARCH, "weights": weights,
+              "batch": INT8_SERVE_B, "prompt_len": INT8_SERVE_P,
+              "gen": INT8_SERVE_GEN,
+              **{k: [x[k] for x in rs] for k in (
+                  "ttft_ms", "decode_s", "decode_tok_s",
+                  "end_to_end_tok_s")},
+              "launches": [x["launches"] for x in rs],
+              "ids_repeat": torch.equal(rs[0]["ids"], rs[1]["ids"]),
+              "sample_ids": r["ids"][0, :8].tolist()})
+        if any(v for x in rs for v in x["launches"].values()):
+            raise SmokeFailure(f"the {weights} prefill and decode launched "
+                               f"{[x['launches'] for x in rs]} (the plain "
+                               f"attention core: none expected)")
+    ids_b, ids_q = runs["bf16"][0]["ids"], runs["int8"][0]["ids"]
+    breakdown = {w: phase_decode_breakdown(
+        cfg, qparams if w == "int8" else params, runs[w][0]["cache"],
+        runs[w][0]["tok"], w) for w in ("bf16", "int8")}
+    agree = float((ids_b == ids_q).float().mean())
+    first = [int(row.nonzero()[0]) if bool(row.any()) else None
+             for row in (ids_b != ids_q)]
+    del runs, ids_b, ids_q
+    torch.cuda.empty_cache()
+
+    bytes_bf16, bytes_int8 = _tree_bytes(params), _tree_bytes(qparams)
+    del params
+    summary = {"phase": "int8_summary", "arch": LM_ARCH,
+               "greedy_token_agreement_vs_bf16": agree,
+               "first_differing_step_per_sequence": first,
+               "param_bytes": {"bf16": bytes_bf16, "int8": bytes_int8},
+               "memory_allocated": {"bf16": alloc_bf16, "int8": alloc_int8},
+               "decode_step": {w: {k: b[k] for k in (
+                   "wall_ms_median", "device_busy_ms", "device_idle_share",
+                   "host_enqueue_ms", "kernels", "weight_read_bound_ms")}
+                   for w, b in breakdown.items()},
+               "card": env["nvidia_smi"]}
+    emit(summary)
+    del qparams
+    torch.cuda.empty_cache()
+    deepseek = _int8_deepseek()
+    emit({"phase": "int8_done", "phase_s": time.perf_counter() - t_phase})
+    return {"launches": counts["flash_attention"],
+            "param_bytes": summary["param_bytes"], "deepseek": deepseek}
+
+
+# ---------------------------------------------------------------------------
+# Phase 19: the dry run on the meta device, and its numbers against the card
+# ---------------------------------------------------------------------------
+
+
+DRYRUN_JOBS = 8
+
+
+def _meta_bytes(tree) -> int:
+    """Bytes of a tree's tensors from their shapes and dtypes (the meta
+    device has no storage to ask)."""
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(_meta_bytes(v) for v in tree)
+    if isinstance(tree, torch.Tensor):
+        return tree.numel() * tree.element_size()
+    return 0
+
+
+def phase_dryrun(env: dict, train: dict, int8: dict) -> dict:
+    t_phase = time.perf_counter()
+    jobs = min(DRYRUN_JOBS, os.cpu_count() or 1)
+    with tempfile.TemporaryDirectory(prefix="dryrun_") as out:
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
+               "--mesh", "pod", "--jobs", str(jobs), "--out", out]
+        # The sweep runs on the meta device: no process of it sees the card.
+        penv = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+                    CUDA_VISIBLE_DEVICES="")
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=ROOT, env=penv, capture_output=True,
+                              text=True, timeout=900)
+        sweep_s = time.perf_counter() - t0
+        cells = {p.stem: json.loads(p.read_text())
+                 for p in sorted(Path(out).glob("*.json"))}
+    if proc.returncode != 0:
+        raise SmokeFailure(f"the dry run exited {proc.returncode}: "
+                           f"{proc.stdout[-2000:]} {proc.stderr[-2000:]}")
+    want = {f"{arch}_{shape}_pod_pjit":
+            "ok" if cell_is_runnable(cfg, shape)[0] else "skipped"
+            for arch, cfg in ARCHS.items() for shape in SHAPES}
+    got = {tag: c["status"] for tag, c in cells.items()}
+    emit({"phase": "dryrun_cells", "sweep_s": sweep_s, "jobs": jobs,
+          "columns": ["cell", "status", "compile_s",
+                      "argument_bytes_per_device",
+                      "output_bytes_per_device", "flops",
+                      "flops_over_n_devices"],
+          "cells": [[tag, c["status"], c.get("compile_s"),
+                     c.get("memory", {}).get("argument_size_in_bytes"),
+                     c.get("memory", {}).get("output_size_in_bytes"),
+                     c.get("cost", {}).get("flops"),
+                     c.get("cost", {}).get("flops_over_n_devices")]
+                    for tag, c in cells.items()]})
+    if got != want:
+        raise SmokeFailure(f"the dry run's cells {got}, expected {want}")
+
+    # The dry run against the card: the training state phase train held,
+    # the int8 params phase int8 held, and the FLOPs of the training step.
+    rg = ARCHS[TRAIN_ARCH]
+    state_meta = _meta_bytes(lm_steps.abstract_state(rg))
+    yi_meta = T.init_params(ARCHS[LM_ARCH], device="meta")
+    param_meta = {"bf16": _meta_bytes(yi_meta),
+                  "int8": _meta_bytes(L.quantize_params_int8(yi_meta))}
+    case = ShapeCase(f"train_{TRAIN_B}x{TRAIN_S}", TRAIN_S, TRAIN_B, "train")
+    t0 = time.perf_counter()
+    traced = lm_dryrun.trace_cell(rg, case, production_mesh_shape())
+    trace_s = time.perf_counter() - t0
+    flops = traced["cost"]["flops"]
+    model_flops = train["full"]["model_flops"]
+    n_attn = rg.layer_kinds().count("attn_local")
+    # Attention as the meta trace counts it: the plain core's every
+    # (query, key) pair (S <= window: no ring), QK^T and PV, x3 for
+    # forward and backward; the phase's count takes the causal half.
+    attn_dense = 3 * 2 * 2 * TRAIN_B * TRAIN_S * TRAIN_S * rg.n_heads \
+        * rg.head_dim * n_attn
+    attn_model = model_flops - 6 * train["full"]["params"] * TRAIN_B \
+        * TRAIN_S
+    row = {"phase": "dryrun", "cells": len(cells),
+           "ok": sum(s == "ok" for s in got.values()),
+           "skipped": sum(s == "skipped" for s in got.values()),
+           "sweep_s": sweep_s,
+           "rg_state_bytes": {"abstract_state": state_meta,
+                              "card": train["full"]["state_bytes"]},
+           "yi6b_param_bytes": {"dry_run": param_meta,
+                                "card": int8["param_bytes"]},
+           "rg_train_step_flops": {
+               "case": case.name, "dry_run": flops,
+               "model_flops": model_flops,
+               "ratio": flops / model_flops,
+               "attention_dry_run": attn_dense,
+               "attention_model_flops": attn_model,
+               "rest_dry_run": flops - attn_dense,
+               "rest_model_flops_6NT": model_flops - attn_model,
+               "trace_s": trace_s},
+           "phase_s": time.perf_counter() - t_phase}
+    emit(row)
+    if state_meta != train["full"]["state_bytes"] or \
+            param_meta != int8["param_bytes"]:
+        raise SmokeFailure(f"the dry run's bytes differ from the card's: "
+                           f"{row}")
+    return row
+
+
 def main() -> int:
     t_start = time.perf_counter()
     try:
@@ -3510,6 +3932,10 @@ def main() -> int:
                   "phase_s": time.perf_counter() - t0})
             torch.cuda.empty_cache()
         train = phase_train(env)
+        torch.cuda.empty_cache()
+        int8 = phase_int8(env)
+        torch.cuda.empty_cache()
+        phase_dryrun(env, train, int8)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -3571,6 +3997,10 @@ def main() -> int:
         "max_abs_err": flash["max_abs_err"], "ms": flash["ms"],
         "plain_ms": flash["plain_ms"], "bound_ms": flash["bound_ms"],
         "bound_by": flash["bound_by"], "library_ms": flash["library_ms"],
+        "launches_on": {"yi-6b-int8": int8["launches"]},
+        "launches_on_per": {"yi-6b-int8": f"the int8 weight-only forward "
+                                          f"on {LM_B} x {LM_S} tokens, one "
+                                          f"per layer"},
         "path": LM_ARCH,
         "per": f"one launch at the Yi-6B shape (B {LM_B}, S {LM_S}, H 32, "
                f"KV 4, d 128, bf16, causal); one per layer of a forward"}, {

@@ -26,6 +26,9 @@ the sum), so on the CPU the two gradients are equal. The reference's
 Pallas kernel has no VJP (``jax.grad`` refuses it); this gradient is the
 port's own, for the RG-LRU that runs through this kernel.
 
+A tensor on the ``meta`` device (the dry run's, ``launch/dryrun.py``)
+gets an empty result of the right shape and dtype: no launch, no count.
+
 The Pallas kernel's ``chunk``, ``bt`` and ``interpret`` arguments are TPU
 tiling and its interpreter switch; they have no meaning here and are left
 out. Its ``S % chunk == 0`` assertion is a Pallas tiling limit, not part
@@ -114,8 +117,9 @@ def _check(a: torch.Tensor, b: torch.Tensor) -> None:
     if a.device != b.device:
         raise ValueError(f"operands on several devices: {a.device}, "
                          f"{b.device}")
-    if a.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"linear_scan runs on cuda or cpu, not {a.device}")
+    if a.device.type not in ("cpu", "cuda", "meta"):
+        raise ValueError(f"linear_scan runs on cuda or cpu (or meta, for "
+                         f"shapes), not {a.device}")
     if a.device.type == "cuda" and not (a.is_contiguous()
                                         and b.is_contiguous()):
         raise ValueError("linear_scan: the kernel reads [B,S,D] row-major; "
@@ -123,11 +127,13 @@ def _check(a: torch.Tensor, b: torch.Tensor) -> None:
 
 
 def _scan(a: torch.Tensor, b: torch.Tensor, path: str) -> torch.Tensor:
-    """One checked scan: the plain version on the CPU, else one launch,
-    counted under ``path``."""
+    """One checked scan: the plain version on the CPU, the shape alone on
+    ``meta``, else one launch, counted under ``path``."""
     device = a.device
     if device.type == "cpu":
         return linear_scan_ref(a, b).to(b.dtype)
+    if device.type == "meta":
+        return torch.empty_like(b)
     B, S, D = a.shape
     out = torch.empty((B, S, D), dtype=b.dtype, device=device)
     if out.numel() == 0:

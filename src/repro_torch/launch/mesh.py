@@ -1,14 +1,26 @@
-"""Device lists for the serving plane. PyTorch twin of
-``repro/launch/mesh.py::device_slices``.
+"""Device lists for the serving plane, the PyTorch twin of
+``repro/launch/mesh.py::device_slices``, and the production mesh's shape.
 
 The reference's mesh builders (``make_production_mesh``,
-``make_debug_mesh``) build ``jax.sharding`` meshes for the LM substrate and
-have no counterpart here. Importing this module touches no device.
+``make_debug_mesh``) build ``jax.sharding`` meshes over devices. Here
+``production_mesh_shape`` gives only the production mesh's axes and sizes,
+which the sharding rules (``runtime/sharding.py``) and the dry run read;
+a mesh of devices and process groups comes with the mesh runtime (ROADMAP
+A3). Importing this module touches no device.
 """
 
 from __future__ import annotations
 
 import torch
+
+
+def production_mesh_shape(multi_pod: bool = False) -> dict[str, int]:
+    """The shape of the reference's ``make_production_mesh``, axes in
+    order: one pod is (16, 16) chips over (data, model); two pods are
+    (2, 16, 16) over (pod, data, model)."""
+    if multi_pod:
+        return {"pod": 2, "data": 16, "model": 16}
+    return {"data": 16, "model": 16}
 
 
 def cuda_devices() -> list[torch.device]:

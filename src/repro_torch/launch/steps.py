@@ -8,9 +8,9 @@ train step is ``value_and_grad`` then ``apply_grads``. ``value_and_grad``
 marks the params' floating leaves ``requires_grad`` for its own call and
 puts their flags back before it returns, so a forward after a step builds
 no graph and dispatches attention as a served forward does.
-
-The reference's ``abstract_state`` (shapes without allocation, for its
-XLA dry run) comes with the dry run (ROADMAP A2).
+``abstract_state`` builds the params and the optimizer state on the
+``meta`` device (shapes and dtypes, nothing allocated), the counterpart
+of the reference's ``jax.eval_shape``, for the dry run.
 """
 
 from __future__ import annotations
@@ -96,3 +96,11 @@ def make_serve_step(cfg: ModelConfig):
         return next_tok, cache
 
     return serve_step
+
+
+def abstract_state(cfg: ModelConfig, device="meta"):
+    """(params, opt_state) of ``cfg`` at full size on ``device`` (by
+    default ``meta``: shapes only, nothing allocated): ``init_params``
+    then ``adamw_init`` in the config's moment dtype."""
+    params = T.init_params(cfg, device=device)
+    return params, optim.adamw_init(params, cfg.opt_moment_dtype)

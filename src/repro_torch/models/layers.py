@@ -8,10 +8,15 @@ Plain functions over parameter dicts, as in the reference, so the two
 parameter trees compare leaf for leaf. Mixed dtypes promote as in JAX:
 bf16 x f32 tensors compute in f32, Python scalars take the tensor's dtype.
 
-Not ported: the int8 weight-only branch of ``apply_dense`` (reached only
-through ``quantize_params_int8``, whose caller is the XLA dry run), and
-the MoE's sharded dispatch (``_moe_sharded``, ``_moe_expert_parallel``),
-which needs a device mesh with a ``model`` axis (ROADMAP A).
+The int8 weight-only form (``quantize_params_int8``): every dense weight
+and MoE expert stack as int8 codes with a float32 scale per output
+channel, dequantized in the activations' dtype just before its product,
+as in the reference: a plain torch product, not a kernel (the reference's
+dequantize and matmul are XLA's, outside any Pallas kernel).
+
+Not ported: the MoE's sharded dispatch (``_moe_sharded``,
+``_moe_expert_parallel``), which needs a device mesh with a ``model``
+axis (ROADMAP A3).
 """
 
 from __future__ import annotations
@@ -50,20 +55,69 @@ def dense(gen, d_in: int, d_out: int, dtype, device,
     return p
 
 
-def apply_dense_weight(p: Params) -> torch.Tensor:
-    """A dense layer's weight, refusing the int8 weight-only form."""
-    if p["w"].dtype == torch.int8:
-        raise NotImplementedError(
-            "int8 weight-only dense layers are not ported yet (they come "
-            "with quantize_params_int8, ROADMAP A)")
-    return p["w"]
+def apply_dense_weight(p: Params, dtype: torch.dtype) -> torch.Tensor:
+    """The weight a dense layer multiplies in compute dtype ``dtype``: an
+    int8 weight dequantized in that dtype, ``w.to(dtype) *
+    w_scale.to(dtype)`` (the scale rounded to ``dtype`` first, as the
+    reference rounds it), else ``w`` as it is."""
+    w = p["w"]
+    if w.dtype == torch.int8:
+        return w.to(dtype) * p["w_scale"].to(dtype)
+    return w
 
 
 def apply_dense(p: Params, x: torch.Tensor) -> torch.Tensor:
-    y = x @ apply_dense_weight(p)
+    y = x @ apply_dense_weight(p, x.dtype)
     if "b" in p:
         y = y + p["b"]
     return y
+
+
+def quantize_params_int8(params: Params) -> Params:
+    """Per-output-channel symmetric int8 for every dense weight and MoE
+    expert stack, the reference's rule: s = max(|w|, axis -2) (at least
+    1e-8) / 127 and q = clip(round(w / s), -127, 127), computed in
+    float32 (``torch.round`` rounds half to even, as ``jnp.round``).
+
+    A dict whose ``"w"`` has 2 or 3 dims gets ``{"w": q, "w_scale": s}``;
+    a MoE stack ``wi``/``wg``/``wo`` of 3 or 4 dims gets ``<name>_scale``
+    beside it. The embedding keeps its dtype; the float32 router is
+    quantized too, as in the reference. Lists (a segment's layers) are
+    walked, so a per-layer tree gives the leaves of the reference's
+    stacked one: the max runs over axis -2 either way. Returns a new tree
+    sharing the leaves it does not quantize."""
+    def q2d(w):
+        w = w.float()
+        # 127 as a tensor on w's device, not a Python number: CUDA divides
+        # by a CPU scalar as a product with its reciprocal, which moves
+        # some scales by an ulp from the reference's division.
+        s = torch.clamp(w.abs().amax(dim=-2, keepdim=True), min=1e-8) \
+            / w.new_full((), 127.0)
+        q = torch.clamp(torch.round(w / s), -127, 127).to(torch.int8)
+        return q, s.squeeze(-2)
+
+    def is_weight(v, ndims):
+        return isinstance(v, torch.Tensor) and v.ndim in ndims \
+            and v.dtype != torch.int8
+
+    def visit(node):
+        if isinstance(node, list):
+            return [visit(v) for v in node]
+        if not isinstance(node, dict):
+            return node
+        if is_weight(node.get("w"), (2, 3)):
+            q, s = q2d(node["w"])
+            return {**node, "w": q, "w_scale": s}
+        out = {}
+        for k, v in node.items():
+            if k in ("wi", "wg", "wo") and is_weight(v, (3, 4)):
+                out[k], out[k + "_scale"] = q2d(v)
+            else:
+                out[k] = visit(v)
+        return out
+
+    with torch.no_grad():
+        return visit(params)
 
 
 # ---------------------------------------------------------------------------
@@ -443,7 +497,8 @@ def mla_apply(p: Params, cfg, x, positions, *, cache: Params | None = None):
     k_rope = apply_rope(k_rope[:, :, None, :], positions,
                         cfg.rope_theta)[:, :, 0, :]
 
-    wkv_b = apply_dense_weight(p["wkv_b"]).reshape(kvr, H, nope + vh)
+    wkv_b = apply_dense_weight(p["wkv_b"], x.dtype)
+    wkv_b = wkv_b.reshape(kvr, H, nope + vh)
     w_uk, w_uv = wkv_b[..., :nope], wkv_b[..., nope:]
     scale = 1.0 / math.sqrt(nope + rope)
 
@@ -534,7 +589,7 @@ def moe_init(gen, cfg, dtype, device) -> Params:
 def moe_apply(p: Params, cfg, x):
     """Top-k MoE: the sort-based dispatch on one device. Returns
     (y [B,S,D], aux loss). The reference's expert-parallel dispatch over a
-    mesh's ``model`` axis has no counterpart on one card (ROADMAP A)."""
+    mesh's ``model`` axis has no counterpart on one card (ROADMAP A3)."""
     return _moe_local(p, cfg, x)
 
 
@@ -543,6 +598,16 @@ def _expert_w(p: Params, name: str, dtype):
     if w.dtype == torch.int8:
         return w.to(dtype) * p[name + "_scale"][:, None, :].to(dtype)
     return w
+
+
+def _expert_counts(ids: torch.Tensor, E: int) -> torch.Tensor:
+    """How many of ``ids`` name each of the E experts: the reference's
+    ``segment_sum(ones, ids, num_segments=E)``. An integer scatter-add
+    into E slots, exact in any order; unlike ``torch.bincount`` its output
+    shape does not depend on the values, so it also runs on the ``meta``
+    device and reads nothing back from the card."""
+    return torch.zeros(E, dtype=ids.dtype, device=ids.device).index_add_(
+        0, ids, torch.ones_like(ids))
 
 
 def moe_route(p: Params, cfg, xt: torch.Tensor) -> dict:
@@ -565,7 +630,7 @@ def moe_route(p: Params, cfg, xt: torch.Tensor) -> dict:
     topv = topv / torch.clamp(topv.sum(-1, keepdim=True), min=1e-9)
     flat_e = topi.reshape(-1)
     order = torch.argsort(flat_e, stable=True)
-    counts = torch.bincount(flat_e, minlength=E)
+    counts = _expert_counts(flat_e, E)
     offsets = torch.cumsum(counts, 0) - counts
     c = torch.arange(C, device=xt.device)
     slot = offsets[:, None] + c[None, :]
@@ -618,7 +683,7 @@ def _moe_local(p: Params, cfg, x):
     y = yt.reshape(B, S, D)
     if "shared" in p:
         y = y + mlp_apply(p["shared"], x, "swiglu")
-    density = torch.bincount(r["topi"].reshape(-1), minlength=E).float() / T
+    density = _expert_counts(r["topi"].reshape(-1), E).float() / T
     router_prob = r["gates"].mean(0)
     aux = E * torch.sum(density * router_prob)
     return y, aux.float()

@@ -13,7 +13,8 @@ against a tree). A recorded divergence (ROADMAP, "Ground rules").
 RWKV6's WKV recurrence keeps a [hd, hd] state per head, not an
 elementwise one, and the reference runs it as a sequential ``lax.scan``
 with no TPU kernel. The port runs the same sequential loop in float32,
-one step per token, and adds no kernel (ROADMAP A).
+one step per token, and adds no kernel (ROADMAP A5); on the ``meta``
+device it takes the loop's shapes and products without the loop.
 """
 
 from __future__ import annotations
@@ -211,8 +212,20 @@ def rwkv6_wkv_scan(p, r, k, v, w, state0):
 
     S_t = diag(w_t) S_{t-1} + k_t^T v_t ;  o_t = r_t (S_{t-1} + u k_t^T v_t)
 
-    Returns (o [B,S,nh,hd] float32, the last state)."""
+    Returns (o [B,S,nh,hd] float32, the last state).
+
+    On the ``meta`` device (the dry run) only shapes exist, and a loop of
+    S steps would cost the host about a millisecond a step and layer for
+    nothing: the loop's products are taken over every step at once
+    instead, the same ``einsum``s with time folded into the batch, so
+    ``FlopCounterMode`` counts what the loop's would (2 B S nh hd^2 for
+    the readout; the outer product k^T v and the state update are
+    elementwise and count nothing, in the loop as here)."""
     rs, ks, vs, ws = (t.float() for t in (r, k, v, w))
+    if rs.device.type == "meta":
+        kv = torch.einsum("bshk,bshv->bshkv", ks, vs)
+        return (torch.einsum("bshk,bshkv->bshv", rs, kv),
+                torch.empty_like(state0))
     u = p["u"][None, :, :, None]
     state = state0
     outs = []

@@ -1,0 +1,236 @@
+"""Sharding rules of the pjit (TP + DP [+ pod]) path, the port of
+``repro/runtime/sharding.py``'s rules as pure functions over a mesh's
+shape: an ordered dict of axis sizes (``launch/mesh.py::
+production_mesh_shape``).
+
+Rules are keyed by parameter path suffix; they compose Megatron-style
+tensor parallelism over the ``model`` axis with FSDP-style parameter
+sharding over ``data`` for the very large archs, ZeRO-1 optimizer-state
+sharding, and pod data parallelism.
+
+Each function maps a tree (dicts, lists and the optimizer's named tuple)
+of tensors, or of anything with ``shape`` and ``dtype``, to a tree of the
+same structure whose leaves are specs: a tuple with one entry per dim,
+each ``None`` (replicated), an axis name, or a tuple of axis names (the
+dim split over their product), the entries of the reference's
+``PartitionSpec``. ``shard_bytes`` gives the bytes one device holds of a
+leaf under its spec. Placing tensors on a mesh of devices
+(``torch.distributed``, DTensor) is the mesh runtime's work (ROADMAP A3);
+the dry run (``launch/dryrun.py``) reads these rules to count the bytes
+each device holds.
+
+The port keeps each segment as a list of per-layer dicts where the
+reference stacks them on a leading axis. Parameter rules describe the
+trailing dims, so a per-layer leaf gets the stacked leaf's spec without
+its leading ``None``; a path joins dict keys only, as the reference's
+does. The cache rule names the batch and sequence dims by position, 1
+and 2 of the reference's stacked [L, B, S, ...] leaves: here 0 and 1 of a
+per-layer leaf. Host ints (the port's cache ``idx`` and ``_pos``) hold no
+device bytes and are replicated.
+"""
+
+from __future__ import annotations
+
+import math
+import re
+from typing import Any, Callable
+
+from repro_torch.configs.base import ModelConfig
+
+Spec = tuple
+
+# (regex over the "/"-joined path, spec of the trailing dims). Leading
+# layer-stack dims are handled generically: specs below describe the
+# *trailing* dims and are left-padded with None.
+_RULES: list[tuple[str, tuple]] = [
+    (r"embed$", ("model", "fsdp")),             # [V, D] vocab-parallel
+    (r"lm_head/w$", ("fsdp", "model")),         # [D, V]
+    (r"(wq|wk|wv|wi|wg)/w$", ("fsdp", "model")),
+    (r"(wo|cm_wv)/w$", ("model", "fsdp")),
+    (r"(wq_b|wkv_b|cm_wk)/w$", ("fsdp", "model")),
+    (r"(wq_a|wkv_a)/w$", ("fsdp", None)),
+    (r"router/w$", (None, None)),
+    (r"mlp/(wi|wg)$", ("model", "fsdp", None)),     # MoE expert stacks [E,D,F]
+    (r"mlp/wo$", ("model", None, "fsdp")),          # [E,F,D]
+    (r"(w_input_gate|w_rec_gate)/w$", ("fsdp", "model")),
+    (r"(wx|wy)/w$", ("fsdp", "model")),
+    (r"(ddl_w1|dec_w1)$", ("fsdp", None)),
+    (r"(ddl_w2)$", (None, None, "fsdp")),
+    (r"(dec_w2)$", (None, "fsdp")),
+    (r"shared/(wi|wg)/w$", ("fsdp", "model")),
+    (r"shared/wo/w$", ("model", "fsdp")),
+]
+
+
+def _spec_for(path: str, ndim: int, fsdp: bool) -> Spec:
+    for pat, dims in _RULES:
+        if re.search(pat, path):
+            trail = [("data" if d == "fsdp" and fsdp else
+                      (None if d == "fsdp" else d)) for d in dims]
+            pad = [None] * (ndim - len(trail))
+            return tuple(pad + trail)
+    return ()  # replicated (norms, biases, small vectors)
+
+
+# ---------------------------------------------------------------------------
+# Trees
+# ---------------------------------------------------------------------------
+
+
+def _shape(leaf) -> tuple:
+    """A leaf's shape; a host int (the cache's ``idx``) is a scalar."""
+    return tuple(leaf.shape) if hasattr(leaf, "shape") else ()
+
+
+def map_with_path(fn: Callable[[str, Any], Any], tree, path: str = ""):
+    """``fn(path, leaf)`` over the leaves of ``tree`` (dicts, lists, named
+    tuples; ``None`` stays ``None``). The path joins dict keys and named
+    tuple fields with "/"; list indices (a segment's layers) are left
+    out, so a per-layer leaf has its stacked counterpart's path."""
+    if isinstance(tree, dict):
+        return {k: map_with_path(fn, v, f"{path}/{k}" if path else str(k))
+                for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [map_with_path(fn, v, path) for v in tree]
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(map_with_path(
+            fn, getattr(tree, f), f"{path}/{f}" if path else f)
+            for f in tree._fields))
+    if tree is None:
+        return None
+    return fn(path, tree)
+
+
+def _split(entry) -> tuple:
+    """The mesh axes a spec entry names."""
+    if entry is None:
+        return ()
+    return entry if isinstance(entry, tuple) else (entry,)
+
+
+def _divides(dim: int, entry, mesh_shape: dict) -> bool:
+    n = math.prod(mesh_shape[a] for a in _split(entry))
+    return dim % n == 0 and dim >= n
+
+
+def shard_shape(shape: tuple, spec: Spec, mesh_shape: dict) -> tuple:
+    """The shape of one device's shard of ``shape`` under ``spec``."""
+    out = []
+    for i, dim in enumerate(shape):
+        n = math.prod(mesh_shape[a] for a in _split(
+            spec[i] if i < len(spec) else None))
+        if dim % n:
+            raise ValueError(f"dim {i} of {shape} does not split over "
+                             f"{spec[i]} ({n} devices)")
+        out.append(dim // n)
+    return tuple(out)
+
+
+def shard_bytes(t, spec: Spec, mesh_shape: dict) -> int:
+    """Bytes one device holds of ``t`` under ``spec``; 0 for a host int."""
+    if not hasattr(t, "shape"):
+        return 0
+    return math.prod(shard_shape(tuple(t.shape), spec, mesh_shape)) * \
+        t.dtype.itemsize
+
+
+def tree_shard_bytes(tree, specs, mesh_shape: dict) -> int:
+    """``shard_bytes`` summed over the leaves of ``tree`` and their specs
+    (a tree of ``tree``'s structure)."""
+    total = 0
+
+    def add(node, spec):
+        nonlocal total
+        if isinstance(node, dict):
+            for k, v in node.items():
+                add(v, spec[k])
+        elif isinstance(node, (list, tuple)):
+            for v, s in zip(node, spec):
+                add(v, s)
+        elif node is not None:
+            total += shard_bytes(node, spec, mesh_shape)
+
+    add(tree, specs)
+    return total
+
+
+# ---------------------------------------------------------------------------
+# Rules
+# ---------------------------------------------------------------------------
+
+
+def param_specs(cfg: ModelConfig, mesh_shape: dict, params: Any,
+                fsdp: bool | None = None) -> Any:
+    """A spec per leaf of a params tree. fsdp defaults to on for models
+    too big for TP-only sharding (over 16e9 parameters)."""
+    if fsdp is None:
+        from repro_torch.models.transformer import param_count
+        # >16B params: shard over the data axis as well (memory roof).
+        fsdp = param_count(cfg) > 16e9
+
+    def one(path, leaf):
+        shape = _shape(leaf)
+        spec = _spec_for(path, len(shape), fsdp)
+        spec = spec + (None,) * (len(shape) - len(spec))
+        # Drop axes that do not divide the mesh axis size.
+        return tuple(ax if ax is not None and _divides(dim, ax, mesh_shape)
+                     else None for dim, ax in zip(shape, spec))
+
+    return map_with_path(one, params)
+
+
+def _batch_axes(mesh_shape: dict, names=("pod", "data")) -> tuple:
+    return tuple(a for a in names if a in mesh_shape)
+
+
+def batch_specs(mesh_shape: dict, batch: Any, seq_shard: bool = False) -> Any:
+    """Batch dims over (pod, data); optionally shard seq instead when the
+    per-shape batch is too small (32k prefill with batch < data axis)."""
+    axes = _batch_axes(mesh_shape)
+
+    def one(path, leaf):
+        shape = _shape(leaf)
+        spec = [None] * len(shape)
+        if not shape:
+            return ()
+        if _divides(shape[0], axes, mesh_shape):
+            spec[0] = axes
+        elif seq_shard and len(shape) >= 2 and \
+                shape[1] % math.prod(mesh_shape[a] for a in axes) == 0:
+            spec[1] = axes
+        return tuple(spec)
+
+    return map_with_path(one, batch)
+
+
+def cache_specs(mesh_shape: dict, cache: Any) -> Any:
+    """KV caches: the batch dim (0 of a per-layer leaf) over (pod, data)
+    where divisible, and the sequence / head dim (1) over ``model``, so a
+    32k cache fits per-device memory. Integer leaves (a ring's
+    ``slot_pos``) and host ints are replicated."""
+    axes = _batch_axes(mesh_shape)
+
+    def one(path, leaf):
+        shape = _shape(leaf)
+        if not hasattr(leaf, "shape") or not leaf.dtype.is_floating_point:
+            return (None,) * len(shape)   # idx / slot_pos bookkeeping
+        spec = [None] * len(shape)
+        if len(shape) >= 1 and _divides(shape[0], axes, mesh_shape):
+            spec[0] = axes
+        if len(shape) >= 2 and _divides(shape[1], "model", mesh_shape):
+            spec[1] = "model"
+        return tuple(spec)
+
+    return map_with_path(one, cache)
+
+
+def opt_state_specs(param_sp: Any) -> Any:
+    """ZeRO-1 as the reference's rules module states it: moments inherit
+    parameter specs (they are further split over 'data' where fsdp
+    already shards params there). The dry run's own rule, which also
+    splits a replicated dim, is ``launch/dryrun.py::opt_specs``."""
+    if isinstance(param_sp, dict):
+        return {k: opt_state_specs(v) for k, v in param_sp.items()}
+    if isinstance(param_sp, list):
+        return [opt_state_specs(v) for v in param_sp]
+    return param_sp

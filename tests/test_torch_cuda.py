@@ -663,3 +663,80 @@ def test_reduced_recurrentgemma_train_step_on_the_card_matches_the_cpu(gen):
         off += int((d > 1e-5).sum())
         n += d.numel()
     assert off <= 1e-3 * n
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_quantize_and_dequantize_on_the_card_equal_the_cpu(gen, dtype):
+    """``quantize_params_int8`` of a reduced DeepSeek-V2 tree (dense
+    layers, MLA's ``wkv_b``, the float32 router, the expert stacks) on the
+    card equals the same on the CPU, every code and scale bit for bit, and
+    so does each dense layer's dequantized weight; ``apply_dense`` on int8
+    weights (the dequantize, then cuBLAS) within 1e-4 in float32 and the
+    reference's bf16 3e-2 of the CPU's."""
+    from repro_torch.configs import ARCHS, reduced
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+
+    cfg = reduced(ARCHS["deepseek-v2-236b"])
+    params = T.init_params(cfg, seed=0, device="cpu", dtype=dtype)
+    want = L.quantize_params_int8(params)
+    got = L.quantize_params_int8(_tree_to(params, "cuda"))
+    bits = (lambda t: t.view(torch.int16) if t.dtype == torch.bfloat16
+            else t)
+    leaves_w, leaves_g = list(T._leaves(want)), list(T._leaves(got))
+    assert len(leaves_w) == len(leaves_g)
+    for w, g in zip(leaves_w, leaves_g):
+        assert g.dtype == w.dtype and torch.equal(bits(g.cpu()), bits(w))
+    x = torch.randn((2, 8, cfg.d_model), generator=gen, device="cuda").to(
+        dtype)
+    layer_w, layer_g = want["seg1"][0], got["seg1"][0]
+    for name in ("wq_a", "wkv_a", "wkv_b", "wo"):
+        pw, pg = layer_w["attn"][name], layer_g["attn"][name]
+        assert pg["w"].dtype == torch.int8
+        assert torch.equal(bits(L.apply_dense_weight(pg, dtype).cpu()),
+                           bits(L.apply_dense_weight(pw, dtype)))
+    for pw, pg in ((layer_w["mlp"]["router"], layer_g["mlp"]["router"]),
+                   (layer_w["attn"]["wq_a"], layer_g["attn"]["wq_a"])):
+        xin = x.float() if pw is layer_w["mlp"]["router"] else x
+        tol = 1e-4 if xin.dtype == torch.float32 else 3e-2
+        torch.testing.assert_close(L.apply_dense(pg, xin).cpu(),
+                                   L.apply_dense(pw, xin.cpu()),
+                                   rtol=tol, atol=tol)
+
+
+def test_int8_forward_on_the_card_matches_the_cpu(gen):
+    """A reduced Yi-6B in float32 with int8 weights: the card's forward
+    (one ``flash_attention`` launch a layer) against the CPU's (the plain
+    attention), rtol/atol 1e-4 as the family forwards above."""
+    from repro_torch.configs import ARCHS, reduced
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+
+    cfg = reduced(ARCHS["yi-6b"])
+    params = L.quantize_params_int8(T.init_params(
+        cfg, seed=0, device="cpu", dtype=torch.float32))
+    tokens = torch.randint(0, cfg.vocab, (2, 128), generator=gen,
+                           device="cuda")
+    want = T.forward(params, cfg, {"tokens": tokens.cpu()})[0]
+    before = flash_attention.launches
+    got = T.forward(_tree_to(params, "cuda"), cfg, {"tokens": tokens})[0]
+    torch.cuda.synchronize()
+    assert flash_attention.launches - before == cfg.n_layers
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+
+
+def test_linear_scan_launches_on_the_card_and_not_on_meta(gen):
+    """The dry run's meta branch is reached by meta operands only: a CUDA
+    operand launches the kernel (one count), a meta operand of the same
+    shape gets an empty result and counts nothing."""
+    a = torch.rand((2, 300, 64), generator=gen, device="cuda")
+    b = torch.randn((2, 300, 64), generator=gen, device="cuda")
+    before = linear_scan.launches
+    h = linear_scan(a, b)
+    torch.cuda.synchronize()
+    assert linear_scan.launches == before + 1
+    torch.testing.assert_close(h, linear_scan_ref(a, b), rtol=2e-5,
+                               atol=2e-5)
+    m = linear_scan(a.to("meta"), b.to("meta"))
+    assert m.device.type == "meta" and m.shape == h.shape
+    assert linear_scan.launches == before + 1

@@ -92,8 +92,12 @@ def test_wrapper_validates_before_dispatch():
         linear_scan(a.double(), b.double())
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         linear_scan(a, b.half())
-    with pytest.raises(ValueError, match="cuda or cpu"):
-        linear_scan(a.to("meta"), b.to("meta"))
+    with pytest.raises(ValueError, match="several devices"):
+        linear_scan(a, b.to("meta"))
+    # Meta tensors (the dry run's) get their shape alone, no launch.
+    m = linear_scan(a.to("meta"), b.to("meta"))
+    assert m.device.type == "meta" and (m.shape, m.dtype) == (a.shape,
+                                                                b.dtype)
     # CPU tensors run the plain version and launch nothing.
     torch.testing.assert_close(linear_scan(a, b), ref_t.linear_scan_ref(a, b))
     assert linear_scan.launches == before
