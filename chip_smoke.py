@@ -169,18 +169,33 @@ line:
    forward beside bf16 with the routing flips counted, and the absorbed
    decode teacher-forced by phase ``mla_moe``'s rules in bf16 and
    float32;
-18. ``dryrun`` (phase 19): ``python -m repro_torch.launch.dryrun --all
+18. ``mesh``: the mesh runtime on the card. (a) Full-width Yi-6B placed
+   by ``param_shardings`` on a one-rank NCCL mesh (1, 1): its forward on
+   2 x 2048 tokens under DTensor with 32 ``flash_attention`` launches
+   (through the wrapper's DTensor rule), logits equal to the unplaced
+   forward's (within ``LM_ROUTE_TOL`` at most), wall and idle share of
+   both; (b) one full-width DeepSeek-V2 MoE layer (160 experts, top-6, 2
+   shared, capacity factor 8) on 2 x 1024 tokens through ``moe_apply``
+   under a (1, 2) mesh of two gloo processes, both on cuda:0 (80 experts
+   each), in float32 and bf16: routing identical to ``_moe_local``'s, the
+   float32 output within the CPU tests' bound of it, the all-reduce count
+   (``CommDebugMode``), the layer's and the all-reduce's wall ms; a
+   failed child fails the run;
+19. ``dryrun`` (phase 19): ``python -m repro_torch.launch.dryrun --all
    --mesh pod`` in spawned processes that see no card (each cell's
-   status, seconds, bytes per device, FLOPs), every runnable cell ok and
-   the rest skipped; RecurrentGemma-2B's ``abstract_state`` bytes equal
+   status, seconds, bytes per device, FLOPs, and the collectives of the
+   step traced placed in a fake process group, counted by kind), every
+   runnable cell ok with collectives and the rest skipped;
+   RecurrentGemma-2B's ``abstract_state`` bytes equal
    to the state phase ``train`` held, the int8 Yi-6B params' bytes equal
    to phase ``int8``'s, and the meta FLOPs of the 2 x 1024 train step
    beside phase ``train``'s ``model_flops``;
-19. the ``kernels`` line (with a ``flash_attention`` entry for each of
+20. the ``kernels`` line (with a ``flash_attention`` entry for each of
    Yi-6B, RecurrentGemma-2B, Qwen2-VL-2B and SeamlessM4T-medium, and
    ``linear_scan`` entries for the forward, and for training's forward
    and backward; the Yi-6B entry's ``launches_on`` holds the int8
-   forward's), the card's ``nvidia-smi`` name and power limit, and
+   forward's and the placed forward's), the card's ``nvidia-smi`` name
+   and power limit, and
    last ``{"ok": true, "device": {...}}``.
 """
 
@@ -206,6 +221,9 @@ sys.path.insert(0, str(ROOT / "src"))
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
+import torch.distributed as dist  # noqa: E402
+import torch.multiprocessing as mp  # noqa: E402
+from torch.distributed.tensor.debug import CommDebugMode  # noqa: E402
 
 from repro_torch import checkpointing as ckpt  # noqa: E402
 from repro_torch import optim  # noqa: E402
@@ -231,7 +249,9 @@ from repro_torch.data.pipeline import DataConfig, make_stream  # noqa
 from repro_torch.launch import dryrun as lm_dryrun  # noqa: E402
 from repro_torch.launch import steps as lm_steps  # noqa: E402
 from repro_torch.launch import train as lm_train  # noqa: E402
+from repro_torch.launch import mesh as lm_mesh  # noqa: E402
 from repro_torch.launch.mesh import production_mesh_shape  # noqa: E402
+from repro_torch.runtime import sharding as SH  # noqa: E402
 from repro_torch.launch.shapes import (SHAPES, ShapeCase,  # noqa: E402
                                        cell_is_runnable)
 from repro_torch.models import layers as L  # noqa: E402
@@ -303,10 +323,12 @@ VGG_PIPE_BATCHES = 2
 # The bits16 phase: AlexNet at bits=16, batches of SERVE_BATCH.
 BITS16_FRAMES = 32
 # The chaos_elastic phase: the stream with one replica of two killed at
-# its CHAOS_KILL_AT-th batch, paced at CHAOS_LOAD x one replica's rate so
-# that the least-wait router keeps both replicas busy (below one
-# replica's rate it may send every batch to the other one, and the kill
-# never fires); the stream of the elastic knee ramp.
+# its CHAOS_KILL_AT-th batch, paced at CHAOS_LOAD x one replica's rate, so
+# that the survivor carries twice its rate after the kill; the router
+# prices the survivor out until the victim is quarantined, so the victim
+# is sure to receive its kill batch (priced on measured times, the
+# least-wait router may send it fewer); the stream of the elastic knee
+# ramp.
 CHAOS_FRAMES, CHAOS_KILL_AT, CHAOS_LOAD = 384, 3, 2.0
 KNEE_FRAMES = 96
 # The import phase: frames served by the imported LeNet (batch 4).
@@ -1651,6 +1673,9 @@ def phase_chaos_elastic() -> dict:
     pool = ReplicaPool(executors=[victim, reps[1]], router_seed=0,
                        quarantine_after=2, probe_every=4)
     pool.router.warm_start(svc, 2.0 * svc)
+    # An hour a batch for the survivor until it has served one: every
+    # batch goes to the victim until the victim's kill and quarantine.
+    pool.router.estimators[1].warm_start(pool.router.batch_key, 3600.0)
     fe = AsyncFrontend(pool, max_wait_ms=20.0, max_queue=4096)
     mix = (TrafficClass("rt", priority=1, deadline_ms=5000.0),)
     rate = CHAOS_LOAD * SERVE_BATCH / svc
@@ -3800,6 +3825,248 @@ def phase_int8(env: dict) -> dict:
 DRYRUN_JOBS = 8
 
 
+# ---------------------------------------------------------------------------
+# Phase mesh: the mesh runtime on the card
+# ---------------------------------------------------------------------------
+
+# (b): one DeepSeek-V2 MoE layer at full width on two gloo ranks, at a
+# capacity factor that drops nothing; its float32 output held to the CPU
+# tests' bound (tests/test_torch_moe_parallel.py Y_REL_TOL: measured there
+# 4.4e-7 of the largest |y| from the reference, 1.0e-7 from _moe_local at
+# top-6), over the largest |y|.
+MESH_MOE_ARCH, MESH_MOE_B, MESH_MOE_S, MESH_MOE_CF = MLA_ARCH, 2, 1024, 8.0
+MESH_MOE_TOL = 1e-6
+MESH_MOE_REPS = 3
+MESH_JOIN_S = 600
+
+
+def _mesh_group(root: str, world: int, rank: int, backend: str) -> None:
+    """The default group through a ``FileStore`` under ``root``: no port,
+    nothing but this run's ranks."""
+    import datetime
+    dist.init_process_group(
+        backend, store=dist.FileStore(os.path.join(root, "store"), world),
+        rank=rank, world_size=world, timeout=datetime.timedelta(seconds=300))
+
+
+def _placed_forward(params, cfg, batch, mesh):
+    with lm_mesh.set_mesh(mesh):
+        return _forward(params, cfg, batch, "kernel")
+
+
+def _mesh_one_rank(env: dict) -> dict:
+    """(a) Full-width Yi-6B placed by ``param_shardings`` on a one-rank
+    NCCL mesh (1, 1) on cuda:0: its forward on LM_B x LM_S tokens under
+    DTensor, 32 ``flash_attention`` launches through the wrapper's rule,
+    logits against the same params' unplaced forward; wall and idle share
+    of both."""
+    cfg = ARCHS[LM_ARCH]
+    with tempfile.TemporaryDirectory(prefix="mesh_a_") as root:
+        _mesh_group(root, 1, 0, "nccl")
+        try:
+            mesh = lm_mesh.make_debug_mesh(1, 1)
+            params = T.init_params(cfg, seed=0, device="cuda")
+            gen = torch.Generator(device="cuda").manual_seed(1)
+            batch = {"tokens": torch.randint(0, cfg.vocab, (LM_B, LM_S),
+                                             generator=gen, device="cuda")}
+            logits_u = _forward(params, cfg, batch, "kernel")
+            t0 = time.perf_counter()
+            placed = SH.place(params, SH.param_shardings(cfg, mesh, params))
+            pbatch = SH.place(batch, SH.batch_shardings(mesh, batch))
+            torch.cuda.synchronize()
+            place_s = time.perf_counter() - t0
+            reset_launches()
+            logits_p = _placed_forward(placed, cfg, pbatch, mesh)
+            torch.cuda.synchronize()
+            got = launches()
+            local = logits_p.to_local()
+            row = {"phase": "mesh_one_rank", "arch": LM_ARCH,
+                   "mesh": lm_mesh.mesh_shape(mesh), "backend": "nccl",
+                   "tokens": [LM_B, LM_S], "place_s": place_s,
+                   "placements": sorted({str(t.placements) for t in
+                                         optim.adamw.tree_leaves(placed)}),
+                   "logits_placements": str(logits_p.placements),
+                   "launches": got, "expected_flash_attention": cfg.n_layers,
+                   "bit_for_bit": bool(torch.equal(local, logits_u)),
+                   **_close(local, logits_u), "card": env["nvidia_smi"]}
+            emit(row)
+            if got["flash_attention"] != cfg.n_layers or \
+                    got["gemm_int8"] or got["linear_scan"]:
+                raise SmokeFailure(f"the placed Yi-6B forward launched "
+                                   f"{got}, expected {cfg.n_layers} "
+                                   f"flash_attention")
+            if row["max_abs_diff"] > LM_ROUTE_TOL or \
+                    not torch.isfinite(local).all():
+                raise SmokeFailure(f"the placed forward's logits are "
+                                   f"{row['max_abs_diff']} from the "
+                                   f"unplaced one's")
+            del local, logits_p, logits_u
+            times = {
+                "unplaced": _forward_time(env, "mesh_forward_unplaced",
+                                          lambda: _forward(params, cfg, batch,
+                                                           "kernel")),
+                "placed": _forward_time(env, "mesh_forward_placed",
+                                        lambda: _placed_forward(
+                                            placed, cfg, pbatch, mesh))}
+            return {"launches": got["flash_attention"],
+                    "bit_for_bit": row["bit_for_bit"],
+                    "max_abs_diff": row["max_abs_diff"],
+                    **{f"{k}_wall_ms": v["wall_ms_median"]
+                       for k, v in times.items()},
+                    **{f"{k}_idle_share": v["device_idle_share"]
+                       for k, v in times.items()}}
+        finally:
+            dist.destroy_process_group()
+
+
+def _mesh_moe_rank(rank: int, root: str) -> None:
+    """(b) One rank of two (gloo, both on cuda:0): one DeepSeek-V2 MoE
+    layer at full width through ``moe_apply`` under a (1, 2) mesh, each
+    rank holding 80 of the 160 experts; rank 0 also runs ``_moe_local`` on
+    the same card. Writes ``rank<r>.json`` under ``root``."""
+    torch.cuda.set_device(0)
+    _mesh_group(root, 2, rank, "gloo")
+    out: dict = {}
+    try:
+        mesh = lm_mesh.make_debug_mesh(1, 2)
+        cfg = ARCHS[MESH_MOE_ARCH].scaled(moe_capacity_factor=MESH_MOE_CF)
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).split(".")[1]
+            gen = torch.Generator(device="cuda").manual_seed(0)
+            p = L.moe_init(gen, cfg, dtype, "cuda")
+            x = torch.randn((MESH_MOE_B, MESH_MOE_S, cfg.d_model),
+                            generator=gen, device="cuda").to(dtype)
+            xt = x.reshape(-1, cfg.d_model)
+            whole = L.moe_route(p, cfg, xt)
+            mine = L.moe_route_shard(p, cfg, xt, rank, 2)
+            E_loc = cfg.moe_n_experts // 2
+            rows = slice(rank * E_loc, (rank + 1) * E_loc)
+            valid = whole["valid"][rows]
+            routing = bool(
+                torch.equal(mine["topi"], whole["topi"])
+                and torch.equal(mine["valid"], valid)
+                and torch.equal(mine["tok_idx"][valid],
+                                whole["tok_idx"][rows][valid]))
+            want = L._moe_local(p, cfg, x) if rank == 0 else None
+            # The experts split over model as param_shardings splits them,
+            # the rest replicated as _moe_sharded takes it: gloo gathers
+            # no CUDA tensor, so nothing may need an all-gather here.
+            placed = SH.place(p, SH.map_with_path(
+                lambda path, _: SH.named_sharding(
+                    mesh, ("model",) if path in ("wi", "wg", "wo") else ()),
+                p))
+            expert_bytes = sum(placed[k].to_local().numel()
+                               * placed[k].to_local().element_size()
+                               for k in ("wi", "wg", "wo"))
+            del p
+            torch.cuda.empty_cache()
+            px = SH.place(x, SH.named_sharding(mesh, ()))
+            L.moe_apply.calls_by_path = {"local": 0, "expert_parallel": 0}
+            walls = []
+            for i in range(MESH_MOE_REPS + 1):
+                dist.barrier()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with lm_mesh.set_mesh(mesh), CommDebugMode() as cm:
+                    y, aux = L.moe_apply(placed, cfg, px)
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3)
+            counts = {str(k): v for k, v in cm.get_comm_counts().items()}
+            y_loc = y.to_local()
+            # The combine's all-reduce alone, on a tensor of y's size.
+            buf = torch.empty_like(y_loc)
+            ar = []
+            for _ in range(MESH_MOE_REPS + 1):
+                dist.barrier()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                dist.all_reduce(buf, group=mesh.get_group("model"))
+                torch.cuda.synchronize()
+                ar.append((time.perf_counter() - t0) * 1e3)
+            row = {"dtype": name, "routing_identical": routing,
+                   "paths": dict(L.moe_apply.calls_by_path),
+                   "collectives": counts,
+                   "wall_ms_median": float(np.median(walls[1:])),
+                   "first_call_ms": walls[0],
+                   "all_reduce_ms_median": float(np.median(ar[1:])),
+                   "all_reduce_bytes": buf.numel() * buf.element_size(),
+                   "expert_bytes_on_rank": expert_bytes,
+                   "y_finite": bool(torch.isfinite(y_loc).all()),
+                   "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+            if want is not None:
+                wy, waux = want
+                row.update(
+                    y_rel_vs_local=float((y_loc.float() - wy.float()).abs()
+                                         .max() / wy.float().abs().max()),
+                    aux=float(aux.to_local()), aux_local=float(waux))
+            out[name] = row
+            del placed, px, y, aux, y_loc, buf, want
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(root, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def _mesh_two_ranks(env: dict) -> dict:
+    """(b) Two gloo processes on cuda:0 (the machine has one card, and NCCL
+    puts no two ranks on one GPU); a failed child fails the run."""
+    ctx = mp.get_context("spawn")
+    with tempfile.TemporaryDirectory(prefix="mesh_b_") as root:
+        procs = [ctx.Process(target=_mesh_moe_rank, args=(r, root))
+                 for r in range(2)]
+        t0 = time.perf_counter()
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(timeout=max(1.0, MESH_JOIN_S - (time.perf_counter() - t0)))
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        codes = [p.exitcode for p in procs]
+        if codes != [0, 0]:
+            raise SmokeFailure(f"the two gloo ranks exited {codes}")
+        ranks = [json.loads(Path(root, f"rank{r}.json").read_text())
+                 for r in range(2)]
+    rows = {}
+    for name in ranks[0]:
+        row = {"phase": "mesh_moe", "arch": MESH_MOE_ARCH, "mesh": [1, 2],
+               "backend": "gloo", "device": "cuda:0 for both ranks",
+               "tokens": [MESH_MOE_B, MESH_MOE_S],
+               "capacity_factor": MESH_MOE_CF, "ranks": [r[name] for r in
+                                                          ranks],
+               "tolerance_rel": MESH_MOE_TOL, "seconds":
+               time.perf_counter() - t0, "card": env["nvidia_smi"]}
+        emit(row)
+        r0 = ranks[0][name]
+        ok = all(r[name]["routing_identical"] and r[name]["y_finite"]
+                 and r[name]["paths"] == {"local": 0,
+                                          "expert_parallel": MESH_MOE_REPS + 1}
+                 for r in ranks)
+        if name == "float32":
+            ok = ok and r0["y_rel_vs_local"] <= MESH_MOE_TOL
+        if not ok:
+            raise SmokeFailure(f"the expert-parallel MoE layer failed: {row}")
+        rows[name] = r0
+    return rows
+
+
+def phase_mesh(env: dict) -> dict:
+    """(a) and (b); (c), the dry run's collectives, is phase dryrun's."""
+    t_phase = time.perf_counter()
+    one = _mesh_one_rank(env)
+    torch.cuda.empty_cache()
+    two = _mesh_two_ranks(env)
+    row = {"phase": "mesh", "one_rank": one, "two_ranks": {
+        k: {f: v.get(f) for f in ("wall_ms_median", "all_reduce_ms_median",
+                                  "y_rel_vs_local", "collectives")}
+        for k, v in two.items()},
+        "phase_s": time.perf_counter() - t_phase, "card": env["nvidia_smi"]}
+    emit(row)
+    return {"launches": one["launches"], **row}
+
+
 def _meta_bytes(tree) -> int:
     """Bytes of a tree's tensors from their shapes and dtypes (the meta
     device has no storage to ask)."""
@@ -3838,15 +4105,23 @@ def phase_dryrun(env: dict, train: dict, int8: dict) -> dict:
           "columns": ["cell", "status", "compile_s",
                       "argument_bytes_per_device",
                       "output_bytes_per_device", "flops",
-                      "flops_over_n_devices"],
+                      "flops_over_n_devices", "collectives_count_per_kind",
+                      "collectives_total_bytes"],
           "cells": [[tag, c["status"], c.get("compile_s"),
                      c.get("memory", {}).get("argument_size_in_bytes"),
                      c.get("memory", {}).get("output_size_in_bytes"),
                      c.get("cost", {}).get("flops"),
-                     c.get("cost", {}).get("flops_over_n_devices")]
+                     c.get("cost", {}).get("flops_over_n_devices"),
+                     (c.get("collectives") or {}).get("count_per_kind"),
+                     (c.get("collectives") or {}).get("total_bytes")]
                     for tag, c in cells.items()]})
     if got != want:
         raise SmokeFailure(f"the dry run's cells {got}, expected {want}")
+    counted = [tag for tag, c in cells.items() if c["status"] == "ok"
+               and sum(c["collectives"]["count_per_kind"].values()) > 0]
+    if len(counted) != sum(s == "ok" for s in got.values()):
+        raise SmokeFailure(f"cells without collectives: "
+                           f"{sorted(set(got) - set(counted))}")
 
     # The dry run against the card: the training state phase train held,
     # the int8 params phase int8 held, and the FLOPs of the training step.
@@ -3935,6 +4210,8 @@ def main() -> int:
         torch.cuda.empty_cache()
         int8 = phase_int8(env)
         torch.cuda.empty_cache()
+        mesh = phase_mesh(env)
+        torch.cuda.empty_cache()
         phase_dryrun(env, train, int8)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
@@ -3997,10 +4274,15 @@ def main() -> int:
         "max_abs_err": flash["max_abs_err"], "ms": flash["ms"],
         "plain_ms": flash["plain_ms"], "bound_ms": flash["bound_ms"],
         "bound_by": flash["bound_by"], "library_ms": flash["library_ms"],
-        "launches_on": {"yi-6b-int8": int8["launches"]},
+        "launches_on": {"yi-6b-int8": int8["launches"],
+                        "yi-6b-mesh": mesh["launches"]},
         "launches_on_per": {"yi-6b-int8": f"the int8 weight-only forward "
                                           f"on {LM_B} x {LM_S} tokens, one "
-                                          f"per layer"},
+                                          f"per layer",
+                            "yi-6b-mesh": f"the forward placed on a one-rank "
+                                          f"(1, 1) mesh on {LM_B} x {LM_S} "
+                                          f"tokens (DTensor), one per "
+                                          f"layer"},
         "path": LM_ARCH,
         "per": f"one launch at the Yi-6B shape (B {LM_B}, S {LM_S}, H 32, "
                f"KV 4, d 128, bf16, causal); one per layer of a forward"}, {

@@ -1,4 +1,6 @@
-from repro_torch.checkpointing.checkpoint import (latest_step, restore, save,
+from repro_torch.checkpointing.checkpoint import (latest_step, restore,
+                                                  restore_resharded, save,
                                                   skeleton)
 
-__all__ = ["save", "restore", "latest_step", "skeleton"]
+__all__ = ["save", "restore", "restore_resharded", "latest_step",
+           "skeleton"]

@@ -16,13 +16,17 @@ the reference stacks them on a leading axis (``params["seg0"]``), so
 list index is read from the stacked array at that index.
 
 Each leaf goes to the host and into the archive on its own, so a
-full-width state never stands on the host whole. The reference's
-``restore_resharded`` re-shards onto a jax mesh; its counterpart comes
-with the port's multi-card runtime (ROADMAP A3).
+full-width state never stands on the host whole. A placed tree (DTensor
+leaves on a mesh) has one writer, rank 0 of the default process group:
+every rank gathers each leaf in turn (``full_tensor``, a collective), rank
+0 writes it, then the manifest last; a barrier holds every rank until the
+step is complete. ``restore_resharded`` restores and places the tree
+under the current mesh's shardings, whatever mesh wrote it.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import shutil
@@ -31,6 +35,10 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
+
+from repro_torch.runtime.sharding import place
 
 
 def _items(tree: Any, prefix: tuple = ()):
@@ -64,23 +72,37 @@ def _to_numpy(leaf) -> np.ndarray:
 
 def save(directory: str, step: int, tree: Any, *, host_id: int = 0,
          n_hosts: int = 1, keep: int = 3) -> str:
-    """Write this host's shard; host 0 writes the manifest last (atomic)."""
+    """Write this host's shard; host 0 writes the manifest last (atomic).
+    A placed tree is written whole by rank 0 alone (``host_id`` 0 of one
+    host), every rank of the default group taking part in each leaf's
+    gather; every rank returns once the step is complete."""
+    placed = any(isinstance(leaf, DTensor) for _, leaf in _items(tree))
+    if placed:
+        host_id, n_hosts = 0, 1
+    writer = not placed or dist.get_rank() == 0
     tmp = os.path.join(directory, f"step_{step}.tmp")
     final = os.path.join(directory, f"step_{step}")
-    os.makedirs(tmp, exist_ok=True)
     keys = {}
+    if writer:
+        os.makedirs(tmp, exist_ok=True)
     # np.savez's own layout (one .npy per key in a zip64 archive), written
     # one leaf at a time.
-    with zipfile.ZipFile(os.path.join(tmp, f"shard_{host_id}.npz"), "w",
-                         zipfile.ZIP_STORED, allowZip64=True) as zf:
+    with (zipfile.ZipFile(os.path.join(tmp, f"shard_{host_id}.npz"), "w",
+                          zipfile.ZIP_STORED, allowZip64=True)
+          if writer else contextlib.nullcontext()) as zf:
         for path, leaf in _items(tree):
+            if isinstance(leaf, DTensor):
+                leaf = leaf.full_tensor()       # every rank gathers
+            if not writer:
+                continue
             arr = _to_numpy(leaf)
             key = _key(path)
             with zf.open(key + ".npy", "w", force_zip64=True) as f:
                 np.lib.format.write_array(f, np.asanyarray(arr),
                                           allow_pickle=False)
             keys[key] = [list(arr.shape), str(arr.dtype)]
-    if host_id == 0:
+            del leaf, arr
+    if writer and host_id == 0:
         manifest = {"step": step, "n_hosts": n_hosts, "keys": keys}
         with open(os.path.join(tmp, "manifest.json"), "w") as f:
             json.dump(manifest, f)
@@ -88,6 +110,8 @@ def save(directory: str, step: int, tree: Any, *, host_id: int = 0,
             shutil.rmtree(final)
         os.replace(tmp, final)
         _gc(directory, keep)
+    if placed:
+        dist.barrier()
     return final
 
 
@@ -175,3 +199,13 @@ def restore(directory: str, step: int, like: Any, *, host_id: int = 0,
                 device=device if device is not None else node.device,
                 dtype=node.dtype)
         return _map(build, like)
+
+
+def restore_resharded(directory: str, step: int, like: Any,
+                      shardings: Any) -> Any:
+    """Elastic restore: ``restore`` into ``like``'s structure, shapes and
+    dtypes (on each leaf's device), then ``place`` under the current
+    mesh's shardings (``runtime/sharding.py``), which may be of another
+    shape than the mesh that saved the step: every rank reads the whole
+    step and keeps its own shard."""
+    return place(restore(directory, step, like), shardings)

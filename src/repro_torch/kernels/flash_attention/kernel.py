@@ -15,6 +15,12 @@ The kernel has no backward, as the reference's Pallas kernel has no VJP
 enabled and q, k or v requiring grad) raises on every device, the CPU
 included, rather than return an output whose gradient is silently cut.
 Training attends on the plain path (``models/layers.py``'s dispatch).
+
+DTensor operands (a placed forward) run through ``kernels/_local.py``'s
+rule: each rank calls this wrapper on its local shard, with the batch over
+the batch axes and the heads over ``model`` (where both H and KV divide
+it: query head h then finds its key/value head h // (H // KV) on its own
+rank), sequence and head dim whole.
 """
 
 from __future__ import annotations
@@ -24,7 +30,7 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _local
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
@@ -69,6 +75,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             "kernel has no VJP either): attend on the plain path "
             "(set_attention_impl('torch') or None) or call it under "
             "torch.no_grad()")
+    if _local.is_placed(q, k, v):
+        mesh = _local.mesh_of(q, k, v)
+        pl = _local.local_placements(
+            mesh, batch=_local.batch_split(mesh, q.shape[0]),
+            model_dim=2 if _local.model_split(mesh, q.shape[2], k.shape[2])
+            else None)
+        return _local.run_local(flash_attention, (q, k, v), (pl, pl, pl), pl,
+                                mesh, causal=causal, window=window)
     if q.ndim != 4 or k.ndim != 4 or k.shape != v.shape:
         raise ValueError(f"expected q [B,Sq,H,d] and k, v [B,Skv,KV,d] of "
                          f"one shape, got {tuple(q.shape)}, "

@@ -29,6 +29,11 @@ port's own, for the RG-LRU that runs through this kernel.
 A tensor on the ``meta`` device (the dry run's, ``launch/dryrun.py``)
 gets an empty result of the right shape and dtype: no launch, no count.
 
+DTensor operands (a placed forward) run through ``kernels/_local.py``'s
+rule: each rank calls this wrapper (its gradient included) on its local
+shard, with the batch over the batch axes and the channels over
+``model``, the time axis whole.
+
 The Pallas kernel's ``chunk``, ``bt`` and ``interpret`` arguments are TPU
 tiling and its interpreter switch; they have no meaning here and are left
 out. Its ``S % chunk == 0`` assertion is a Pallas tiling limit, not part
@@ -42,7 +47,7 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _local
 from repro_torch.kernels.rglru_scan.ref import linear_scan_ref
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "linear_scan.cu"
@@ -71,6 +76,12 @@ def linear_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     a and b are each float32 or bfloat16, of one shape, on one device.
     Differentiable in a and b (the backward runs the kernel too).
     """
+    if _local.is_placed(a, b):
+        mesh = _local.mesh_of(a, b)
+        pl = _local.local_placements(
+            mesh, batch=_local.batch_split(mesh, a.shape[0]),
+            model_dim=2 if _local.model_split(mesh, a.shape[2]) else None)
+        return _local.run_local(linear_scan, (a, b), (pl, pl), pl, mesh)
     _check(a, b)
     if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
         return _LinearScan.apply(a, b)

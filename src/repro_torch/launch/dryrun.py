@@ -17,12 +17,21 @@ runs the step the reference lowers (train: ``value_and_grad`` then
     counts them (matrix products, convolutions and attention; no
     elementwise work), and ``flops_over_n_devices``, that total divided
     by the mesh's device count;
-  * ``collectives``: null. The reference parses XLA's partitioned HLO
-    (``launch/hlo_stats.py``); the port has no HLO, and its collectives
-    come with the mesh runtime (ROADMAP A3).
+  * ``collectives``: ``count_per_kind``, ``bytes_per_kind`` and
+    ``total_bytes``, the reference's keys, from a second trace of the same
+    step with its arguments placed on the mesh (DTensors under
+    ``runtime/sharding.py``'s shardings, the MoE expert-parallel) in a
+    ``fake`` process group of the mesh's size, one process standing for
+    every rank, under ``CommDebugMode``: each collective the port
+    dispatches, counted by kind, and the bytes of its operand on one rank.
+    The reference reads them from XLA's partitioned HLO
+    (``launch/hlo_stats.py``), which fuses and schedules collectives; the
+    port's are its eager dispatch's (a recorded divergence). AdamW's int8
+    moments on placed leaves are not ported (ROADMAP): a cell whose
+    config keeps int8 moments counts its step up to the update.
 
 ``--dist pipeline`` (the reference's shard_map pipeline,
-``core/pipeline.py``) waits for ROADMAP A3 and is refused. Unlike the
+``core/pipeline.py``) waits for ROADMAP A3.2 and is refused. Unlike the
 reference's, this module sets no ``XLA_FLAGS``: it imports no JAX.
 
 Usage:
@@ -46,11 +55,15 @@ import sys
 import time
 from concurrent.futures import ProcessPoolExecutor
 
+import torch
+from torch.distributed.tensor.debug import CommDebugMode
 from torch.utils.flop_counter import FlopCounterMode
 
+from repro_torch import optim
 from repro_torch.configs import ARCHS, get as get_arch
 from repro_torch.launch import steps as STEPS
-from repro_torch.launch.mesh import production_mesh_shape
+from repro_torch.launch.mesh import (build_mesh, fake_process_group,
+                                     production_mesh_shape, set_mesh)
 from repro_torch.launch.shapes import (SHAPES, ShapeCase, cache_specs,
                                        cell_is_runnable, input_specs)
 from repro_torch.models import layers as L
@@ -60,10 +73,20 @@ from repro_torch.runtime import sharding as SH
 
 PIPELINE_REFUSED = ("--dist pipeline (the reference's shard_map pipeline, "
                     "core/pipeline.py) is not ported: it comes with the "
-                    "mesh runtime, ROADMAP A3")
-NO_COLLECTIVES = ("no HLO to read: the reference counts collectives in "
-                  "XLA's partitioned HLO (launch/hlo_stats.py); the port's "
-                  "come with the mesh runtime (ROADMAP A3)")
+                    "pipeline runtime, ROADMAP A3.2")
+COLLECTIVES_NOTE = ("counted from the placed step's dispatch in a fake "
+                    "process group of the mesh's size (CommDebugMode), bytes "
+                    "the operand's on one rank; the reference reads XLA's "
+                    "partitioned HLO (launch/hlo_stats.py)")
+INT8_MOMENTS_NOTE = ("; AdamW's int8 moments on placed leaves are not ported "
+                     "(ROADMAP): counted up to the update (value_and_grad "
+                     "and the clip)")
+# Collective ops by the reference's kind names (hlo_stats.py).
+_KINDS = (("all_gather", "all-gather"), ("reduce_scatter", "reduce-scatter"),
+          ("all_reduce", "all-reduce"), ("allreduce", "all-reduce"),
+          ("all_to_all", "all-to-all"), ("alltoall", "all-to-all"),
+          ("broadcast", "broadcast"), ("send", "collective-permute"),
+          ("recv", "collective-permute"))
 NO_TEMP = ("no counterpart: XLA's temp_size_in_bytes is the compiled "
            "program's scratch; nothing is compiled here")
 
@@ -136,6 +159,7 @@ def trace_cell(cfg, case: ShapeCase, mesh: dict, dp_model: bool = False,
         outs = [(out, SH.batch_specs(mesh, out)),
                 (new_cache, SH.cache_specs(mesh, new_cache))]
     flops = fc.get_total_flops()
+    collectives, note = _placed_collectives(cfg, case, mesh, args)
     return {
         "memory": {
             "argument_size_in_bytes": sum(
@@ -145,8 +169,65 @@ def trace_cell(cfg, case: ShapeCase, mesh: dict, dp_model: bool = False,
             "temp_size_in_bytes": None, "temp_note": NO_TEMP},
         "cost": {"flops": float(flops),
                  "flops_over_n_devices": flops / n_dev},
-        "collectives": None, "collectives_note": NO_COLLECTIVES,
+        "collectives": collectives, "collectives_note": note,
         "n_devices": n_dev, "mesh_shape": dict(mesh)}
+
+
+def _kind(op_name: str) -> str | None:
+    return next((kind for key, kind in _KINDS if key in op_name), None)
+
+
+class _CollectiveBytes(CommDebugMode):
+    """``CommDebugMode`` that also sums, by kind, the bytes of each
+    collective's operand on one rank (its first tensor argument), as
+    ``hlo_stats.collective_bytes`` sums operand bytes per device."""
+
+    def __init__(self):
+        super().__init__()
+        self.bytes_by_kind: dict[str, int] = {}
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = super().__torch_dispatch__(func, types, args, kwargs)
+        kind = None if out is NotImplemented else \
+            _kind(str(func._overloadpacket))
+        if kind is not None:
+            t = next(a for a in args if isinstance(a, torch.Tensor))
+            self.bytes_by_kind[kind] = self.bytes_by_kind.get(kind, 0) + \
+                t.numel() * t.element_size()
+        return out
+
+
+def _placed_collectives(cfg, case: ShapeCase, mesh: dict,
+                        args: list) -> tuple[dict, str]:
+    """The step of ``trace_cell`` again, its arguments (``args``: (tree,
+    specs) pairs, params first) placed on a meta mesh of ``mesh``'s shape
+    in a fake process group: the collectives it dispatches, by kind."""
+    note = COLLECTIVES_NOTE
+    with fake_process_group(math.prod(mesh.values())):
+        dmesh = build_mesh(mesh, "meta")
+        placed = [SH.place(tree, SH.map_with_path(
+            lambda _, spec: SH.named_sharding(dmesh, spec), specs))
+            for tree, specs in args]
+        with _CollectiveBytes() as cm, set_mesh(dmesh):
+            if case.mode != "train":
+                step = (STEPS.make_prefill_step(cfg)
+                        if case.mode == "prefill"
+                        else STEPS.make_serve_step(cfg))
+                step(*placed)
+            elif cfg.opt_moment_dtype == "int8":
+                params, _, batch = placed
+                _, grads = STEPS.value_and_grad(params, cfg, batch,
+                                                remat=True)
+                optim.clip_by_global_norm_(grads, 1.0)
+                note += INT8_MOMENTS_NOTE
+            else:
+                STEPS.make_train_step(cfg)(*placed)
+        counts: dict[str, int] = {}
+        for op, n in cm.get_comm_counts().items():
+            kind = _kind(str(op)) or str(op)
+            counts[kind] = counts.get(kind, 0) + n
+    return {"count_per_kind": counts, "bytes_per_kind": cm.bytes_by_kind,
+            "total_bytes": sum(cm.bytes_by_kind.values())}, note
 
 
 def _full(cache: dict, pos: int) -> dict:

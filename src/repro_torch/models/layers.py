@@ -14,9 +14,11 @@ channel, dequantized in the activations' dtype just before its product,
 as in the reference: a plain torch product, not a kernel (the reference's
 dequantize and matmul are XLA's, outside any Pallas kernel).
 
-Not ported: the MoE's sharded dispatch (``_moe_sharded``,
-``_moe_expert_parallel``), which needs a device mesh with a ``model``
-axis (ROADMAP A3).
+The MoE is expert-parallel under a mesh with a ``model`` axis of more
+than one rank (``_moe_sharded``, ``_moe_expert_parallel``, on
+``torch.distributed``'s DTensor), as the reference's is under its mesh;
+the pipeline's own MoE split (``core/pipeline.py::_moe_apply_tp``) is
+ROADMAP A3.2.
 """
 
 from __future__ import annotations
@@ -27,7 +29,13 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
+from torch.distributed.tensor import Partial, Replicate, Shard
+from torch.distributed.tensor._utils import \
+    compute_local_shape_and_global_offset
+
+from repro_torch.kernels import _local
 from repro_torch.kernels.flash_attention.kernel import flash_attention
+from repro_torch.launch.mesh import ambient_mesh
 
 Params = dict[str, Any]
 
@@ -66,8 +74,43 @@ def apply_dense_weight(p: Params, dtype: torch.dtype) -> torch.Tensor:
     return w
 
 
+def embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """``table[tokens]``. A placed table (vocab-parallel: its rows split
+    over ``model``) is looked up on each rank's local shard: every rank
+    takes the rows its shard holds and zeros elsewhere, and the sum over
+    ``model`` (an all-reduce) adds exact zeros to the one rank's row. A
+    dispatch rule: DTensor's own lookup has no gradient rule in some torch
+    releases (torch 2.11 fails the backward's ``index_put``)."""
+    if not _local.is_placed(table, tokens):
+        return table[tokens]
+    mesh = _local.mesh_of(table, tokens)
+    vocab = _local.model_split(mesh, table.shape[0])
+    batch = _local.batch_split(mesh, tokens.shape[0])
+    rep, partial = Replicate(), Partial()
+
+    def on(batch_pl, model_pl):
+        return _local.per_axis(mesh, batch, batch_pl, model_pl)
+
+    tab_pl = on(rep, Shard(0) if vocab else rep)
+    out_pl = on(Shard(0), partial if vocab else rep)
+    lo = compute_local_shape_and_global_offset(
+        table.shape, mesh, tab_pl)[1][0]
+
+    def lookup(tab, tok):
+        rows = tok - lo
+        inside = (rows >= 0) & (rows < tab.shape[0])
+        got = tab[torch.where(inside, rows, 0)]
+        return torch.where(inside[..., None], got, torch.zeros_like(got))
+
+    out = _local.run_local(
+        lookup, (table, tokens), (tab_pl, on(Shard(0), rep)), out_pl, mesh,
+        in_grad_placements=(on(partial, Shard(0) if vocab else rep),
+                            on(Shard(0), rep)))
+    return out.redistribute(mesh, on(Shard(0), rep))
+
+
 def apply_dense(p: Params, x: torch.Tensor) -> torch.Tensor:
-    y = x @ apply_dense_weight(p, x.dtype)
+    y = _local.reduced(x) @ apply_dense_weight(p, x.dtype)
     if "b" in p:
         y = y + p["b"]
     return y
@@ -312,12 +355,38 @@ def _sdpa_kernel(q, k, v, *, causal, window):
 def sdpa(q, k, v, *, causal: bool = True, window: int = 0, q_offset=0,
          kv_len=None, kpos=None, chunked_threshold: int = 8192):
     """Dispatch between the direct, chunked and kernel attention cores, on
-    the reference's conditions."""
+    the reference's conditions. Placed operands (DTensors) reach the
+    kernel through its wrapper's rule, and the plain cores through the
+    same rule here (``kernels/_local.py``): each core is local to a
+    (batch, KV head) shard, so it runs as one ``local_map`` rather than
+    as a DTensor op per step of its chunk loop."""
     Sq, Skv = q.shape[1], k.shape[1]
     if (attention_impl(q.device, q, k, v) == "kernel" and kv_len is None
             and kpos is None and Sq == Skv and Sq % min(128, Sq) == 0
             and q.shape[-1] == v.shape[-1]):
         return _sdpa_kernel(q, k, v, causal=causal, window=window)
+    if _local.is_placed(q, k, v):
+        mesh = _local.mesh_of(q, k, v)
+        pl = _local.local_placements(
+            mesh, batch=_local.batch_split(mesh, q.shape[0]),
+            model_dim=2 if _local.model_split(mesh, q.shape[2], k.shape[2])
+            else None)
+        rep = (Replicate(),) * mesh.ndim
+        return _local.run_local(
+            _sdpa_plain, (q, k, v, kpos), (pl, pl, pl,
+                                           None if kpos is None else rep),
+            pl, mesh, causal=causal, window=window, q_offset=q_offset,
+            kv_len=kv_len, chunked_threshold=chunked_threshold)
+    return _sdpa_plain(q, k, v, kpos, causal=causal, window=window,
+                       q_offset=q_offset, kv_len=kv_len,
+                       chunked_threshold=chunked_threshold)
+
+
+def _sdpa_plain(q, k, v, kpos, *, causal, window, q_offset, kv_len,
+                chunked_threshold):
+    """The chunked core for long prefills without a cache, else the
+    direct one."""
+    Sq, Skv = q.shape[1], k.shape[1]
     if (Sq > 1 and Sq * Skv > chunked_threshold ** 2 and kv_len is None
             and kpos is None):
         return _sdpa_chunked(q, k, v, causal=causal, window=window,
@@ -353,9 +422,34 @@ def _ring_write(buf: torch.Tensor, x: torch.Tensor, start: int,
     size, n = buf.shape[dim], x.shape[dim]
     s0 = start % size
     n1 = min(n, size - s0)
-    buf.narrow(dim, s0, n1).copy_(x.narrow(dim, 0, n1))
+    _cache_write(buf, x.narrow(dim, 0, n1), s0, dim)
     if n > n1:
-        buf.narrow(dim, 0, n - n1).copy_(x.narrow(dim, n1, n - n1))
+        _cache_write(buf, x.narrow(dim, n1, n - n1), 0, dim)
+
+
+def _cache_write(buf: torch.Tensor, x: torch.Tensor, start: int,
+                 dim: int) -> None:
+    """``buf.narrow(dim, start, len) .copy_(x)`` in place. A placed cache
+    (DTensors; its sequence dim may be split over ``model``) is written
+    on each rank's local shard: x gathered along ``dim``'s mesh axes to the
+    buffer's other placements, and each rank copies the part of the slots
+    its shard holds. DTensor has no in-place rule for a slice of a split
+    dim."""
+    if not _local.is_placed(buf, x):
+        buf.narrow(dim, start, x.shape[dim]).copy_(x)
+        return
+    mesh = buf.device_mesh
+    x_pl = tuple(Replicate() if isinstance(pl, Shard) and pl.dim == dim
+                 else pl for pl in buf.placements)
+    x_loc = _local.as_placed(x, mesh, x_pl).to_local()
+    local = buf.to_local()
+    _, offset = compute_local_shape_and_global_offset(
+        buf.shape, mesh, buf.placements)
+    lo, n_loc = offset[dim], local.shape[dim]
+    a, b = max(start, lo), min(start + x.shape[dim], lo + n_loc)
+    if a < b:
+        local.narrow(dim, a - lo, b - a).copy_(
+            x_loc.narrow(dim, a - start, b - a))
 
 
 def gqa_apply(p: Params, cfg, x, positions, *, cache: Params | None = None,
@@ -384,10 +478,10 @@ def gqa_apply(p: Params, cfg, x, positions, *, cache: Params | None = None,
     B, S, D = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     G = H // KV
-    q = apply_dense(p["wq"], x).reshape(B, S, KV, G, hd)
+    q = _local.reshape(apply_dense(p["wq"], x), (B, S, KV, G, hd))
     if cross_kv is None:
-        k = apply_dense(p["wk"], x).reshape(B, S, KV, hd)
-        v = apply_dense(p["wv"], x).reshape(B, S, KV, hd)
+        k = _local.reshape(apply_dense(p["wk"], x), (B, S, KV, hd))
+        v = _local.reshape(apply_dense(p["wv"], x), (B, S, KV, hd))
     else:
         k, v = cross_kv
     if cfg.qk_norm:
@@ -396,8 +490,9 @@ def gqa_apply(p: Params, cfg, x, positions, *, cache: Params | None = None,
     causal = causal and cross_kv is None
     if cross_kv is None:
         sections = cfg.mrope_sections if cfg.mrope else None
-        q = apply_rope(q.reshape(B, S, KV * G, hd), positions,
-                       cfg.rope_theta, sections).reshape(B, S, KV, G, hd)
+        q = _local.reshape(apply_rope(
+            _local.reshape(q, (B, S, KV * G, hd)), positions,
+            cfg.rope_theta, sections), (B, S, KV, G, hd))
         k = apply_rope(k, positions, cfg.rope_theta, sections)
 
     new_cache = None
@@ -421,20 +516,20 @@ def gqa_apply(p: Params, cfg, x, positions, *, cache: Params | None = None,
                          "slot_pos": cache["slot_pos"]}
             out = sdpa(q, cache["k"], cache["v"], causal=causal,
                        window=window, q_offset=idx, kpos=cache["slot_pos"])
-            out = out.reshape(B, S, H * hd)
+            out = _local.reshape(out, (B, S, H * hd))
             return apply_dense(p["wo"], out), new_cache
         if idx + S > size:
             raise ValueError(f"cache of {size} positions cannot take {S} "
                              f"more at {idx}")
-        cache["k"][:, idx:idx + S] = k.to(cache["k"].dtype)
-        cache["v"][:, idx:idx + S] = v.to(cache["v"].dtype)
+        _cache_write(cache["k"], k.to(cache["k"].dtype), idx, 1)
+        _cache_write(cache["v"], v.to(cache["v"].dtype), idx, 1)
         k, v = cache["k"], cache["v"]
         new_cache = {"k": k, "v": v, "idx": idx + S}
         kv_len = idx + S
         q_offset = idx
     out = sdpa(q, k, v, causal=causal, window=window, q_offset=q_offset,
                kv_len=kv_len)
-    out = out.reshape(B, S, H * hd)
+    out = _local.reshape(out, (B, S, H * hd))
     return apply_dense(p["wo"], out), new_cache
 
 
@@ -487,7 +582,7 @@ def mla_apply(p: Params, cfg, x, positions, *, cache: Params | None = None):
                         rms_norm(p["q_a_norm"], apply_dense(p["wq_a"], x)))
     else:
         q = apply_dense(p["wq"], x)
-    q = q.reshape(B, S, H, nope + rope)
+    q = _local.reshape(q, (B, S, H, nope + rope))
     q_nope, q_rope = q[..., :nope], q[..., nope:]
     q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
 
@@ -508,8 +603,8 @@ def mla_apply(p: Params, cfg, x, positions, *, cache: Params | None = None):
         if idx + S > cache["ckv"].shape[1]:
             raise ValueError(f"cache of {cache['ckv'].shape[1]} positions "
                              f"cannot take {S} more at {idx}")
-        cache["ckv"][:, idx:idx + S] = ckv.to(cache["ckv"].dtype)
-        cache["krope"][:, idx:idx + S] = k_rope.to(cache["krope"].dtype)
+        _cache_write(cache["ckv"], ckv.to(cache["ckv"].dtype), idx, 1)
+        _cache_write(cache["krope"], k_rope.to(cache["krope"].dtype), idx, 1)
         new_cache = {"ckv": cache["ckv"], "krope": cache["krope"],
                      "idx": idx + S}
 
@@ -526,7 +621,8 @@ def mla_apply(p: Params, cfg, x, positions, *, cache: Params | None = None):
         probs = torch.softmax(logits, -1).to(x.dtype)
         o_lat = torch.einsum("bhst,btr->bshr", probs, ckv_all)
         out = torch.einsum("bshr,rhv->bshv", o_lat, w_uv)
-        return apply_dense(p["wo"], out.reshape(B, S, H * vh)), new_cache
+        return apply_dense(p["wo"], _local.reshape(out, (B, S, H * vh))), \
+            new_cache
 
     # Decompressed path (forward / prefill), over this call's latent only.
     kv = torch.einsum("btr,rhn->bthn", ckv, wkv_b)
@@ -537,7 +633,8 @@ def mla_apply(p: Params, cfg, x, positions, *, cache: Params | None = None):
     # H query heads as H KV groups of one for the shared sdpa core.
     out = sdpa(q_full[:, :, :, None, :], k_full, v, causal=True, q_offset=0)
     out = out[:, :, :, 0, :]
-    return apply_dense(p["wo"], out.reshape(B, S, H * vh)), new_cache
+    return apply_dense(p["wo"], _local.reshape(out, (B, S, H * vh))), \
+        new_cache
 
 
 # ---------------------------------------------------------------------------
@@ -587,10 +684,26 @@ def moe_init(gen, cfg, dtype, device) -> Params:
 
 
 def moe_apply(p: Params, cfg, x):
-    """Top-k MoE: the sort-based dispatch on one device. Returns
-    (y [B,S,D], aux loss). The reference's expert-parallel dispatch over a
-    mesh's ``model`` axis has no counterpart on one card (ROADMAP A3)."""
+    """Top-k MoE dispatcher. Returns (y [B,S,D], aux loss). Under an
+    ambient mesh (``launch/mesh.py::set_mesh``) with a ``model`` axis and
+    more than one rank, the reference's condition, ``_moe_sharded``: tokens
+    stay on their data shard, experts are expert-parallel over ``model``,
+    and the combine is an all-reduce. Otherwise ``_moe_local``; a placed x
+    (DTensors) then runs it on every rank over the whole batch
+    (``_moe_replicated``): its sorts and scatter-adds have no DTensor
+    sharding rule. ``moe_apply.calls_by_path`` counts the calls by path."""
+    mesh = ambient_mesh()
+    if mesh is not None and "model" in mesh.mesh_dim_names \
+            and mesh.size() > 1:
+        moe_apply.calls_by_path["expert_parallel"] += 1
+        return _moe_sharded(p, cfg, x, mesh)
+    moe_apply.calls_by_path["local"] += 1
+    if _local.is_placed(x):
+        return _moe_replicated(p, cfg, x, _local.mesh_of(x))
     return _moe_local(p, cfg, x)
+
+
+moe_apply.calls_by_path = {"local": 0, "expert_parallel": 0}
 
 
 def _expert_w(p: Params, name: str, dtype):
@@ -621,16 +734,34 @@ def moe_route(p: Params, cfg, xt: torch.Tensor) -> dict:
     expert with a stable sort, the overflow past C = ceil(k T / E *
     capacity_factor) dropped), and for each choice its slot (``rank``
     [T,k]) and whether it was kept (``kept``)."""
+    return moe_route_shard(p, cfg, xt, 0, 1)
+
+
+def moe_route_shard(p: Params, cfg, xt: torch.Tensor, shard: int,
+                    n_shards: int) -> dict:
+    """``moe_route`` for shard ``shard`` of ``n_shards`` of the experts,
+    the reference's ``_moe_expert_parallel`` routing: the same gates and
+    top-k over all E experts, and the dispatch table of the shard's E_loc =
+    E / n_shards experts (ids ``shard * E_loc`` on, row e of ``tok_idx``
+    for expert ``shard * E_loc + e``), its capacity C sized from the
+    tokens given, as the reference sizes it from a shard's tokens. A
+    choice of another shard's expert is not kept here. With one shard it
+    is ``moe_route``."""
     T = xt.shape[0]
     E, k = cfg.moe_n_experts, cfg.moe_top_k
+    E_loc = E // n_shards
+    off = shard * E_loc
     C = max(1, int(math.ceil(k * T / E * cfg.moe_capacity_factor)))
     gates = torch.softmax(apply_dense(p["router"], xt.float()), -1)
     topv, topi = torch.sort(gates, dim=-1, descending=True, stable=True)
     topv, topi = topv[:, :k], topi[:, :k]
     topv = topv / torch.clamp(topv.sum(-1, keepdim=True), min=1e-9)
-    flat_e = topi.reshape(-1)
+    flat_e = topi.reshape(-1) - off
+    in_range = (flat_e >= 0) & (flat_e < E_loc)
+    # Another shard's choices sort last, into an (E_loc + 1)-th bin.
+    flat_e = torch.where(in_range, flat_e, E_loc)
     order = torch.argsort(flat_e, stable=True)
-    counts = _expert_counts(flat_e, E)
+    counts = _expert_counts(flat_e, E_loc + 1)[:E_loc]
     offsets = torch.cumsum(counts, 0) - counts
     c = torch.arange(C, device=xt.device)
     slot = offsets[:, None] + c[None, :]
@@ -638,52 +769,192 @@ def moe_route(p: Params, cfg, xt: torch.Tensor) -> dict:
     tok_idx = (order // k)[torch.clamp(slot, 0, T * k - 1)]
     pos = torch.empty_like(order)
     pos[order] = torch.arange(T * k, device=xt.device)
-    rank = (pos - offsets[flat_e]).reshape(T, k)
+    local = torch.where(in_range, flat_e, 0)
+    rank = (pos - offsets[local]).reshape(T, k)
     return {"gates": gates, "topi": topi, "topv": topv, "C": C,
             "tok_idx": tok_idx, "valid": valid, "rank": rank,
-            "kept": rank < C}
+            "kept": in_range.reshape(T, k) & (rank < C)}
 
 
-def _moe_local(p: Params, cfg, x):
-    """The sort-based top-k dispatch with capacity C on one device:
-    gather each expert's tokens, run the experts as batched matrix
-    products, combine, add the shared experts; and the Switch-style
-    load-balance aux loss.
+def _moe_routed(p: Params, x, r: dict, off: int):
+    """The routed experts' output [B,S,D] for tokens x under routing ``r``
+    (``moe_route_shard``'s, whose experts are ``p``'s stacks, ids ``off``
+    on): gather each expert's tokens, run the experts as batched matrix
+    products, and combine.
 
     The reference combines with a scatter-add in x's dtype, each token's
     contributions added in the order of their slots, i.e. by ascending
     expert id. The port gathers each token's k contributions instead and
     adds them in that same order, one rounding per add: the same sums on
-    every run (a scatter on CUDA adds with atomics in no fixed order)."""
+    every run (a scatter on CUDA adds with atomics in no fixed order). A
+    choice that was not kept here adds an exact zero."""
     B, S, D = x.shape
-    E = cfg.moe_n_experts
     T = B * S
     xt = x.reshape(T, D)
-    r = moe_route(p, cfg, xt)
-    C = r["C"]
-    xe = xt[r["tok_idx"].reshape(-1)].reshape(E, C, D)
+    E_loc, C = r["tok_idx"].shape[0], r["C"]
+    xe = xt[r["tok_idx"].reshape(-1)].reshape(E_loc, C, D)
     xe = xe * r["valid"][..., None].to(xt.dtype)
     h = torch.bmm(xe, _expert_w(p, "wi", xe.dtype))
     g = torch.bmm(xe, _expert_w(p, "wg", xe.dtype))
     ye = torch.bmm(F.silu(g) * h, _expert_w(p, "wo", xe.dtype))
 
-    # Each choice's weighted output, its slot's row of ye (0 if dropped),
-    # taken in ascending expert order per token.
+    # Each choice's weighted output, its slot's row of ye (0 if not kept
+    # here), taken in ascending expert order per token.
     by_expert = torch.argsort(r["topi"], dim=-1)
-    e_sorted = r["topi"].gather(1, by_expert)
+    e_sorted = r["topi"].gather(1, by_expert) - off
     rank = r["rank"].gather(1, by_expert)
     kept = r["kept"].gather(1, by_expert)
     w = r["topv"].gather(1, by_expert).to(xt.dtype) * kept.to(xt.dtype)
-    rows = ye.reshape(E * C, D)[(e_sorted * C + torch.clamp(rank, max=C - 1))
-                                .reshape(-1)].reshape(T, -1, D)
+    local = torch.where((e_sorted >= 0) & (e_sorted < E_loc), e_sorted, 0)
+    rows = ye.reshape(E_loc * C, D)[(local * C + torch.clamp(rank, 0, C - 1))
+                                    .reshape(-1)].reshape(T, -1, D)
     contrib = rows * w[..., None]
     yt = contrib[:, 0]
     for j in range(1, contrib.shape[1]):
         yt = yt + contrib[:, j]
-    y = yt.reshape(B, S, D)
-    if "shared" in p:
-        y = y + mlp_apply(p["shared"], x, "swiglu")
+    return yt.reshape(B, S, D)
+
+
+def _moe_aux(r: dict, E: int):
+    """The Switch-style load-balance loss of routing ``r``: E times the
+    dot of each expert's share of the k choices and its mean gate."""
+    T = r["gates"].shape[0]
     density = _expert_counts(r["topi"].reshape(-1), E).float() / T
     router_prob = r["gates"].mean(0)
-    aux = E * torch.sum(density * router_prob)
-    return y, aux.float()
+    return (E * torch.sum(density * router_prob)).float()
+
+
+def _moe_local(p: Params, cfg, x):
+    """The sort-based top-k dispatch with capacity C on one device
+    (``_moe_routed`` over all E experts), the shared experts added, and
+    the load-balance aux loss."""
+    B, S, D = x.shape
+    r = moe_route(p, cfg, x.reshape(B * S, D))
+    y = _moe_routed(p, x, r, 0)
+    if "shared" in p:
+        y = y + mlp_apply(p["shared"], x, "swiglu")
+    return y, _moe_aux(r, cfg.moe_n_experts)
+
+
+def _moe_expert_parallel(p: Params, cfg, x, *, shard: int, n_shards: int):
+    """One expert shard's work, the port of the reference's
+    ``_moe_expert_parallel`` run on shard ``shard`` of ``n_shards``: the
+    sort-based dispatch over the local tokens x [B,S,D] to the local
+    experts only (``p``'s stacks hold experts ``shard * E / n_shards`` on),
+    capacity from the local tokens. Returns (y, aux): y this shard's
+    experts' part of the routed output, which the caller sums over the
+    shards (the reference's psum, ``_moe_sharded``'s all-reduce) and then
+    adds the shared experts to, as the reference does after its psum; aux
+    the local tokens' load-balance loss."""
+    B, S, D = x.shape
+    E = cfg.moe_n_experts
+    r = moe_route_shard(p, cfg, x.reshape(B * S, D), shard, n_shards)
+    return _moe_routed(p, x, r, shard * (E // n_shards)), _moe_aux(r, E)
+
+
+_EXPERT_KEYS = ("wi", "wg", "wo", "wi_scale", "wg_scale", "wo_scale")
+
+
+def _moe_sharded(p: Params, cfg, x, mesh):
+    """The expert-parallel MoE on ``mesh``: x [B,S,D] with its batch over
+    the batch axes (``pod``, ``data``) where it divides them, each
+    ``model`` rank holding E / T of the expert stacks, ``_moe_expert_parallel``
+    on every rank's local shard (``local_map``); the partial outputs summed
+    over ``model`` by an all-reduce (the reference's psum), then the
+    shared experts, replicated as the reference's ``shard_map`` takes them,
+    added on each rank's tokens; the aux loss the mean over the batch
+    shards. A plain x (and plain params) is placed first, and the result
+    returned plain.
+
+    Placements carry the gradient: every output is a sum over ranks
+    (``Partial`` over ``model``; the aux also over the batch axes when
+    they split the batch, each rank's value a piece of the mean), so the
+    local gradients of the replicated router and x are pieces of theirs
+    too (``Partial``), and the all-reduce's transpose hands each rank the
+    whole output gradient. Where the batch is not split, every output and
+    gradient is the same on each of those ranks (``Replicate``)."""
+    names = mesh.mesh_dim_names
+    E = cfg.moe_n_experts
+    T = mesh.size(names.index("model"))
+    if E % T:
+        raise ValueError(f"{E} experts do not split over a model axis of "
+                         f"{T}")
+    plain = not _local.is_placed(x)
+    batch = _local.batch_split(mesh, x.shape[0])
+    n_b = math.prod(mesh.size(names.index(a)) for a in _local.BATCH_AXES
+                    if a in names) if batch else 1
+    partial, rep = Partial(), Replicate()
+
+    def on(batch_pl, model_pl):
+        return _local.per_axis(mesh, batch, batch_pl, model_pl)
+
+    x_pl = on(Shard(0), rep)
+    expert_pl = on(rep, Shard(0))
+    keys = [("router", k) for k in p["router"]] + \
+        [(k,) for k in _EXPERT_KEYS if k in p]
+    leaves = [p[k[0]][k[1]] if len(k) == 2 else p[k[0]] for k in keys]
+    pls = [on(rep, rep) if k[0] == "router" else expert_pl
+           for k in keys]
+    grad_pls = [on(partial, partial) if k[0] == "router"
+                else on(partial, Shard(0)) for k in keys]
+    # The aux loss's mean over the batch shards and its copies on the
+    # model ranks, as one sum over ranks.
+    aux_share = n_b * T
+
+    def shard_fn(x_loc, *local):
+        p_loc: Params = {"router": {}}
+        for k, t in zip(keys, local):
+            if len(k) == 2:
+                p_loc["router"][k[1]] = t
+            else:
+                p_loc[k[0]] = t
+        y, aux = _moe_expert_parallel(p_loc, cfg, x_loc,
+                                      shard=mesh.get_local_rank("model"),
+                                      n_shards=T)
+        return y, aux / aux_share
+
+    y, aux = _local.run_local(
+        shard_fn, [x, *leaves], [x_pl, *pls],
+        (on(Shard(0), partial), on(partial, partial)),
+        mesh, in_grad_placements=[on(Shard(0), partial), *grad_pls])
+    y = y.redistribute(mesh, x_pl)             # the psum over model
+    aux = aux.redistribute(mesh, (rep,) * len(names))
+    if "shared" in p:
+        shared = {name: {k: _local.as_placed(t, mesh, (rep,) * len(names))
+                         for k, t in lp.items()}
+                  for name, lp in p["shared"].items()}
+        y = y + mlp_apply(shared, _local.as_placed(x, mesh, x_pl), "swiglu")
+    if plain:
+        return y.full_tensor(), aux.full_tensor()
+    return y, aux
+
+
+def _moe_replicated(p: Params, cfg, x, mesh):
+    """``_moe_local`` on every rank of ``mesh`` over the whole batch and
+    every expert (inputs gathered to ``Replicate``): a placed x outside an
+    expert-parallel mesh (one rank, or no ``model`` axis), where the
+    reference's compiler would partition the same global function."""
+    keys, leaves = [], []
+
+    def flat(node, path):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                flat(v, path + (k,))
+        else:
+            keys.append(path)
+            leaves.append(node)
+
+    flat(p, ())
+    rep = (Replicate(),) * mesh.ndim
+
+    def local_fn(x_loc, *local):
+        p_loc: Params = {}
+        for path, t in zip(keys, local):
+            node = p_loc
+            for k in path[:-1]:
+                node = node.setdefault(k, {})
+            node[path[-1]] = t
+        return _moe_local(p_loc, cfg, x_loc)
+
+    return _local.run_local(local_fn, [x, *leaves], [rep] * (1 + len(keys)),
+                            (rep, rep), mesh)

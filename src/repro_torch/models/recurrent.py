@@ -23,7 +23,9 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import Partial
 
+from repro_torch.kernels import _local
 from repro_torch.kernels.rglru_scan.kernel import linear_scan
 from repro_torch.models.layers import Params, _normal, apply_dense, dense
 
@@ -201,7 +203,7 @@ def _ddlerp(p, x, xs):
     dx = xs - x
     base = x[:, :, None, :] + dx[:, :, None, :] * p["mu_base"]  # [B,S,5,D]
     lo = torch.tanh((x + dx * 0.5) @ p["ddl_w1"])                # [B,S,5R]
-    lo = lo.reshape(*lo.shape[:-1], 5, _DDLERP_RANK)
+    lo = _local.reshape(lo, (*lo.shape[:-1], 5, _DDLERP_RANK))
     delta = torch.einsum("bsfr,frd->bsfd", lo, p["ddl_w2"])
     return base + delta * dx[:, :, None, :]
 
@@ -220,7 +222,15 @@ def rwkv6_wkv_scan(p, r, k, v, w, state0):
     instead, the same ``einsum``s with time folded into the batch, so
     ``FlopCounterMode`` counts what the loop's would (2 B S nh hd^2 for
     the readout; the outer product k^T v and the state update are
-    elementwise and count nothing, in the loop as here)."""
+    elementwise and count nothing, in the loop as here).
+
+    Placed operands (DTensors) run on each rank's local shard
+    (``kernels/_local.py``'s rule: the batch over the batch axes, the
+    heads over ``model``): the recurrence is local to a (batch, head)
+    shard, and the loop then dispatches plain ops, not a DTensor op per
+    step."""
+    if _local.is_placed(r, k, v, w, state0):
+        return _wkv_scan_local(p, r, k, v, w, state0)
     rs, ks, vs, ws = (t.float() for t in (r, k, v, w))
     if rs.device.type == "meta":
         kv = torch.einsum("bshk,bshv->bshkv", ks, vs)
@@ -234,6 +244,26 @@ def rwkv6_wkv_scan(p, r, k, v, w, state0):
         outs.append(torch.einsum("bhk,bhkv->bhv", rs[:, t], state + u * kv))
         state = ws[:, t, ..., None] * state + kv
     return torch.stack(outs, 1), state
+
+
+def _wkv_scan_local(p, r, k, v, w, state0):
+    mesh = _local.mesh_of(r, k, v, w, state0)
+    batch = _local.batch_split(mesh, r.shape[0])
+    heads = _local.model_split(mesh, r.shape[2])
+
+    def on(model_dim, batch=batch):
+        return _local.local_placements(mesh, batch=batch, model_dim=(
+            model_dim if heads else None))
+
+    u_pl = on(0, batch=False)
+    # u is the same on every batch shard: its local gradient is a piece.
+    u_grad = [Partial() if batch and name in _local.BATCH_AXES else pl
+              for name, pl in zip(mesh.mesh_dim_names, u_pl)]
+    ins = (on(2), on(2), on(2), on(2), on(1), u_pl)
+    return _local.run_local(
+        lambda r, k, v, w, s, u: rwkv6_wkv_scan({"u": u}, r, k, v, w, s),
+        (r, k, v, w, state0, p["u"]), ins, (on(2), on(1)), mesh,
+        in_grad_placements=ins[:5] + (u_grad,))
 
 
 def rwkv6_block_apply(p: Params, cfg, x, *, state: Params | None = None):
@@ -257,17 +287,17 @@ def rwkv6_block_apply(p: Params, cfg, x, *, state: Params | None = None):
     xs = _token_shift(x, state["shift_tm"])
     mixed = _ddlerp(p, x, xs)                                 # [B,S,5,D]
     xr, xk, xv, xw, xg = (mixed[:, :, i] for i in range(5))
-    r = apply_dense(p["wr"], xr).reshape(B, S, nh, hd)
-    k = apply_dense(p["wk"], xk).reshape(B, S, nh, hd)
-    v = apply_dense(p["wv"], xv).reshape(B, S, nh, hd)
+    r = _local.reshape(apply_dense(p["wr"], xr), (B, S, nh, hd))
+    k = _local.reshape(apply_dense(p["wk"], xk), (B, S, nh, hd))
+    v = _local.reshape(apply_dense(p["wv"], xv), (B, S, nh, hd))
     g = apply_dense(p["wg"], xg)
     dec = p["w0"] + torch.tanh(xw @ p["dec_w1"]) @ p["dec_w2"]
-    w = torch.exp(-torch.exp(dec.float())).reshape(B, S, nh, hd)
+    w = _local.reshape(torch.exp(-torch.exp(dec.float())), (B, S, nh, hd))
     o, wkv = rwkv6_wkv_scan(p, r, k, v, w, state["wkv"])
     og = o.float()
     og = (og - og.mean(-1, keepdim=True)) * torch.rsqrt(
         og.var(-1, keepdim=True, unbiased=False) + 64e-5)
-    o = (og.reshape(B, S, nh * hd) * p["ln_x_scale"]
+    o = (_local.reshape(og, (B, S, nh * hd)) * p["ln_x_scale"]
          + p["ln_x_bias"]).to(x.dtype)
     y = apply_dense(p["wo"], o * F.silu(g))
     return y, {"shift_tm": x[:, -1], "wkv": wkv}

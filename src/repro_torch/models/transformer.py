@@ -36,6 +36,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import _local
 from repro_torch.models import layers as L
 from repro_torch.models import recurrent as R
 
@@ -342,11 +343,24 @@ def forward(params: Params, cfg: ModelConfig, batch: dict,
     ``remat`` and no cache, each layer of a segment the reference scans
     (``Segment.scanned``) keeps only its input for the backward and is
     recomputed there.
+
+    Placed params and batch (DTensors, ``runtime/sharding.py::place``)
+    give the same function on the mesh: the plain tensors the forward
+    makes are taken as replicated (``_local.replicating``), the kernel
+    wrappers and the MoE run on local shards by their own rules. A
+    backward that recomputes (``remat``) must run under the same rule
+    (``launch/steps.py::value_and_grad`` does).
     """
+    with _local.replicating(params["embed"], *batch.values()):
+        return _forward(params, cfg, batch, cache, remat)
+
+
+def _forward(params: Params, cfg: ModelConfig, batch: dict,
+             cache: Params | None, remat: bool):
     if "tokens" in batch:
         tokens = batch["tokens"]
         B, S = tokens.shape
-        x = params["embed"][tokens]
+        x = L.embed(params["embed"], tokens)
     else:
         x = batch["embeds"]
         B, S, _ = x.shape
@@ -404,6 +418,9 @@ def loss_fn(params: Params, cfg: ModelConfig, batch: dict,
     nll = -logp.gather(-1, labels.clamp(min=0)[..., None].long())[..., 0]
     mask = (labels >= 0).float()
     loss = (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    # Placed, the sums over a batch split across ranks are partial: the
+    # loss comes back replicated, one value on every rank, as jax's is.
+    loss, aux = _local.replicated(loss), _local.replicated(aux)
     return loss + 0.01 * aux, {"loss": loss, "aux": aux}
 
 

@@ -14,6 +14,10 @@ returns them: a full-width model's state then needs no second copy. The
 step counter, the learning rate and the bias corrections are float32
 tensors, as in the reference; every leaf is updated in float32 and cast
 back to its parameter's dtype.
+
+Placed params (DTensors) take float32 or bfloat16 moments, placed as
+their leaves. The int8 moments' block codes of a sharded leaf are not
+ported (ROADMAP): a placed tree with int8 moments raises.
 """
 
 from __future__ import annotations
@@ -104,9 +108,20 @@ def _moment_like(p: torch.Tensor, dtype: str):
     return torch.zeros_like(p, dtype=getattr(torch, dtype))
 
 
+def _refuse_placed_int8(params, moment_dtype: str) -> None:
+    if moment_dtype == "int8" and any(
+            hasattr(t, "device_mesh") for t in tree_leaves(params)):
+        raise NotImplementedError(
+            "int8 AdamW moments of placed (DTensor) params: the per-layer "
+            "block codes of a sharded leaf are not ported (ROADMAP); use "
+            "float32 or bfloat16 moments on a mesh")
+
+
 def adamw_init(params, moment_dtype: str = "float32",
                error_feedback: bool = False) -> AdamWState:
-    """Zero moments beside every leaf, on the leaf's device."""
+    """Zero moments beside every leaf, on the leaf's device (placed as
+    the leaf, for a placed tree)."""
+    _refuse_placed_int8(params, moment_dtype)
     with torch.no_grad():
         mu = tree_map(lambda p: _moment_like(p, moment_dtype), params)
         nu = tree_map(lambda p: _moment_like(p, moment_dtype), params)
@@ -137,6 +152,7 @@ def adamw_update(params, grads, state: AdamWState, *, lr, b1=0.9, b2=0.95,
                  eps=1e-8, weight_decay=0.1, moment_dtype: str = "float32"):
     """One AdamW step, leaf by leaf in float32, written in place into
     ``params`` and ``state``'s moments. Returns (params, new state)."""
+    _refuse_placed_int8(params, moment_dtype)
     step = state.step + 1
     f32 = dict(dtype=torch.float32, device=step.device)
     lr_t = lr(step) if callable(lr) else torch.tensor(lr, **f32)

@@ -14,10 +14,20 @@ same structure whose leaves are specs: a tuple with one entry per dim,
 each ``None`` (replicated), an axis name, or a tuple of axis names (the
 dim split over their product), the entries of the reference's
 ``PartitionSpec``. ``shard_bytes`` gives the bytes one device holds of a
-leaf under its spec. Placing tensors on a mesh of devices
-(``torch.distributed``, DTensor) is the mesh runtime's work (ROADMAP A3);
-the dry run (``launch/dryrun.py``) reads these rules to count the bytes
-each device holds.
+leaf under its spec; the dry run (``launch/dryrun.py``) reads these rules
+to count the bytes each device holds.
+
+``param_shardings``, ``batch_shardings``, ``cache_shardings`` and
+``opt_state_shardings`` turn the specs into :class:`Sharding` objects, the
+counterpart of ``jax.sharding.NamedSharding``: a ``DeviceMesh`` and one
+DTensor placement per mesh dimension. A mesh dimension named by a tensor
+dimension's entry gets ``Shard(that dim)``, every other one
+``Replicate()``; a tuple such as ``("pod", "data")`` puts ``Shard(d)`` on
+each of its mesh dimensions, which splits d over their product with the
+first one major, as a ``PartitionSpec`` does (the tuple must follow the
+mesh's order, as every rule here writes it). ``place`` puts a tree on
+its shardings (``distribute_tensor``), the counterpart of
+``jax.device_put``.
 
 The port keeps each segment as a list of per-layer dicts where the
 reference stacks them on a leading axis. Parameter rules describe the
@@ -31,11 +41,18 @@ device bytes and are replicated.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 import re
 from typing import Any, Callable
 
+import torch
+from torch.distributed.device_mesh import DeviceMesh
+from torch.distributed.tensor import (DTensor, Replicate, Shard,
+                                      distribute_tensor)
+
 from repro_torch.configs.base import ModelConfig
+from repro_torch.launch.mesh import mesh_shape
 
 Spec = tuple
 
@@ -234,3 +251,104 @@ def opt_state_specs(param_sp: Any) -> Any:
     if isinstance(param_sp, list):
         return [opt_state_specs(v) for v in param_sp]
     return param_sp
+
+
+# ---------------------------------------------------------------------------
+# Shardings on a DeviceMesh, and placement
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class Sharding:
+    """A mesh, the spec, and the DTensor placements (one per mesh
+    dimension) it gives: the counterpart of ``NamedSharding``."""
+    mesh: DeviceMesh
+    spec: Spec
+    placements: tuple
+
+
+def named_sharding(mesh: DeviceMesh, spec: Spec) -> Sharding:
+    """``spec``'s placements on ``mesh``: ``Shard(d)`` on each mesh
+    dimension that the entry of tensor dim d names, ``Replicate()`` on the
+    rest."""
+    names = mesh.mesh_dim_names
+    owner: dict[str, int] = {}
+    for d, entry in enumerate(spec):
+        axes = _split(entry)
+        for a in axes:
+            if a not in names:
+                raise ValueError(f"spec {spec} names {a!r}, not an axis of "
+                                 f"the mesh {names}")
+            if a in owner:
+                raise ValueError(f"spec {spec} names {a!r} twice")
+            owner[a] = d
+        if list(axes) != sorted(axes, key=names.index):
+            raise ValueError(f"spec entry {entry} is not in the mesh's "
+                             f"order {names}")
+    return Sharding(mesh, tuple(spec), tuple(
+        Shard(owner[a]) if a in owner else Replicate() for a in names))
+
+
+def _shardings(mesh: DeviceMesh, specs: Any) -> Any:
+    return map_with_path(lambda _, spec: named_sharding(mesh, spec), specs)
+
+
+def param_shardings(cfg: ModelConfig, mesh: DeviceMesh, params: Any,
+                    fsdp: bool | None = None) -> Any:
+    """A :class:`Sharding` per leaf of a params tree (``param_specs``)."""
+    return _shardings(mesh, param_specs(cfg, mesh_shape(mesh), params, fsdp))
+
+
+def batch_shardings(mesh: DeviceMesh, batch: Any,
+                    seq_shard: bool = False) -> Any:
+    """A :class:`Sharding` per leaf of a batch (``batch_specs``)."""
+    return _shardings(mesh, batch_specs(mesh_shape(mesh), batch, seq_shard))
+
+
+def cache_shardings(mesh: DeviceMesh, cache: Any) -> Any:
+    """A :class:`Sharding` per leaf of a cache (``cache_specs``); host ints
+    get one too and stay host ints when placed."""
+    return _shardings(mesh, cache_specs(mesh_shape(mesh), cache))
+
+
+def opt_state_shardings(param_sh: Any) -> Any:
+    """ZeRO-1 as the reference's rules module states it: the moments'
+    shardings are the parameters' (``opt_state_specs``)."""
+    return opt_state_specs(param_sh)
+
+
+def place(tree: Any, shardings: Any) -> Any:
+    """``tree`` with each tensor leaf a DTensor on its :class:`Sharding`
+    (a tree of ``tree``'s structure), the counterpart of
+    ``jax.device_put``; host ints stay as they are. Every rank holds the
+    leaf's whole value, as every process of a jax program holds a global
+    array's: each takes its own shard, and no data moves between ranks
+    (``src_data_rank=None``). The placed tree shares no storage with
+    ``tree`` (AdamW writes placed params in place). A DTensor leaf is
+    redistributed."""
+    def one(leaf, sh):
+        if not isinstance(leaf, torch.Tensor):
+            return leaf
+        if isinstance(leaf, DTensor):
+            return leaf.redistribute(sh.mesh, sh.placements)
+        placed = distribute_tensor(leaf, sh.mesh, sh.placements,
+                                   src_data_rank=None)
+        if placed.to_local().untyped_storage().data_ptr() == \
+                leaf.untyped_storage().data_ptr():
+            placed = placed.clone()     # the shard was a view of the leaf
+        return placed
+    return _zip_map(one, tree, shardings)
+
+
+def _zip_map(fn: Callable, tree: Any, other: Any) -> Any:
+    """``fn(leaf, node)`` over ``tree``'s leaves and the nodes at the same
+    places of ``other`` (dicts, lists, named tuples; ``None`` stays)."""
+    if isinstance(tree, dict):
+        return {k: _zip_map(fn, v, other[k]) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_zip_map(fn, v, o) for v, o in zip(tree, other)]
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_zip_map(fn, v, o) for v, o in zip(tree, other)))
+    if tree is None:
+        return None
+    return fn(tree, other)

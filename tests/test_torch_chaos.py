@@ -507,6 +507,22 @@ def test_install_stage_fault_kills_a_real_stage_mid_stream():
         px.close()
 
 
+def _price_survivor_out_until_it_serves(pool, survivor: int) -> None:
+    """Warm-start the survivor's latency at an hour a batch (a warm start
+    never overrides a measurement, and neither replica has one yet). The
+    least-wait router then places every batch on the victim until the
+    victim has failed ``quarantine_after`` batches in a row and is
+    quarantined, so the victim is sure to receive the batch it is set to
+    die on, whatever the batches cost on a loaded host: priced on measured
+    times, the router may send the victim fewer batches than its kill
+    needs. From then on the survivor is the one replica alive and carries
+    the rest; neither replica's price can flag the other a straggler (the
+    router's factor is 3 x the fleet median), so no probe goes to the
+    survivor before the kill."""
+    pool.router.estimators[survivor].warm_start(pool.router.batch_key,
+                                                3600.0)
+
+
 def test_kill_one_of_two_real_replicas_mid_stream():
     """One of two real pipeline replicas is killed at its third batch
     behind the frontend: no request hangs, each resolves completed or
@@ -522,6 +538,7 @@ def test_kill_one_of_two_real_replicas_mid_stream():
     pool = ReplicaPool(executors=[victim, reps[1]], router_seed=0,
                        quarantine_after=2, probe_every=4)
     pool.router.warm_start(0.004, 0.008)
+    _price_survivor_out_until_it_serves(pool, survivor=1)
     fe = AsyncFrontend(pool, max_wait_ms=5.0, max_queue=1024)
     mix = (TrafficClass("rt", priority=1, deadline_ms=5000.0),)
     sched, _ = make_scenario_schedule("uniform", n, 400.0, mix, seed=2)

@@ -740,3 +740,70 @@ def test_linear_scan_launches_on_the_card_and_not_on_meta(gen):
     m = linear_scan(a.to("meta"), b.to("meta"))
     assert m.device.type == "meta" and m.shape == h.shape
     assert linear_scan.launches == before + 1
+
+
+# ---------------------------------------------------------------------------
+# The kernel wrappers under DTensor on a one-rank mesh
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def one_rank_mesh(gen, tmp_path):
+    """A (1, 1) mesh on cuda:0 over a one-rank NCCL group."""
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as M
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        yield M.make_debug_mesh(1, 1)
+    finally:
+        dist.destroy_process_group()
+
+
+def _placed(mesh, *tensors):
+    from repro_torch.runtime import sharding as SH
+    return [SH.place(t, SH.named_sharding(mesh, ())) for t in tensors]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,KV,d,window", [(2, 256, 8, 2, 128, 0),
+                                               (1, 300, 4, 1, 256, 128)])
+def test_flash_attention_on_dtensors_equals_plain_launch(
+        gen, one_rank_mesh, dtype, B, S, H, KV, d, window):
+    """The wrapper's DTensor rule on a one-rank mesh: one launch on the
+    local shard, the same output as the plain-tensor launch bit for bit,
+    a DTensor on the operands' placements."""
+    q = torch.randn((B, S, H, d), generator=gen, device="cuda").to(dtype)
+    k = torch.randn((B, S, KV, d), generator=gen, device="cuda").to(dtype)
+    v = torch.randn((B, S, KV, d), generator=gen, device="cuda").to(dtype)
+    want = flash_attention(q, k, v, causal=True, window=window)
+    before = flash_attention.launches
+    got = flash_attention(*_placed(one_rank_mesh, q, k, v), causal=True,
+                          window=window)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert got.device_mesh is one_rank_mesh
+    assert torch.equal(got.to_local(), want)
+
+
+def test_linear_scan_on_dtensors_equals_plain_launch(gen, one_rank_mesh):
+    """The same for ``linear_scan``, forward and gradient: one launch each
+    way, bit for bit the plain-tensor calls'."""
+    a = torch.rand((2, 300, 256), generator=gen, device="cuda")
+    b = torch.randn((2, 300, 256), generator=gen, device="cuda")
+    dh = torch.randn((2, 300, 256), generator=gen, device="cuda")
+    a0, b0 = a.clone().requires_grad_(), b.clone().requires_grad_()
+    want = linear_scan(a0, b0)
+    want_da, want_db = torch.autograd.grad(want, (a0, b0), dh)
+    pa, pb, pdh = _placed(one_rank_mesh, a, b, dh)
+    pa.requires_grad_()
+    pb.requires_grad_()
+    before = dict(linear_scan.launches_by_path)
+    got = linear_scan(pa, pb)
+    da, db = torch.autograd.grad(got, (pa, pb), pdh)
+    torch.cuda.synchronize()
+    assert linear_scan.launches_by_path == {
+        k: v + 1 for k, v in before.items()}
+    assert torch.equal(got.to_local(), want)
+    assert torch.equal(da.to_local(), want_da)
+    assert torch.equal(db.to_local(), want_db)

@@ -522,8 +522,9 @@ def test_meta_forward_has_the_cpu_forwards_shapes(arch):
 
 def test_main_writes_one_json_per_cell(tmp_path):
     """Each cell's record: status, bytes per device, FLOPs (total and
-    over the devices), no collectives; a skipped cell says why; int8
-    params hold fewer bytes than bf16 ones."""
+    over the devices), collectives counted by kind from the placed step
+    (ROADMAP A3.1); a skipped cell says why; int8 params hold fewer bytes
+    than bf16 ones."""
     out = tmp_path / "dr"
     assert dryrun.main(["--arch", "recurrentgemma-2b", "--shape",
                         "decode_32k", "--mesh", "both", "--out",
@@ -553,7 +554,10 @@ def test_main_writes_one_json_per_cell(tmp_path):
         assert r["cost"]["flops"] > 0
         assert r["cost"]["flops_over_n_devices"] == \
             r["cost"]["flops"] / r["n_devices"]
-        assert r["collectives"] is None and "A3" in r["collectives_note"]
+        coll = r["collectives"]
+        assert sum(coll["count_per_kind"].values()) > 0
+        assert coll["total_bytes"] == sum(coll["bytes_per_kind"].values())
+        assert "fake process group" in r["collectives_note"]
     pod = res["recurrentgemma-2b_decode_32k_pod_pjit.json"]
     multi = res["recurrentgemma-2b_decode_32k_multipod_pjit.json"]
     assert (pod["n_devices"], multi["n_devices"]) == (256, 512)
