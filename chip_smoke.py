@@ -3,8 +3,9 @@ NVIDIA GPU: the quickest proof that the port builds, is right, and serves.
 
     python3 chip_smoke.py
 
-Phases, one JSON line each; any failure exits nonzero without the final
-line:
+Phases, one JSON line each (every line also kept whole in
+``chiprun_out/chip_smoke.jsonl`` under the working directory); any
+failure exits nonzero without the final line:
 
 1. environment: the card, its power limit, torch/CUDA versions, and the
    build of every CUDA source of the port with ``nvcc`` (one ``nvcc`` per
@@ -181,20 +182,40 @@ line:
    float32 output within the CPU tests' bound of it, the all-reduce count
    (``CommDebugMode``), the layer's and the all-reduce's wall ms; a
    failed child fails the run;
-19. ``dryrun`` (phase 19): ``python -m repro_torch.launch.dryrun --all
+19. ``pipeline_lm``: the flexible layer pipeline (``core/pipeline.py``):
+   full-width Yi-6B (seed 0, bf16, each rank drawing only its own part)
+   over a (data 1, stage 2, tp 2) mesh of four gloo processes, all on
+   cuda:0: the pipelined prefill on 2 x 2048 tokens at K 2, exactly
+   (K + S - 1) x 16 = 48 ``flash_attention`` launches on each rank, its
+   last-token logits within ``LM_ROUTE_TOL`` of the sequential kernel
+   forward of the same weights (top-1 agreement recorded); one pipelined
+   loss and its backward on 2 x 1024 tokens (no launch: the plain
+   attention under autograd), the same loss on every rank within
+   ``PIPE_LOSS_TOL`` of the sequential one, every gradient leaf finite
+   and nonzero, a few within ``PIPE_GRAD_TOL`` of the sequential
+   gradient's slice; each rank's wall, device busy and idle share, peak
+   memory, its collectives' calls and bytes, the ms it spends in them,
+   and one tp all-reduce and one hand-off timed alone; a failed child
+   fails the run;
+20. ``dryrun`` (phase 19): ``python -m repro_torch.launch.dryrun --all
    --mesh pod`` in spawned processes that see no card (each cell's
    status, seconds, bytes per device, FLOPs, and the collectives of the
    step traced placed in a fake process group, counted by kind), every
-   runnable cell ok with collectives and the rest skipped;
+   runnable cell ok with collectives and the rest skipped; the same
+   sweep with ``--dist pipeline``: the reference's status for each cell
+   (decode shapes, DeepSeek's train plans and the VLM's prefill errors,
+   RecurrentGemma-2B "ok", C9), every traced cell's plan and its stage
+   hand-off counted;
    RecurrentGemma-2B's ``abstract_state`` bytes equal
    to the state phase ``train`` held, the int8 Yi-6B params' bytes equal
    to phase ``int8``'s, and the meta FLOPs of the 2 x 1024 train step
    beside phase ``train``'s ``model_flops``;
-20. the ``kernels`` line (with a ``flash_attention`` entry for each of
+21. the ``kernels`` line (with a ``flash_attention`` entry for each of
    Yi-6B, RecurrentGemma-2B, Qwen2-VL-2B and SeamlessM4T-medium, and
    ``linear_scan`` entries for the forward, and for training's forward
    and backward; the Yi-6B entry's ``launches_on`` holds the int8
-   forward's and the placed forward's), the card's ``nvidia-smi`` name
+   forward's, the placed forward's and the pipelined prefill's summed
+   over its four ranks), the card's ``nvidia-smi`` name
    and power limit, and
    last ``{"ok": true, "device": {...}}``.
 """
@@ -228,6 +249,7 @@ from torch.distributed.tensor.debug import CommDebugMode  # noqa: E402
 from repro_torch import checkpointing as ckpt  # noqa: E402
 from repro_torch import optim  # noqa: E402
 from repro_torch.configs import ARCHS, reduced  # noqa: E402
+from repro_torch.core import pipeline as PL  # noqa: E402
 from repro_torch.core.executor import EngineExecutor  # noqa: E402
 from repro_torch.core.program import ROUTES  # noqa: E402
 from repro_torch.core.workload import CNN_MODELS  # noqa: E402
@@ -397,6 +419,10 @@ FLASH_CASES = [
      True, 130),
     ("d 128 Sq 1000 < Skv 2049 window 1000", 2, 1000, 2049, 8, 1, 128,
      torch.bfloat16, True, 1000),
+    # A tp rank's shard of Yi-6B in phase pipeline_lm: one microbatch row,
+    # 16 query and 2 KV heads.
+    ("d 128 GQA 16:2 S 2048 (Yi-6B's tp shard)", 1, 2048, 2048, 16, 2, 128,
+     torch.bfloat16, True, 0),
 ]
 # q/k/v as strided views into one fused [B, S, 3, H, d] projection: (S, d).
 FLASH_STRIDED = [(128, 64), (300, 128), (1000, 256)]
@@ -555,8 +581,17 @@ class SmokeFailure(Exception):
     pass
 
 
+# Every line the run prints, also kept whole in the working directory's
+# chiprun_out/ (a caller that keeps only the end of the output keeps this).
+RUN_LOG = Path("chiprun_out") / "chip_smoke.jsonl"
+
+
 def emit(obj) -> None:
-    print(json.dumps(obj), flush=True)
+    line = json.dumps(obj)
+    print(line, flush=True)
+    RUN_LOG.parent.mkdir(exist_ok=True)
+    with open(RUN_LOG, "a") as f:
+        f.write(line + "\n")
 
 
 def card_peaks(name: str) -> tuple[str, float, float, float]:
@@ -4067,6 +4102,393 @@ def phase_mesh(env: dict) -> dict:
     return {"launches": one["launches"], **row}
 
 
+# ---------------------------------------------------------------------------
+# Phase pipeline_lm: the flexible layer pipeline (core/pipeline.py)
+# ---------------------------------------------------------------------------
+
+# Full-width Yi-6B over a (data 1, stage 2, tp 2) mesh of four gloo
+# processes, all on cuda:0 (the machine has one card, and NCCL puts no two
+# ranks on one GPU): the prefill on PIPE_B x PIPE_S tokens, then one loss
+# and its backward on PIPE_B x PIPE_LOSS_S, K microbatches each.
+PIPE_MESH = (1, 2, 2)
+PIPE_WORLD = math.prod(PIPE_MESH)
+PIPE_B, PIPE_S, PIPE_LOSS_S, PIPE_K = 2, 2048, 1024, 2
+PIPE_REPS = 2
+PIPE_JOIN_S = 420
+# Tolerances of the pipelined loss and gradient against the sequential
+# ones of the same bf16 weights, each twice the largest spread measured by
+# this script on an NVIDIA H100 80GB HBM3 at 700 W. The two compute the
+# same function in another order (each block's products split over tp and
+# summed in bf16, microbatches of one row, the vocab-parallel log-sum-exp),
+# so the bf16 rounding of 32 layers, not the pipeline, sets their distance,
+# as it sets LM_ROUTE_TOL's (the logits are held to that). Measured: the
+# loss (11.556) 2.4e-4 from the sequential one, every rank the same; the
+# compared gradient leaves at most 0.0343 in relative L2 (the first
+# layer's wq shard; the final norm 0.0163).
+PIPE_LOSS_TOL = 5e-4
+PIPE_GRAD_TOL = 0.07     # relative L2 of a compared leaf
+# (name, stage, slot, path) of the gradient leaves held against the
+# sequential gradient: tp-replicated, column- and row-split unit leaves of
+# both stages, and the vocab-split tables.
+PIPE_GRAD_LEAVES = [("final_norm", None, None, "final_norm/scale"),
+                    ("embed", None, None, "embed"),
+                    ("lm_head", None, None, "lm_head/w"),
+                    ("ln1 first", 0, 0, "ln1/scale"),
+                    ("wq first", 0, 0, "attn/wq/w"),
+                    ("wo last", 1, -1, "mlp/wo/w")]
+
+
+def _pipe_batch(cfg, S: int, seed: int) -> dict:
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    tokens = torch.randint(0, cfg.vocab, (PIPE_B, S), generator=gen,
+                           device="cuda")
+    return {"tokens": tokens, "labels": torch.roll(tokens, -1, 1)}
+
+
+def _pipe_leaf(params: dict, stage, slot, path: str, pm=None):
+    """A leaf of the whole params (``pm`` None) or of one rank's, by
+    ``PIPE_GRAD_LEAVES``' address."""
+    if slot is None:
+        node = params
+    else:
+        node = params["units"][stage][slot] if pm is None else \
+            params["units"][slot]
+    for k in path.split("/"):
+        node = node[k]
+    return node
+
+
+def _pipe_timed_comm(fn, calls: dict):
+    """``fn`` wrapped to add its wall ms (synchronised on both sides, so the
+    device work before it is not counted) to ``calls``."""
+    def timed(*args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        calls["ms"] += (time.perf_counter() - t0) * 1e3
+        calls["calls"] += 1
+        return out
+    return timed
+
+
+def _pipe_run(fn, reps: int) -> tuple:
+    """(result of the first call, the median wall ms of ``reps`` later
+    synchronised calls; every rank starts each call together)."""
+    walls, out = [], None
+    for i in range(reps + 1):
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = fn()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        out = got if out is None else out
+    return out, float(np.median(walls[1:])), walls[0]
+
+
+def _pipe_instrumented(fn) -> dict:
+    """One more call of ``fn`` with each collective of the pipeline module
+    timed: the ms each rank spends in its all-reduces and in the stage
+    hand-off, waiting for its peers included."""
+    stats = {"all_reduce": {"ms": 0.0, "calls": 0},
+             "handoff": {"ms": 0.0, "calls": 0}}
+    saved = PL._all_reduce, PL._send_recv
+    PL._all_reduce = _pipe_timed_comm(saved[0], stats["all_reduce"])
+    PL._send_recv = _pipe_timed_comm(saved[1], stats["handoff"])
+    try:
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        stats["wall_ms"] = (time.perf_counter() - t0) * 1e3
+    finally:
+        PL._all_reduce, PL._send_recv = saved
+    return stats
+
+
+def _pipe_comm_alone(pm, like: torch.Tensor) -> dict:
+    """The wall ms of one tp all-reduce and one stage hand-off of a
+    microbatch's activations (``like``) alone, the medians of a few."""
+    y = like.clone()
+    ar, ho = [], []
+    for _ in range(PIPE_REPS + 2):
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        PL._all_reduce(y, pm.axes("tp"))
+        torch.cuda.synchronize()
+        ar.append((time.perf_counter() - t0) * 1e3)
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        PL._send_recv(y if pm.stage == 0 else None, 1 if pm.stage == 0
+                      else None, y, 0 if pm.stage == 1 else None,
+                      pm.groups["stage"][0])
+        torch.cuda.synchronize()
+        ho.append((time.perf_counter() - t0) * 1e3)
+    return {"all_reduce_ms": float(np.median(ar[1:])),
+            "handoff_ms": float(np.median(ho[1:])),
+            "bytes": like.numel() * like.element_size()}
+
+
+def _pipe_rank(rank: int, root: str) -> None:
+    """One rank of phase pipeline_lm: its stage's units and tp slices drawn
+    on cuda:0 (seed 0), the pipelined prefill (kernel attention) and the
+    pipelined loss with its backward (plain attention). Writes
+    ``rank<r>.json`` and its tensors (``rank<r>.pt``) under ``root``."""
+    torch.cuda.set_device(0)
+    _mesh_group(root, PIPE_WORLD, rank, "gloo")
+    out: dict = {}
+    try:
+        cfg = ARCHS[LM_ARCH]
+        mesh = PL.make_pipeline_mesh(*PIPE_MESH)
+        pm = PL.PipelineCoords.of(mesh)
+        out["coords"] = {"stage": pm.stage, "tp": pm.tp}
+        t0 = time.perf_counter()
+        params, kind = PL.build_pipeline_params(cfg, PIPE_MESH[1], seed=0,
+                                                device="cuda", coords=pm)
+        torch.cuda.synchronize()
+        out["build_s"] = time.perf_counter() - t0
+        leaves = [t for t in T._leaves({k: v for k, v in params.items()
+                                        if k != "unit_mask"})
+                  if t.is_floating_point()]
+        leaves = list({id(t): t for t in leaves}.values())
+        out["param_bytes"] = sum(t.numel() * t.element_size()
+                                 for t in leaves)
+        ctx = PL.PipelineContext(cfg=cfg, unit_kind=kind, S=PIPE_MESH[1],
+                                 T=PIPE_MESH[2], n_micro=PIPE_K)
+        batch = _pipe_batch(cfg, PIPE_S, seed=1)
+        prefill = PL.pipeline_prefill_fn(ctx, mesh)
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        PL.reset_comm_counts()
+        dist.barrier()
+        logits = prefill(params, {"tokens": batch["tokens"]})
+        torch.cuda.synchronize()
+        out["prefill"] = {
+            "launches": launches(),
+            "comm": {k: dict(v) for k, v in PL.comm_counts.items()},
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+        _, wall, first = _pipe_run(
+            lambda: prefill(params, {"tokens": batch["tokens"]}), PIPE_REPS)
+        ops = _device_ops(lambda: prefill(params,
+                                          {"tokens": batch["tokens"]}))
+        busy = sum(us for _, us, _ in ops) / 1e3
+        out["prefill"].update(
+            wall_ms_median=wall, first_call_ms=first, device_busy_ms=busy,
+            flash_attention_ms=sum(us for k, us, _ in ops
+                                   if "flash_fwd" in k) / 1e3,
+            idle_share=max(0.0, 1.0 - busy / wall),
+            comm_in_path=_pipe_instrumented(
+                lambda: prefill(params, {"tokens": batch["tokens"]})))
+        # The loss and its backward: params marked trainable, attention on
+        # the plain path (the kernel has no gradient).
+        loss_batch = _pipe_batch(cfg, PIPE_LOSS_S, seed=2)
+        loss_fn = PL.pipeline_loss_fn(ctx, mesh)
+        mine = {name: _pipe_leaf(params, stage, slot, path, pm)
+                for name, stage, slot, path in PIPE_GRAD_LEAVES
+                if stage is None or stage == pm.stage}
+        for t in leaves:
+            t.requires_grad_(True)
+
+        def step():
+            """The loss, the compared leaves' gradients (on the host) and
+            whether every leaf's gradient is finite, and how many are 0:
+            one gradient tree alive at a time."""
+            loss = loss_fn(params, loss_batch)
+            grads = torch.autograd.grad(loss, leaves)
+            by_id = {id(t): g for t, g in zip(leaves, grads)}
+            return (float(loss.detach()),
+                    {k: by_id[id(t)].float().cpu() for k, t in mine.items()},
+                    all(bool(torch.isfinite(g).all()) for g in grads),
+                    sum(not bool(g.any()) for g in grads))
+
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        PL.reset_comm_counts()
+        (loss, got, finite, zeros), wall, first = _pipe_run(step, 1)
+        out["loss"] = {
+            "value": loss, "wall_ms_median": wall, "first_call_ms": first,
+            "launches": launches(),
+            "comm": {k: {n: v // 2 for n, v in row.items()}
+                     for k, row in PL.comm_counts.items()},
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "grad_leaves": len(leaves), "grad_finite": finite,
+            "grad_zero_leaves": zeros}
+        ops = _device_ops(step)
+        busy = sum(us for _, us, _ in ops) / 1e3
+        out["loss"].update(device_busy_ms=busy,
+                           idle_share=max(0.0, 1.0 - busy / wall),
+                           comm_in_path=_pipe_instrumented(step))
+        tensors = {"grads": got}
+        if rank == 0:
+            tensors["logits"] = logits.cpu()
+        for t in leaves:
+            t.requires_grad_(False)
+        out["comm_alone"] = _pipe_comm_alone(pm, torch.zeros(
+            (PIPE_B // PIPE_K, PIPE_S, cfg.d_model), dtype=torch.bfloat16,
+            device="cuda"))
+        out["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        torch.save(tensors, os.path.join(root, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(root, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def _pipe_spawn(root: str) -> list:
+    """The four ranks; a failed or hung child fails the run."""
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_pipe_rank, args=(r, root))
+             for r in range(PIPE_WORLD)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(timeout=max(1.0, PIPE_JOIN_S - (time.perf_counter() - t0)))
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    codes = [p.exitcode for p in procs]
+    if codes != [0] * PIPE_WORLD:
+        raise SmokeFailure(f"the {PIPE_WORLD} pipeline ranks exited {codes}")
+    return [json.loads(Path(root, f"rank{r}.json").read_text())
+            for r in range(PIPE_WORLD)]
+
+
+def phase_pipeline_lm(env: dict) -> dict:
+    """Full-width Yi-6B pipelined over (data 1, stage 2, tp 2), four gloo
+    ranks on cuda:0: the prefill's last-token logits against the sequential
+    kernel forward of the same weights (drawn here from the same per-unit
+    generators), exactly (K + S - 1) x 16 ``flash_attention`` launches a
+    rank; the loss against the sequential loss, every gradient leaf finite
+    and nonzero, a few against the sequential gradient; wall, collectives,
+    memory and idle share a rank."""
+    t_phase = time.perf_counter()
+    cfg = ARCHS[LM_ARCH]
+    S, K = PIPE_MESH[1], PIPE_K
+    with tempfile.TemporaryDirectory(prefix="pipeline_lm_") as root:
+        ranks = _pipe_spawn(root)
+        tensors = [torch.load(os.path.join(root, f"rank{r}.pt"))
+                   for r in range(PIPE_WORLD)]
+    spawn_s = time.perf_counter() - t_phase
+    want_launches = (K + S - 1) * cfg.n_layers // S
+    # The sequential reference, the whole params on this process.
+    full, kind = PL.build_pipeline_params(cfg, S, seed=0, device="cuda")
+    batch = _pipe_batch(cfg, PIPE_S, seed=1)
+    reset_launches()
+    t0 = time.perf_counter()
+    want_logits = PL.sequential_prefill(full, cfg, kind,
+                                        {"tokens": batch["tokens"]})
+    torch.cuda.synchronize()
+    seq_prefill_ms = (time.perf_counter() - t0) * 1e3
+    seq_launches = launches()["flash_attention"]
+    got_logits = tensors[0]["logits"].cuda()
+    logits_check = {**_close(got_logits, want_logits),
+                    "top1_agreement": float((got_logits.argmax(-1)
+                                             == want_logits.argmax(-1))
+                                            .float().mean()),
+                    "finite": bool(torch.isfinite(got_logits).all())}
+    loss_batch = _pipe_batch(cfg, PIPE_LOSS_S, seed=2)
+    compared = {name: _pipe_leaf(full, stage, slot, path)
+                for name, stage, slot, path in PIPE_GRAD_LEAVES}
+    wanted = list({id(t): t for t in compared.values()}.values())
+    for t in wanted:
+        t.requires_grad_(True)
+    try:
+        t0 = time.perf_counter()
+        seq_loss = PL.sequential_loss(full, cfg, kind, loss_batch,
+                                      remat=True)
+        seq_grads = torch.autograd.grad(seq_loss, wanted)
+        seq_loss = float(seq_loss.detach())
+        torch.cuda.synchronize()
+        seq_loss_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        for t in wanted:
+            t.requires_grad_(False)
+    by_id = {id(t): g.float() for t, g in zip(wanted, seq_grads)}
+    del seq_grads
+    grad_rows = []
+    for r, (row, ten) in enumerate(zip(ranks, tensors)):
+        pm = PL.PipelineCoords(stage=row["coords"]["stage"], S=S,
+                               tp=row["coords"]["tp"], T=PIPE_MESH[2])
+        lo, hi = PL._vocab_range(cfg.vocab, S * PIPE_MESH[2], pm.vp)
+        for name, stage, slot, path in PIPE_GRAD_LEAVES:
+            if name not in ten["grads"]:
+                continue
+            want = by_id[id(compared[name])]
+            if name == "embed":
+                sl = (slice(lo, hi),)
+            elif name == "lm_head":
+                sl = (slice(None), slice(lo, hi))
+            elif slot is None:
+                sl = ()
+            else:
+                unit = full["units"][pm.stage][slot]
+                d = PL.unit_tp_dims(cfg, pm.T, unit)[path]
+                n = None if d is None else want.shape[d] // pm.T
+                sl = () if d is None else (slice(None),) * d + (
+                    slice(pm.tp * n, (pm.tp + 1) * n),)
+            got = ten["grads"][name].cuda()
+            ref = want[sl]
+            grad_rows.append({
+                "rank": r, "leaf": name, "shape": list(got.shape),
+                "rel_l2": float((got - ref).norm() / ref.norm()),
+                "max_abs_diff_over_max": float((got - ref).abs().max()
+                                               / ref.abs().max())})
+    del full, by_id, compared, wanted
+    torch.cuda.empty_cache()
+    losses = [r["loss"]["value"] for r in ranks]
+    row = {"phase": "pipeline_lm", "arch": LM_ARCH,
+           "mesh": dict(zip(("data", "stage", "tp"), PIPE_MESH)),
+           "backend": "gloo", "device": "cuda:0 for all four ranks",
+           "microbatches": K, "prefill_tokens": [PIPE_B, PIPE_S],
+           "loss_tokens": [PIPE_B, PIPE_LOSS_S],
+           "handoff_transport": "pinned host buffers (gloo sends no CUDA "
+                                "tensor)",
+           "ranks": ranks, "spawn_and_ranks_s": spawn_s,
+           "expected_flash_attention_per_rank": want_launches,
+           "sequential": {"prefill_ms": seq_prefill_ms,
+                          "prefill_flash_attention": seq_launches,
+                          "loss": float(seq_loss), "loss_ms": seq_loss_ms},
+           "logits_vs_sequential": logits_check,
+           "loss_vs_sequential": [v - float(seq_loss) for v in losses],
+           "grads_vs_sequential": grad_rows,
+           "route_tol": LM_ROUTE_TOL, "loss_tol": PIPE_LOSS_TOL,
+           "grad_rel_l2_tol": PIPE_GRAD_TOL,
+           "phase_s": time.perf_counter() - t_phase,
+           "card": env["nvidia_smi"]}
+    emit(row)
+    bad = [r for r in ranks if r["prefill"]["launches"] != {
+        "gemm_int8": 0, "flash_attention": want_launches, "linear_scan": 0}
+        or r["loss"]["launches"]["flash_attention"]]
+    if bad:
+        raise SmokeFailure(f"pipelined launches: {[r['prefill']['launches'] for r in ranks]}, "
+                           f"expected {want_launches} flash_attention a "
+                           f"rank in the prefill and none in the loss")
+    if not (logits_check["finite"]
+            and logits_check["max_abs_diff"] <= LM_ROUTE_TOL):
+        raise SmokeFailure(f"pipelined logits off the sequential forward's: "
+                           f"{logits_check}")
+    if max(losses) - min(losses) > 0 or \
+            max(abs(d) for d in row["loss_vs_sequential"]) > PIPE_LOSS_TOL:
+        raise SmokeFailure(f"pipelined loss {losses} against the "
+                           f"sequential {float(seq_loss)}")
+    if not all(r["loss"]["grad_finite"] and r["loss"]["grad_zero_leaves"]
+               == 0 for r in ranks):
+        raise SmokeFailure("a pipelined gradient leaf is not finite or is "
+                           "zero")
+    if max(g["rel_l2"] for g in grad_rows) > PIPE_GRAD_TOL:
+        raise SmokeFailure(f"pipelined gradient leaves off the sequential "
+                           f"gradient: {grad_rows}")
+    return {"launches_per_rank": want_launches,
+            "launches": sum(r["prefill"]["launches"]["flash_attention"]
+                            for r in ranks), **row}
+
+
 def _meta_bytes(tree) -> int:
     """Bytes of a tree's tensors from their shapes and dtypes (the meta
     device has no storage to ask)."""
@@ -4079,12 +4501,24 @@ def _meta_bytes(tree) -> int:
     return 0
 
 
-def phase_dryrun(env: dict, train: dict, int8: dict) -> dict:
-    t_phase = time.perf_counter()
+# The reference's statuses under --dist pipeline (tests/test_torch_dryrun.py
+# holds the port's to them): a decode shape raises; DeepSeek-V2/V3's train
+# plans fit no HBM (plan_pipeline raises); the VLM's prefill batch holds no
+# tokens, which the reference's prefill reads; RecurrentGemma-2B's
+# unsupported kind comes back "ok" (ROADMAP C9).
+PIPE_DRYRUN_ERRORS = {("deepseek-v3-671b", "train_4k"),
+                      ("deepseek-v2-236b", "train_4k"),
+                      ("qwen2-vl-2b", "prefill_32k")}
+
+
+def _dryrun_sweep(dist_: str) -> tuple:
+    """``launch/dryrun.py --all --mesh pod --dist <dist_>`` in spawned
+    processes that see no card: (the finished process, cells by tag, s)."""
     jobs = min(DRYRUN_JOBS, os.cpu_count() or 1)
     with tempfile.TemporaryDirectory(prefix="dryrun_") as out:
         cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
-               "--mesh", "pod", "--jobs", str(jobs), "--out", out]
+               "--mesh", "pod", "--dist", dist_, "--jobs", str(jobs),
+               "--out", out]
         # The sweep runs on the meta device: no process of it sees the card.
         penv = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
                     CUDA_VISIBLE_DEVICES="")
@@ -4094,6 +4528,36 @@ def phase_dryrun(env: dict, train: dict, int8: dict) -> dict:
         sweep_s = time.perf_counter() - t0
         cells = {p.stem: json.loads(p.read_text())
                  for p in sorted(Path(out).glob("*.json"))}
+    emit({"phase": f"dryrun_cells_{dist_}", "sweep_s": sweep_s,
+          "jobs": jobs, "exit_code": proc.returncode,
+          "columns": ["cell", "status", "compile_s",
+                      "argument_bytes_per_device",
+                      "output_bytes_per_device", "flops",
+                      "flops_over_n_devices", "collectives_count_per_kind",
+                      "collectives_total_bytes", "plan"],
+          "cells": [[tag, c["status"], c.get("compile_s"),
+                     c.get("memory", {}).get("argument_size_in_bytes"),
+                     c.get("memory", {}).get("output_size_in_bytes"),
+                     c.get("cost", {}).get("flops"),
+                     c.get("cost", {}).get("flops_over_n_devices"),
+                     (c.get("collectives") or {}).get("count_per_kind"),
+                     (c.get("collectives") or {}).get("total_bytes"),
+                     c.get("plan")]
+                    for tag, c in cells.items()]})
+    return proc, cells, sweep_s
+
+
+def _pipeline_status(arch: str, cfg, shape: str) -> str:
+    if not cell_is_runnable(cfg, shape)[0]:
+        return "skipped"
+    if SHAPES[shape].mode == "decode" or (arch, shape) in PIPE_DRYRUN_ERRORS:
+        return "error"
+    return "ok"
+
+
+def phase_dryrun(env: dict, train: dict, int8: dict) -> dict:
+    t_phase = time.perf_counter()
+    proc, cells, sweep_s = _dryrun_sweep("pjit")
     if proc.returncode != 0:
         raise SmokeFailure(f"the dry run exited {proc.returncode}: "
                            f"{proc.stdout[-2000:]} {proc.stderr[-2000:]}")
@@ -4101,20 +4565,6 @@ def phase_dryrun(env: dict, train: dict, int8: dict) -> dict:
             "ok" if cell_is_runnable(cfg, shape)[0] else "skipped"
             for arch, cfg in ARCHS.items() for shape in SHAPES}
     got = {tag: c["status"] for tag, c in cells.items()}
-    emit({"phase": "dryrun_cells", "sweep_s": sweep_s, "jobs": jobs,
-          "columns": ["cell", "status", "compile_s",
-                      "argument_bytes_per_device",
-                      "output_bytes_per_device", "flops",
-                      "flops_over_n_devices", "collectives_count_per_kind",
-                      "collectives_total_bytes"],
-          "cells": [[tag, c["status"], c.get("compile_s"),
-                     c.get("memory", {}).get("argument_size_in_bytes"),
-                     c.get("memory", {}).get("output_size_in_bytes"),
-                     c.get("cost", {}).get("flops"),
-                     c.get("cost", {}).get("flops_over_n_devices"),
-                     (c.get("collectives") or {}).get("count_per_kind"),
-                     (c.get("collectives") or {}).get("total_bytes")]
-                    for tag, c in cells.items()]})
     if got != want:
         raise SmokeFailure(f"the dry run's cells {got}, expected {want}")
     counted = [tag for tag, c in cells.items() if c["status"] == "ok"
@@ -4122,6 +4572,28 @@ def phase_dryrun(env: dict, train: dict, int8: dict) -> dict:
     if len(counted) != sum(s == "ok" for s in got.values()):
         raise SmokeFailure(f"cells without collectives: "
                            f"{sorted(set(got) - set(counted))}")
+    # --dist pipeline: the reference's statuses (its errors make the sweep
+    # exit 1, as the reference's does), every traced cell with its plan and
+    # the stage hand-off counted.
+    pproc, pcells, pipe_sweep_s = _dryrun_sweep("pipeline")
+    pwant = {f"{arch}_{shape}_pod_pipeline": _pipeline_status(arch, cfg,
+                                                              shape)
+             for arch, cfg in ARCHS.items() for shape in SHAPES}
+    pgot = {tag: c["status"] for tag, c in pcells.items()}
+    if pgot != pwant or pproc.returncode != 1:
+        raise SmokeFailure(f"the pipeline dry run exited {pproc.returncode} "
+                           f"with cells {pgot}, expected 1 and {pwant}: "
+                           f"{pproc.stderr[-2000:]}")
+    # Every "ok" cell but RecurrentGemma-2B's two (C9's) was traced.
+    traced = [c for c in pcells.values() if "plan" in c]
+    untraced_ok = sum(c["status"] == "ok" and c.get("reason") == "unit kind"
+                      for c in pcells.values())
+    if len(traced) != sum(s == "ok" for s in pgot.values()) - untraced_ok \
+            or untraced_ok != 2 or any(
+            c["collectives"]["count_per_kind"].get("collective-permute", 0)
+            < 1 for c in traced):
+        raise SmokeFailure("a traced pipeline cell has no plan or no "
+                           "hand-off counted")
 
     # The dry run against the card: the training state phase train held,
     # the int8 params phase int8 held, and the FLOPs of the training step.
@@ -4148,6 +4620,9 @@ def phase_dryrun(env: dict, train: dict, int8: dict) -> dict:
            "ok": sum(s == "ok" for s in got.values()),
            "skipped": sum(s == "skipped" for s in got.values()),
            "sweep_s": sweep_s,
+           "pipeline": {status: sum(s == status for s in pgot.values())
+                        for status in ("ok", "error", "skipped")},
+           "pipeline_sweep_s": pipe_sweep_s,
            "rg_state_bytes": {"abstract_state": state_meta,
                               "card": train["full"]["state_bytes"]},
            "yi6b_param_bytes": {"dry_run": param_meta,
@@ -4172,6 +4647,7 @@ def phase_dryrun(env: dict, train: dict, int8: dict) -> dict:
 
 def main() -> int:
     t_start = time.perf_counter()
+    RUN_LOG.unlink(missing_ok=True)
     try:
         env = phase_environment()
         gemm = phase_gemm(env)
@@ -4211,6 +4687,8 @@ def main() -> int:
         int8 = phase_int8(env)
         torch.cuda.empty_cache()
         mesh = phase_mesh(env)
+        torch.cuda.empty_cache()
+        pipe = phase_pipeline_lm(env)
         torch.cuda.empty_cache()
         phase_dryrun(env, train, int8)
     except SmokeFailure as e:
@@ -4275,14 +4753,25 @@ def main() -> int:
         "plain_ms": flash["plain_ms"], "bound_ms": flash["bound_ms"],
         "bound_by": flash["bound_by"], "library_ms": flash["library_ms"],
         "launches_on": {"yi-6b-int8": int8["launches"],
-                        "yi-6b-mesh": mesh["launches"]},
+                        "yi-6b-mesh": mesh["launches"],
+                        "yi-6b-pipeline": pipe["launches"]},
         "launches_on_per": {"yi-6b-int8": f"the int8 weight-only forward "
                                           f"on {LM_B} x {LM_S} tokens, one "
                                           f"per layer",
                             "yi-6b-mesh": f"the forward placed on a one-rank "
                                           f"(1, 1) mesh on {LM_B} x {LM_S} "
                                           f"tokens (DTensor), one per "
-                                          f"layer"},
+                                          f"layer",
+                            "yi-6b-pipeline": f"the pipelined prefill on "
+                                              f"{PIPE_B} x {PIPE_S} tokens "
+                                              f"over (data, stage, tp) = "
+                                              f"{PIPE_MESH}, K {PIPE_K}, "
+                                              f"summed over the "
+                                              f"{PIPE_WORLD} ranks: "
+                                              f"{pipe['launches_per_rank']} "
+                                              f"a rank ((K + S - 1) x 16 "
+                                              f"layers, at the tp shard's "
+                                              f"16 q and 2 KV heads, B 1)"},
         "path": LM_ARCH,
         "per": f"one launch at the Yi-6B shape (B {LM_B}, S {LM_S}, H 32, "
                f"KV 4, d 128, bf16, causal); one per layer of a forward"}, {

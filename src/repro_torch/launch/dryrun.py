@@ -30,8 +30,23 @@ runs the step the reference lowers (train: ``value_and_grad`` then
     moments on placed leaves are not ported (ROADMAP): a cell whose
     config keeps int8 moments counts its step up to the update.
 
-``--dist pipeline`` (the reference's shard_map pipeline,
-``core/pipeline.py``) waits for ROADMAP A3.2 and is refused. Unlike the
+``--dist pipeline`` runs the reference's ``_run_pipeline_cell``: the
+allocator's plan (``plan_pipeline`` over ``lm_layer_workloads``, the
+production mesh's model axis as stage x tp), K = max(1, min(the plan's
+microbatches, global batch // (16 x pods))), the params at uniform
+boundaries (the reference builds them so, whatever the plan's), every slot
+computing (the reference's all-True mask), and the pipelined loss with its
+gradient (train) or the prefill traced for one rank (stage 0, tp 0) on
+``meta`` in a fake group of the pipeline mesh's size. ``cost.flops`` is that
+rank's count times the device count (every rank runs the same shapes), and
+``collectives`` counts its all-reduces by dispatch and the stage hand-off's
+sends (``collective-permute``, counted by ``core/pipeline.py`` itself:
+``CommDebugMode`` sees no point-to-point op). ``plan.predicted_util`` is the
+allocator's model of a TPU v5e mesh (``hw=V5E``), not a figure for the
+card. As in the reference, a decode shape raises (the sweep records
+``"error"``), and a config whose dominant unit kind the pipeline does not
+take returns ``"unsupported"``, which ``run_cell`` then overwrites with
+``"ok"`` (a fault of the reference, reproduced: ROADMAP C9). Unlike the
 reference's, this module sets no ``XLA_FLAGS``: it imports no JAX.
 
 Usage:
@@ -40,6 +55,8 @@ Usage:
   python -m repro_torch.launch.dryrun --all --mesh pod --jobs 8
   python -m repro_torch.launch.dryrun --arch yi-6b --shape decode_32k \\
       --quant int8
+  python -m repro_torch.launch.dryrun --arch qwen2-72b --shape train_4k \\
+      --dist pipeline --stages 4    # the paper's pipeline path
 """
 
 from __future__ import annotations
@@ -57,10 +74,14 @@ from concurrent.futures import ProcessPoolExecutor
 
 import torch
 from torch.distributed.tensor.debug import CommDebugMode
+from torch.utils import _pytree as pytree
 from torch.utils.flop_counter import FlopCounterMode
 
 from repro_torch import optim
 from repro_torch.configs import ARCHS, get as get_arch
+from repro_torch.core import pipeline as PL
+from repro_torch.core.allocator import plan_pipeline
+from repro_torch.core.workload import lm_layer_workloads
 from repro_torch.launch import steps as STEPS
 from repro_torch.launch.mesh import (build_mesh, fake_process_group,
                                      production_mesh_shape, set_mesh)
@@ -71,9 +92,6 @@ from repro_torch.models import transformer as T
 from repro_torch.optim import AdamWState
 from repro_torch.runtime import sharding as SH
 
-PIPELINE_REFUSED = ("--dist pipeline (the reference's shard_map pipeline, "
-                    "core/pipeline.py) is not ported: it comes with the "
-                    "pipeline runtime, ROADMAP A3.2")
 COLLECTIVES_NOTE = ("counted from the placed step's dispatch in a fake "
                     "process group of the mesh's size (CommDebugMode), bytes "
                     "the operand's on one rank; the reference reads XLA's "
@@ -87,6 +105,13 @@ _KINDS = (("all_gather", "all-gather"), ("reduce_scatter", "reduce-scatter"),
           ("all_to_all", "all-to-all"), ("alltoall", "all-to-all"),
           ("broadcast", "broadcast"), ("send", "collective-permute"),
           ("recv", "collective-permute"))
+PIPELINE_COLLECTIVES_NOTE = (
+    "one rank's (stage 0, tp 0) pipelined step in a fake process group of "
+    "the pipeline mesh's size: its all-reduces by dispatch (CommDebugMode), "
+    "bytes the operand's; collective-permute the stage hand-off's sends, "
+    "counted by core/pipeline.py (stage 0 sends in the forward only)")
+PREDICTED_UTIL_OF = ("the allocator's model of a TPU v5e mesh (hw=V5E), "
+                     "not a figure for the H100")
 NO_TEMP = ("no counterpart: XLA's temp_size_in_bytes is the compiled "
            "program's scratch; nothing is compiled here")
 
@@ -94,10 +119,9 @@ NO_TEMP = ("no counterpart: XLA's temp_size_in_bytes is the compiled "
 def run_cell(arch: str, shape: str, mesh_name: str, dist: str = "pjit",
              stages: int = 0, quant: str = "none") -> dict:
     """One cell's record: ``status`` ``"skipped"`` (with the reason) or
-    ``"ok"`` with ``trace_cell``'s numbers and ``compile_s``, the seconds
-    to build and trace it. ``stages`` belongs to ``--dist pipeline``."""
-    if dist == "pipeline":
-        raise NotImplementedError(PIPELINE_REFUSED)
+    ``"ok"`` with ``trace_cell``'s (or ``trace_pipeline_cell``'s) numbers
+    and ``compile_s``, the seconds to build and trace it. ``stages`` belongs
+    to ``--dist pipeline``."""
     cfg = get_arch(arch)
     ok, why = cell_is_runnable(cfg, shape)
     if not ok:
@@ -105,8 +129,13 @@ def run_cell(arch: str, shape: str, mesh_name: str, dist: str = "pjit",
                 "status": "skipped", "reason": why}
     mesh = production_mesh_shape(multi_pod=(mesh_name == "multipod"))
     t0 = time.time()
-    res = trace_cell(cfg, SHAPES[shape], mesh, dp_model=(dist == "dp"),
-                     quant=quant)
+    if dist == "pipeline":
+        res = trace_pipeline_cell(cfg, SHAPES[shape], mesh, stages)
+    else:
+        res = trace_cell(cfg, SHAPES[shape], mesh, dp_model=(dist == "dp"),
+                         quant=quant)
+    # As in the reference, this overwrites a pipeline cell's "unsupported"
+    # (ROADMAP C9).
     res.update(arch=arch, shape=shape, mesh=mesh_name, dist=dist,
                quant=quant, compile_s=round(time.time() - t0, 1),
                status="ok")
@@ -179,7 +208,8 @@ def _kind(op_name: str) -> str | None:
 
 class _CollectiveBytes(CommDebugMode):
     """``CommDebugMode`` that also sums, by kind, the bytes of each
-    collective's operand on one rank (its first tensor argument), as
+    collective's operand on one rank (its first tensor argument, or the
+    first of its tensor list: ``c10d``'s in-place ops take a list), as
     ``hlo_stats.collective_bytes`` sums operand bytes per device."""
 
     def __init__(self):
@@ -191,7 +221,8 @@ class _CollectiveBytes(CommDebugMode):
         kind = None if out is NotImplemented else \
             _kind(str(func._overloadpacket))
         if kind is not None:
-            t = next(a for a in args if isinstance(a, torch.Tensor))
+            t = next(a for a in pytree.tree_leaves(args)
+                     if isinstance(a, torch.Tensor))
             self.bytes_by_kind[kind] = self.bytes_by_kind.get(kind, 0) + \
                 t.numel() * t.element_size()
         return out
@@ -228,6 +259,99 @@ def _placed_collectives(cfg, case: ShapeCase, mesh: dict,
             counts[kind] = counts.get(kind, 0) + n
     return {"count_per_kind": counts, "bytes_per_kind": cm.bytes_by_kind,
             "total_bytes": sum(cm.bytes_by_kind.values())}, note
+
+
+def pipeline_plan(cfg, case: ShapeCase, mesh: dict, stages: int = 0):
+    """The reference's plan for a pipelined cell: ``plan_pipeline`` over
+    the config's layer workloads, the mesh's model axis split into stage x
+    tp (``stages`` fixes S), and the microbatch count K it traces. Returns
+    (plan, K)."""
+    n_pod = mesh.get("pod", 1)
+    train = case.mode == "train"
+    layers = lm_layer_workloads(cfg, seq_len=case.seq_len,
+                                batch=case.global_batch, mode=case.mode)
+    plan = plan_pipeline(
+        layers, model_axis=mesh["model"], data_axis=mesh["data"] * n_pod,
+        global_batch=case.global_batch, seq_len=case.seq_len, train=train,
+        d_model=cfg.d_model, allow_infeasible=not train,
+        stage_choices=[stages] if stages else None)
+    K = max(1, min(plan.microbatches,
+                   case.global_batch // (mesh["data"] * n_pod)))
+    return plan, K
+
+
+def _bytes(tensors) -> int:
+    return sum(t.numel() * t.element_size()
+               for t in {id(t): t for t in tensors}.values())
+
+
+def trace_pipeline_cell(cfg, case: ShapeCase, mesh: dict,
+                        stages: int = 0) -> dict:
+    """The reference's ``_run_pipeline_cell`` on ``meta``: the plan, then
+    one rank's pipelined step traced in a fake group of the pipeline mesh's
+    size (the module docstring says what is counted)."""
+    if case.mode not in ("train", "prefill"):
+        raise ValueError("pipeline dry-run covers train/prefill shapes")
+    if not PL.supports_pipeline(cfg):
+        return {"status": "unsupported", "reason": "unit kind"}
+    train = case.mode == "train"
+    plan, K = pipeline_plan(cfg, case, mesh, stages)
+    S, T_ = plan.n_stages, plan.tensor_parallel
+    n_pod = mesh.get("pod", 1)
+    n_dev = mesh["data"] * n_pod * S * T_
+    batch = input_specs(cfg, case)
+    with fake_process_group(n_dev):
+        pmesh = PL.make_pipeline_mesh(mesh["data"], S, T_, n_pod,
+                                      device_type="meta")
+        pm = PL.PipelineCoords.of(pmesh)
+        params, kind = PL.build_pipeline_params(cfg, S, abstract=True,
+                                                coords=pm)
+        every_slot = [True] * len(params["units"])
+        ctx = PL.PipelineContext(cfg=cfg, unit_kind=kind, S=S, T=T_,
+                                 n_micro=K)
+        leaves = [t for t in T._leaves({k: v for k, v in params.items()
+                                        if k != "unit_mask"})
+                  if t.is_floating_point()]
+        PL.reset_comm_counts()
+        with FlopCounterMode(display=False) as fc, _CollectiveBytes() as cm:
+            if train:
+                for t in leaves:
+                    t.requires_grad_(True)
+                loss = PL.pipeline_loss_fn(ctx, pmesh, every_slot)(params,
+                                                                   batch)
+                torch.autograd.grad(loss, leaves, allow_unused=True)
+                out_bytes = _bytes(leaves)
+            else:
+                logits = PL.pipeline_prefill_fn(ctx, pmesh, every_slot)(
+                    params, batch)
+                out_bytes = _bytes([logits])
+        counts: dict[str, int] = {}
+        for op, n in cm.get_comm_counts().items():
+            kind_ = _kind(str(op)) or str(op)
+            counts[kind_] = counts.get(kind_, 0) + n
+    permute = PL.comm_counts["collective-permute"]
+    counts["collective-permute"] = permute["calls"]
+    by_kind = dict(cm.bytes_by_kind, **{"collective-permute":
+                                        permute["bytes"]})
+    rows = pm.rows(case.global_batch)
+    flops = fc.get_total_flops()
+    return {
+        "memory": {
+            "argument_size_in_bytes": _bytes(leaves) + sum(
+                t[rows].numel() * t.element_size() for t in batch.values()),
+            "output_size_in_bytes": out_bytes,
+            "temp_size_in_bytes": None, "temp_note": NO_TEMP},
+        "cost": {"flops": float(flops * n_dev),
+                 "flops_over_n_devices": float(flops)},
+        "collectives": {"count_per_kind": counts, "bytes_per_kind": by_kind,
+                        "total_bytes": sum(by_kind.values())},
+        "collectives_note": PIPELINE_COLLECTIVES_NOTE,
+        "n_devices": n_dev, "mesh_shape": PL.mesh_axes(
+            mesh["data"], S, T_, n_pod),
+        "plan": {"S": S, "T": T_, "microbatches": K,
+                 "boundaries": list(plan.boundaries)[:8],
+                 "predicted_util": plan.utilization,
+                 "predicted_util_of": PREDICTED_UTIL_OF}}
 
 
 def _full(cache: dict, pos: int) -> dict:
@@ -327,8 +451,6 @@ def main(argv=None) -> int:
                          "trace is single-threaded host work; the largest "
                          "cells take tens of seconds)")
     args = ap.parse_args(argv)
-    if args.dist == "pipeline":
-        raise NotImplementedError(PIPELINE_REFUSED)
 
     meshes = ["pod", "multipod"] if args.mesh == "both" else [args.mesh]
     archs = list(ARCHS) if args.all or not args.arch else [args.arch]

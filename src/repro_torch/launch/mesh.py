@@ -12,7 +12,7 @@ block, the counterpart of ``jax.set_mesh`` and ``repro/compat.py``'s
 ``ambient_mesh``: the MoE reads it to take its expert-parallel dispatch.
 ``production_mesh_shape`` gives the production mesh's axes and sizes
 without any group, for the sharding rules' pure functions. The pipeline
-mesh (``core/pipeline.py``'s ``stage`` axis) is ROADMAP A3.2.
+mesh, (data, stage, tp), is ``core/pipeline.py::make_pipeline_mesh``'s.
 
 ``device_slices`` splits a device list for the serving plane's replicas.
 Importing this module touches no device and no process group.

@@ -17,8 +17,9 @@ dequantize and matmul are XLA's, outside any Pallas kernel).
 The MoE is expert-parallel under a mesh with a ``model`` axis of more
 than one rank (``_moe_sharded``, ``_moe_expert_parallel``, on
 ``torch.distributed``'s DTensor), as the reference's is under its mesh;
-the pipeline's own MoE split (``core/pipeline.py::_moe_apply_tp``) is
-ROADMAP A3.2.
+the pipeline splits its experts over ``tp`` itself
+(``core/pipeline.py::_moe_apply_tp``, through ``moe_route_shard`` and
+``_moe_routed``).
 """
 
 from __future__ import annotations

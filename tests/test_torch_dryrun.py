@@ -4,7 +4,10 @@ abstract training state, the sharding rules and the bytes each device
 holds on the production meshes (the reference's rules evaluated on
 ``jax.sharding.AbstractMesh``, which needs no devices), the ``--dist dp``
 and ZeRO-1 specs, the FLOPs ``FlopCounterMode`` counts, the meta
-branches of the code the dry run traces, and the CLI.
+branches of the code the dry run traces, the CLI, and ``--dist
+pipeline`` (the plan and K of the reference's ``_run_pipeline_cell``,
+each cell's status as the reference records it, the stage hand-off
+counted).
 
 The reference's ``repro.launch.dryrun`` sets ``XLA_FLAGS`` (512 host
 devices) when imported, so nothing here imports it: its ``--dist dp`` and
@@ -567,13 +570,129 @@ def test_main_writes_one_json_per_cell(tmp_path):
     assert q["argument_size_in_bytes"] < b["argument_size_in_bytes"]
 
 
-def test_dist_pipeline_is_refused_naming_a3(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP A3"):
-        dryrun.main(["--arch", "yi-6b", "--dist", "pipeline",
-                     "--out", str(tmp_path)])
-    with pytest.raises(NotImplementedError, match="core/pipeline.py"):
-        dryrun.run_cell("yi-6b", "train_4k", "pod", dist="pipeline")
-    assert not list(tmp_path.iterdir())
+def _ref_pipeline_plan(arch, shape, mesh_name, stages=0):
+    """The reference's ``_run_pipeline_cell`` up to its plan and K, from its
+    allocator and workload model with its arguments (16 x 16 chips a pod)."""
+    from repro.core.allocator import plan_pipeline as plan_j
+    from repro.core.workload import lm_layer_workloads as layers_j
+    cfg, case = ARCHS_J[arch], shapes_j.SHAPES[shape]
+    n_pod = 2 if mesh_name == "multipod" else 1
+    train = case.mode == "train"
+    plan = plan_j(layers_j(cfg, seq_len=case.seq_len,
+                           batch=case.global_batch, mode=case.mode),
+                  model_axis=16, data_axis=16 * n_pod,
+                  global_batch=case.global_batch, seq_len=case.seq_len,
+                  train=train, d_model=cfg.d_model,
+                  allow_infeasible=not train,
+                  stage_choices=[stages] if stages else None)
+    K = max(1, min(plan.microbatches, case.global_batch // (16 * n_pod)))
+    return plan, K
+
+
+def _ref_pipeline_status(arch, shape):
+    """What the reference's ``run_cell(..., dist="pipeline")`` records, from
+    its own parts (its dry run compiles 256-device programs): skipped where
+    ``cell_is_runnable`` says so; "error" for a decode shape and for a train
+    plan that fits no HBM (``plan_pipeline`` raises), and for a prefill
+    batch without tokens (its ``pipeline_prefill_fn`` reads
+    ``batch["tokens"]``); "ok" otherwise, the unsupported kind's
+    ``{"status": "unsupported"}`` included, which ``run_cell``'s update
+    overwrites (ROADMAP C9)."""
+    from repro.core import pipeline as PL_J
+    cfg, case = ARCHS_J[arch], shapes_j.SHAPES[shape]
+    if not shapes_j.cell_is_runnable(cfg, shape)[0]:
+        return "skipped"
+    if case.mode not in ("train", "prefill"):
+        return "error"
+    if not PL_J.supports_pipeline(cfg):
+        return "ok"
+    try:
+        _ref_pipeline_plan(arch, shape, "pod")
+    except ValueError:
+        return "error"
+    if case.mode == "prefill" and \
+            "tokens" not in shapes_j.input_specs(cfg, case):
+        return "error"
+    return "ok"
+
+
+# The cells the status test traces whole (the rest return before tracing):
+# a train cell with its gradient and a prefill, both under 10 s here.
+TRACED = {("yi-6b", "train_4k"), ("rwkv6-7b", "prefill_32k")}
+
+
+@pytest.mark.parametrize("mesh_name", MESHES)
+@pytest.mark.parametrize("arch", ALL)
+def test_dist_pipeline_plan_matches_reference(arch, mesh_name):
+    """The pipelined cells' plan (S, T, boundaries, the allocator's
+    predicted utilization) and microbatch count K are the reference's, on
+    both meshes, for the train and prefill shapes; where the reference's
+    allocator finds no plan, the port's raises alike."""
+    for shape in ("train_4k", "prefill_32k"):
+        try:
+            want, want_k = _ref_pipeline_plan(arch, shape, mesh_name)
+        except ValueError as e:
+            with pytest.raises(ValueError, match="no feasible"):
+                dryrun.pipeline_plan(ARCHS[arch], shapes_t.SHAPES[shape],
+                                     production_mesh_shape(
+                                         mesh_name == "multipod"))
+            assert "no feasible" in str(e)
+            continue
+        got, k = dryrun.pipeline_plan(
+            ARCHS[arch], shapes_t.SHAPES[shape],
+            production_mesh_shape(mesh_name == "multipod"))
+        assert (got.n_stages, got.tensor_parallel, tuple(got.boundaries),
+                k) == (want.n_stages, want.tensor_parallel,
+                       tuple(want.boundaries), want_k), (arch, shape)
+        assert got.utilization == pytest.approx(want.utilization, rel=1e-12)
+
+
+@pytest.mark.parametrize("arch", ALL)
+def test_dist_pipeline_statuses_match_reference(arch):
+    """Each pod cell's status under ``--dist pipeline`` is the reference's
+    (``_ref_pipeline_status``): decode shapes and the DeepSeek train plans
+    that fit no HBM are errors, RecurrentGemma-2B's unsupported kind comes
+    back "ok" with the reason "unit kind" (C9). Cells that would trace
+    run only where ``TRACED`` lists them; the traced ones are held in
+    ``test_dist_pipeline_counts_the_handoff``."""
+    for shape in shapes_t.SHAPES:
+        want = _ref_pipeline_status(arch, shape)
+        if want == "ok" and ARCHS[arch].name != "recurrentgemma-2b" and \
+                (arch, shape) not in TRACED:
+            continue
+        got = dryrun._cell_or_error(arch, shape, "pod", "pipeline", 0, "none")
+        assert got["status"] == want, (arch, shape, got)
+        if arch == "recurrentgemma-2b" and want == "ok":
+            assert got["reason"] == "unit kind" and "plan" not in got
+
+
+@pytest.mark.parametrize("arch,shape", sorted(TRACED))
+def test_dist_pipeline_counts_the_handoff(arch, shape):
+    """A traced pipeline cell: the reference's plan; the stage hand-off
+    counted as ``collective-permute`` (stage 0's forward sends: K + S - 2
+    ticks, one microbatch of activations each) beside the all-reduces;
+    FLOPs one rank's times the device count; the predicted utilization
+    labelled as the allocator's v5e model."""
+    res = dryrun.run_cell(arch, shape, "pod", dist="pipeline")
+    plan, K = _ref_pipeline_plan(arch, shape, "pod")
+    S, T = plan.n_stages, plan.tensor_parallel
+    assert res["status"] == "ok"
+    assert res["plan"]["S"] == S and res["plan"]["T"] == T
+    assert res["plan"]["microbatches"] == K
+    assert "v5e" in res["plan"]["predicted_util_of"]
+    assert res["n_devices"] == 256 and res["mesh_shape"] == {
+        "data": 16, "stage": S, "tp": T}
+    cfg, case = ARCHS[arch], shapes_t.SHAPES[shape]
+    mb_rows = case.global_batch // 16 // K
+    coll = res["collectives"]
+    assert coll["count_per_kind"]["collective-permute"] == K + S - 2
+    assert coll["bytes_per_kind"]["collective-permute"] == \
+        (K + S - 2) * mb_rows * case.seq_len * cfg.d_model * 2
+    assert coll["count_per_kind"]["all-reduce"] > 0
+    assert coll["total_bytes"] == sum(coll["bytes_per_kind"].values())
+    assert res["cost"]["flops"] == res["cost"]["flops_over_n_devices"] * 256
+    assert res["cost"]["flops"] > 0
+    assert res["memory"]["argument_size_in_bytes"] > 0
 
 
 def test_dryrun_imports_no_jax_and_sets_no_xla_flags():
