@@ -131,7 +131,8 @@ failure exits nonzero without the final line:
    that drops nothing, in bf16 (positions whose routing flipped between
    near-tied gates counted and set aside) and in float32; served at the
    published capacity factor;
-15. ``rwkv``: RWKV6-7B at full width: the forward on 2 x 1024 tokens (no
+15. ``rwkv``: RWKV6-7B at full width, depth cut to 8 layers: the forward
+   on 2 x 1024 tokens (no
    kernel), the sequential WKV loop's time, the bf16 forward's drift from
    a float32 forward, teacher-forced decodes over the shifts and the WKV
    state in float32 and bf16, served;
@@ -143,13 +144,14 @@ failure exits nonzero without the final line:
    ``make_train_step`` of every reduced config in float32 on the card
    against the CPU (every gradient leaf, loss, grad norm, the updated
    params; the reduced RecurrentGemma's 3 + 3 ``linear_scan`` launches, no
-   ``flash_attention``); full-width RecurrentGemma-2B trained for 5 steps
-   at 2 x 1024 (bf16, float32 AdamW moments): steps 1-4 through
-   ``launch/train.py::main`` with its one checkpoint, step 4's, in a
-   temporary directory (a checkpoint is 34.7 GB: the run writes one),
-   step 5 carrying the run's state on; the state held equal to its
-   checkpoint; finite losses and grad norms, exactly 18 + 18
-   ``linear_scan`` launches and no ``flash_attention`` a step, step wall
+   ``flash_attention``); full-width RecurrentGemma-2B, depth cut to 13
+   layers, trained for 5 steps at 2 x 1024 (bf16, float32 AdamW
+   moments): steps 1-4 through ``launch/train.py::main`` with its one
+   checkpoint, step 4's, in a temporary directory (a checkpoint of the
+   cut model is 21.3 GB: the run writes one), step 5 carrying the
+   run's state on; the state held equal to its checkpoint; finite losses
+   and grad norms, exactly 9 + 9 ``linear_scan`` launches (one per RG-LRU
+   layer) and no ``flash_attention`` a step, step wall
    ms, tokens/s, MFU, peak memory; every floating parameter's gradient
    nonzero; step 5 replayed from step 4's checkpoint equal to the run's
    step 5 bit for bit; one warm step profiled (device busy by kind, idle
@@ -197,25 +199,44 @@ failure exits nonzero without the final line:
    memory, its collectives' calls and bytes, the ms it spends in them,
    and one tp all-reduce and one hand-off timed alone; a failed child
    fails the run;
-20. ``dryrun`` (phase 19): ``python -m repro_torch.launch.dryrun --all
+20. ``int8_moments``: AdamW's int8 moments on placed leaves. (a)
+   Full-width RecurrentGemma-2B with int8 moments placed on a one-rank
+   NCCL mesh (1, 1): three placed ``make_train_step`` calls on 2 x 1024
+   tokens in turns with three unplaced ones of the same seed and batch,
+   every param, code and scale equal after each step, exactly 18 + 18
+   ``linear_scan`` launches a placed step, finite losses, the steps' wall
+   ms, peak memory with both states on the card and one profiled step's
+   idle share; (b) DeepSeek-V2 at full width cut to 2 layers (one dense
+   MLA layer, one MLA + MoE layer with 160 experts), its own int8 moments,
+   on a (data 1, model 2) mesh of two gloo processes on cuda:0: three
+   ``adamw_update`` calls with seeded gradients bit for bit against the
+   unplaced port (leaf by leaf, one rank at a time), then one
+   ``apply_grads`` within the gloo tests' bounds, each leaf's layout case,
+   the transfer's calls, bytes and ms per update, and the case-1 leaves
+   (the expert stacks and the embedding) updated again with no collective;
+   a failed child fails the run;
+21. ``dryrun`` (phase 19): ``python -m repro_torch.launch.dryrun --all
    --mesh pod`` in spawned processes that see no card (each cell's
    status, seconds, bytes per device, FLOPs, and the collectives of the
    step traced placed in a fake process group, counted by kind), every
-   runnable cell ok with collectives and the rest skipped; the same
-   sweep with ``--dist pipeline``: the reference's status for each cell
+   runnable cell ok with collectives and the rest skipped; at the same
+   time the sweep with ``--dist pipeline``: the reference's status for
+   each cell
    (decode shapes, DeepSeek's train plans and the VLM's prefill errors,
    RecurrentGemma-2B "ok", C9), every traced cell's plan and its stage
    hand-off counted;
-   RecurrentGemma-2B's ``abstract_state`` bytes equal
-   to the state phase ``train`` held, the int8 Yi-6B params' bytes equal
+   RecurrentGemma-2B's ``abstract_state`` bytes (at phase ``train``'s
+   depth) equal to the state phase ``train`` held, the int8 Yi-6B params'
+   bytes equal
    to phase ``int8``'s, and the meta FLOPs of the 2 x 1024 train step
    beside phase ``train``'s ``model_flops``;
-21. the ``kernels`` line (with a ``flash_attention`` entry for each of
+22. the ``kernels`` line (with a ``flash_attention`` entry for each of
    Yi-6B, RecurrentGemma-2B, Qwen2-VL-2B and SeamlessM4T-medium, and
    ``linear_scan`` entries for the forward, and for training's forward
    and backward; the Yi-6B entry's ``launches_on`` holds the int8
    forward's, the placed forward's and the pipelined prefill's summed
-   over its four ranks), the card's ``nvidia-smi`` name
+   over its four ranks, the training entries' the int8-moment steps of
+   phase ``int8_moments``), the card's ``nvidia-smi`` name
    and power limit, and
    last ``{"ok": true, "device": {...}}``.
 """
@@ -562,10 +583,14 @@ MLA_SERVE_ARGS = ["--arch", MLA_ARCH, "--n-layers", str(MLA_LAYERS),
                   "--batch", "4", "--prompt-len", "256", "--gen", "16",
                   "--seed", "0"]
 RWKV_B, RWKV_S = 2, 1024
+# Depth cut 32 -> 8: the forward is host-bound by the WKV loop over tokens
+# in every layer; the cut keeps the whole run within half its time limit.
+RWKV_LAYERS = 8
 RWKV_PROFILE_S = 128
 RWKV_TF_PROMPT, RWKV_TF_STEPS = 256, 16
 RWKV_SERVE_ARGS = ["--arch", RWKV_ARCH, "--batch", "4", "--prompt-len", "256",
-                   "--gen", "16", "--seed", "0"]
+                   "--gen", "16", "--seed", "0",
+                   "--n-layers", str(RWKV_LAYERS)]
 # Their tolerances, on bf16 logits, by the Yi-6B rules (LM_ROUTE_TOL).
 VLM_ROUTE_TOL = ED_ROUTE_TOL = LM_ROUTE_TOL
 MLA_TF_TOL = RWKV_TF_TOL = LM_ROUTE_TOL
@@ -1138,14 +1163,16 @@ def _device_us(evt) -> float:
                          getattr(evt, "self_cuda_time_total", 0.0)))
 
 
+PROFILE_ACTIVITIES = [torch.profiler.ProfilerActivity.CPU,
+                      torch.profiler.ProfilerActivity.CUDA]
+
+
 def _device_ops(fn) -> list:
     """(kernel name, device µs, launches) of one profiled, synchronised
     call of ``fn``, largest first. Kernels only: an aten op's own row
     repeats the device time of the kernels it launched, so summing every
     row would count them twice."""
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
+    with torch.profiler.profile(activities=PROFILE_ACTIVITIES) as prof:
         fn()
         torch.cuda.synchronize()
     return sorted(((e.key, _device_us(e), e.count)
@@ -3010,7 +3037,7 @@ def phase_mla_moe(env: dict) -> dict:
 
 
 def phase_rwkv(env: dict) -> dict:
-    cfg = ARCHS[RWKV_ARCH]
+    cfg = ARCHS[RWKV_ARCH].scaled(n_layers=RWKV_LAYERS)
     params, init_s = _init(cfg)
     gen = torch.Generator(device="cuda").manual_seed(1)
     tokens = torch.randint(0, cfg.vocab, (RWKV_B, RWKV_S), generator=gen,
@@ -3022,6 +3049,8 @@ def phase_rwkv(env: dict) -> dict:
     first_ms = (time.perf_counter() - t0) * 1e3
     counts = launches()
     row = {"phase": "rwkv_forward", "arch": RWKV_ARCH,
+           "reduced": f"n_layers {ARCHS[RWKV_ARCH].n_layers} -> "
+                      f"{RWKV_LAYERS}",
            "params": T.param_count(cfg), "init_s": init_s,
            "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32,
            "tokens": [RWKV_B, RWKV_S], "launches": counts,
@@ -3124,12 +3153,16 @@ SCAN_GRAD_CASES = [("ragged S", 2, 77, 100), ("S 1", 2, 1, 2560),
                    ("one chunk + 1", 2, 257, 2560),
                    ("RecurrentGemma-2B training", 2, 1024, 2560)]
 TRAIN_ARCH = "recurrentgemma-2b"
-# Five full-width steps: launch/train.py's main runs steps 1-4 and writes
-# its one checkpoint, step 4's (the loop saves its last step); step 5
-# carries the run's state on, then is replayed from step 4's checkpoint.
-# A full-width state is 34.7 GB on disk (bf16 params widened to float32,
-# float32 moments): the run writes it once, and needs about 36 GB of
-# free disk where a run checkpointing steps 4 and 5 would write 70 GB.
+# Depth cut 26 -> 13 (9 RG-LRU and 4 local-attention layers) to keep the
+# whole run within half its time limit: the checkpoint's write and
+# restore scale with it. Full depth trains in phase int8_moments (a).
+TRAIN_LAYERS = 13
+# Five steps: launch/train.py's main runs steps 1-4 and writes its one
+# checkpoint, step 4's (the loop saves its last step); step 5 carries the
+# run's state on, then is replayed from step 4's checkpoint. The state is
+# 12 bytes a parameter on disk (bf16 params widened to float32, float32
+# moments), 34.7 GB at full depth: the run writes it once (a call may
+# write 45 GiB).
 TRAIN_B, TRAIN_S, TRAIN_STEPS = 2, 1024, 5
 # Reduced configs, card against CPU, float32: each gradient leaf within
 # 1e-4 of its largest |g| (the CPU tests' tolerance against the
@@ -3413,6 +3446,10 @@ def _profiled_step(env, step, state, batch, warm_ms) -> dict:
     return out, row
 
 
+def _train_cfg():
+    return ARCHS[TRAIN_ARCH].scaled(n_layers=TRAIN_LAYERS)
+
+
 def phase_train(env: dict) -> dict:
     t_phase = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(3)
@@ -3424,7 +3461,7 @@ def phase_train(env: dict) -> dict:
 
     # Full width through launch/train.py: the main path, counts at 0 just
     # before, read just after.
-    cfg = ARCHS[TRAIN_ARCH]
+    cfg = _train_cfg()
     n_rec = cfg.layer_kinds().count("rglru")
     per_step = {"linear_scan_forward": n_rec, "linear_scan_backward": n_rec,
                 "flash_attention": 0}
@@ -3436,7 +3473,8 @@ def phase_train(env: dict) -> dict:
             raise SmokeFailure(f"{free_gb:.1f} GB free under {ckpt_dir}: "
                                f"a {state_gb:.1f} GB checkpoint does not "
                                f"fit")
-        args = ["--arch", TRAIN_ARCH, "--steps", str(main_steps),
+        args = ["--arch", TRAIN_ARCH, "--n-layers", str(TRAIN_LAYERS),
+                "--steps", str(main_steps),
                 "--batch", str(TRAIN_B), "--seq", str(TRAIN_S),
                 "--ckpt", ckpt_dir, "--ckpt-every", str(main_steps),
                 "--log-every", "1"]
@@ -3516,6 +3554,8 @@ def phase_train(env: dict) -> dict:
         flops = 6 * n_params * tokens + attn_flops
         _, _, peak_bf16, _ = card_peaks(env["device"])
         row = {"phase": "train_full_width", "arch": TRAIN_ARCH,
+               "reduced": f"n_layers {ARCHS[TRAIN_ARCH].n_layers} -> "
+                          f"{TRAIN_LAYERS}",
                "params": n_params, "batch": TRAIN_B, "seq": TRAIN_S,
                "steps": TRAIN_STEPS, "main_steps": main_steps,
                "dtype": cfg.dtype, "moments": cfg.opt_moment_dtype,
@@ -3857,7 +3897,12 @@ def phase_int8(env: dict) -> dict:
 # ---------------------------------------------------------------------------
 
 
-DRYRUN_JOBS = 8
+# The two sweeps run at once over the machine's 8 cores, one process a
+# cell: the pjit sweep's two longest cells (DeepSeek-V2/V3's train_4k,
+# about 85 s each, the whole step traced twice) hold two of its five while
+# the other three take its other cells (about 290 s of work), and the
+# pipeline sweep's cells (about 200 s) share three.
+DRYRUN_JOBS = {"pjit": 5, "pipeline": 3}
 
 
 # ---------------------------------------------------------------------------
@@ -4489,6 +4534,421 @@ def phase_pipeline_lm(env: dict) -> dict:
                             for r in ranks), **row}
 
 
+# ---------------------------------------------------------------------------
+# Phase int8_moments: AdamW's int8 moments on placed leaves
+# ---------------------------------------------------------------------------
+
+# (a): full-width RecurrentGemma-2B (depth whole) with int8 moments, the
+# config field both packages have, placed on a one-rank NCCL mesh (1, 1):
+# Q8_STEPS placed make_train_step calls against the unplaced steps of the
+# same seed and batch, in turns, both states on the card.
+Q8_ARCH, Q8_B, Q8_S, Q8_STEPS, Q8_LR = TRAIN_ARCH, 2, 1024, 3, 3e-4
+# (b): DeepSeek-V2 at full width cut to Q8_LAYERS layers (one dense MLA
+# layer, one MLA + MoE layer of 160 experts: every kind of leaf), its own
+# int8 moments, on a (data 1, model 2) mesh of two gloo processes on
+# cuda:0: Q8_UPDATES adamw_update calls with seeded gradients, then one
+# apply_grads, against the unplaced port, leaf by leaf, one rank at a time
+# (the unplaced update of a 1.26 B-element expert stack takes about 40 GB).
+# apply_grads clips by a norm summed over the shards: it is held to the
+# gloo tests' bounds (params within Q8_PARAM_TOL but for Q8_FLIP_SHARE of
+# them, and those within 2 lr; codes equal but for Q8_CODE_OFF_SHARE one
+# apart), the updates bit for bit.
+Q8_LAYERS, Q8_UPDATES, Q8_MOE_LR = 2, 3, 1e-3
+Q8_PARAM_TOL, Q8_FLIP_SHARE, Q8_CODE_OFF_SHARE = 1e-5, 1e-3, 1e-3
+Q8_JOIN_S = 420
+Q8_ALONE = 1 << 30     # elements of a leaf whose unplaced update runs alone
+
+
+def _q8_leaves(params, opt) -> list:
+    """(key, param, mu code, nu code) of every leaf, in tree order."""
+    keys = [ckpt.checkpoint._key(k) for k, _ in
+            ckpt.checkpoint._items(params)]
+    return list(zip(keys, optim.adamw.tree_leaves(params),
+                    _codes_of(opt.mu), _codes_of(opt.nu)))
+
+
+def _codes_of(tree) -> list:
+    if SH.is_q8(tree):
+        return [tree]
+    nodes = tree.values() if isinstance(tree, dict) else tree
+    return [c for v in nodes for c in _codes_of(v)]
+
+
+def _local(t):
+    return t.to_local() if hasattr(t, "to_local") else t
+
+
+def _q8_first_difference(want: list, got: list) -> str | None:
+    """The first tensor (params, then each leaf's codes) of ``got`` (a
+    placed state) that differs from ``want``'s, or None."""
+    for (key, p, mu, nu), (_, pp, pmu, pnu) in zip(want, got):
+        for name, a, b in ((key, p, pp),
+                           *((f"{key}/{m}/{f}", c[f], pc[f])
+                             for m, c, pc in (("mu", mu, pmu),
+                                              ("nu", nu, pnu))
+                             for f in ("q", "scale"))):
+            if not torch.equal(a, _local(b)):
+                return name
+    return None
+
+
+def _q8_one_rank(env: dict) -> dict:
+    """(a) Q8_STEPS placed and unplaced steps of full-width
+    RecurrentGemma-2B with int8 moments, in turns: every param, code and
+    scale equal after each step, 18 + 18 linear_scan launches a placed
+    step, finite losses, wall ms, peak memory, and the idle share of the
+    last placed step (profiled) against the warm steps' wall."""
+    cfg = ARCHS[Q8_ARCH].scaled(opt_moment_dtype="int8")
+    n_rec = cfg.layer_kinds().count("rglru")
+    with tempfile.TemporaryDirectory(prefix="q8_a_") as root:
+        _mesh_group(root, 1, 0, "nccl")
+        try:
+            mesh = lm_mesh.make_debug_mesh(1, 1)
+            torch.cuda.reset_peak_memory_stats()
+            params = T.init_params(cfg, seed=0, device="cuda")
+            placed = SH.place(params, SH.param_shardings(cfg, mesh, params))
+            opt = optim.adamw_init(params, "int8")
+            opt_p = optim.adamw_init(placed, "int8")
+            state_bytes = _tree_bytes([optim.adamw.tree_map(_local, m)
+                                       for m in (opt_p.mu, opt_p.nu)])
+            gen = torch.Generator(device="cuda").manual_seed(1)
+            tokens = torch.randint(0, cfg.vocab, (Q8_B, Q8_S),
+                                   generator=gen, device="cuda")
+            batch = {"tokens": tokens, "labels": torch.roll(tokens, -1, 1)}
+            pbatch = SH.place(batch, SH.batch_shardings(mesh, batch))
+            step = lm_steps.make_train_step(cfg, lr=Q8_LR, remat=False)
+            rows = []
+            for i in range(Q8_STEPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                params, opt, m = step(params, opt, batch)
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                reset_launches()
+                last = i == Q8_STEPS - 1
+                with lm_mesh.set_mesh(mesh), (torch.profiler.profile(
+                        activities=PROFILE_ACTIVITIES) if last
+                        else contextlib.nullcontext()) as prof:
+                    placed, opt_p, m_p = step(placed, opt_p, pbatch)
+                    torch.cuda.synchronize()
+                t2 = time.perf_counter()
+                got = dict(linear_scan.launches_by_path,
+                           flash_attention=flash_attention.launches)
+                first = _q8_first_difference(_q8_leaves(params, opt),
+                                             _q8_leaves(placed, opt_p))
+                rows.append({
+                    "step": i + 1, "loss": float(m["loss"]),
+                    "loss_placed": float(_local(m_p["loss"])),
+                    "grad_norm": float(m["grad_norm"]),
+                    "grad_norm_placed": float(_local(m_p["grad_norm"])),
+                    "unplaced_ms": (t1 - t0) * 1e3,
+                    "placed_ms": (t2 - t1) * 1e3, "launches": got,
+                    "first_difference": first})
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            warm = float(np.median([r["placed_ms"] for r in rows[1:-1]]))
+            busy = sum(_device_us(e) for e in prof.key_averages()
+                       if e.device_type == torch.autograd.DeviceType.CUDA
+                       and not e.key.startswith("Activity Buffer")) / 1e3
+            row = {"phase": "int8_moments_one_rank", "arch": Q8_ARCH,
+                   "mesh": lm_mesh.mesh_shape(mesh), "backend": "nccl",
+                   "tokens": [Q8_B, Q8_S], "moments": "int8",
+                   "steps": rows, "placed_step_ms_median_warm": warm,
+                   "warm_steps": f"2 to {Q8_STEPS - 1} (the last is "
+                                 f"profiled)",
+                   "unplaced_step_ms_median_warm": float(np.median(
+                       [r["unplaced_ms"] for r in rows[1:]])),
+                   "profiled_step_device_busy_ms": busy,
+                   "device_idle_share": max(0.0, 1.0 - busy / warm),
+                   "peak_memory_gb_both_states": peak_gb,
+                   "int8_moment_bytes": state_bytes,
+                   "float32_moment_bytes": 8 * T.param_count(cfg),
+                   "placements": sorted({str(c["q"].placements)
+                                         for c in _codes_of(opt_p.mu)}),
+                   "card": env["nvidia_smi"]}
+            emit(row)
+        finally:
+            dist.destroy_process_group()
+    want = {"forward": n_rec, "backward": n_rec, "flash_attention": 0}
+    if any(r["launches"] != want for r in rows):
+        raise SmokeFailure(f"the placed int8 steps launched "
+                           f"{[r['launches'] for r in rows]}, expected "
+                           f"{want} a step")
+    if not all(math.isfinite(r["loss"]) and math.isfinite(r["loss_placed"])
+               for r in rows):
+        raise SmokeFailure(f"int8-moment losses not finite: {rows}")
+    if any(r["first_difference"] for r in rows):
+        raise SmokeFailure(f"the placed int8 steps differ from the unplaced "
+                           f"ones: {[r['first_difference'] for r in rows]}")
+    return {"launches": want, "launches_total": {
+        k: sum(r["launches"][k] for r in rows) for k in ("forward",
+                                                         "backward")},
+        "placed_step_ms": warm, "peak_memory_gb": peak_gb,
+        "device_idle_share": row["device_idle_share"]}
+
+
+def _q8_grad(shape, dtype, update: int, leaf: int) -> torch.Tensor:
+    """The seeded gradient of leaf ``leaf`` at update ``update``, the same
+    on every rank."""
+    gen = torch.Generator(device="cuda").manual_seed(1000 * update + leaf)
+    return (torch.randn(shape, generator=gen, device="cuda",
+                        dtype=torch.bfloat16) * 1e-2).to(dtype)
+
+
+def _q8_box(t) -> tuple:
+    """The slices of a whole leaf that the placed ``t`` holds on this
+    rank."""
+    mesh = t.device_mesh
+    box = optim.adamw._box(tuple(t.shape),
+                           optim.adamw._shard_dims(t.placements),
+                           tuple(mesh.mesh.shape),
+                           tuple(mesh.get_coordinate()))
+    return tuple(slice(a, b) for a, b in box)
+
+
+def _q8_snapshot(leaves: list) -> list:
+    """This rank's shards of every leaf (param, then each moment's q and
+    scale) on the host, each with the slices of the whole leaf it holds."""
+    return [[(_local(t).to("cpu", copy=True), _q8_box(t))
+             for t in (p, mu["q"], mu["scale"], nu["q"], nu["scale"])]
+            for _, p, mu, nu in leaves]
+
+
+def _q8_compare(snap: list, ref) -> dict:
+    """One leaf's shards (``_q8_snapshot``) against the unplaced port's
+    whole leaf ``ref`` (p, mu, nu), on ``ref``'s device."""
+    rp, rmu, rnu = ref
+    whole = (rp, rmu["q"], rmu["scale"], rnu["q"], rnu["scale"])
+    (p, box), *codes = snap
+    p, want = p.to(rp.device), rp[box]
+    d = (p.float() - want.float()).abs()
+    out = {"param_equal": bool(torch.equal(p, want)),
+           "param_max_err": float(d.max()),
+           "param_over_tol": int((d > Q8_PARAM_TOL).sum()),
+           "elements": d.numel(), "codes_equal": True, "code_off": 0,
+           "code_max_diff": 0, "codes": 0}
+    for (got, box), w in zip(codes, whole[1:]):
+        got, w = got.to(rp.device), w[box]
+        out["codes_equal"] &= bool(torch.equal(got, w))
+        if got.dtype == torch.int8:
+            dq = (got.int() - w.int()).abs()
+            out["code_off"] += int((dq > 0).sum())
+            out["code_max_diff"] = max(out["code_max_diff"], int(dq.max()))
+            out["codes"] += dq.numel()
+    return out
+
+
+def _q8_moe_rank(rank: int, root: str) -> None:
+    """(b) One rank of two (gloo, both on cuda:0) on a (1, 2) mesh: the
+    placed updates, then (the placed state's shards on the host, the card
+    free) the unplaced port leaf by leaf from the same seeded params, the
+    expert stacks one rank at a time. Writes ``rank<r>.json`` under
+    ``root``."""
+    torch.cuda.set_device(0)
+    _mesh_group(root, 2, rank, "gloo")
+    out: dict = {"rank": rank}
+    try:
+        mesh = lm_mesh.make_debug_mesh(1, 2)
+        cfg = ARCHS[MLA_ARCH].scaled(n_layers=Q8_LAYERS)
+        t0 = time.perf_counter()
+        full = T.init_params(cfg, seed=0, device="cuda")
+        sh = SH.param_shardings(cfg, mesh, full)
+        placed = SH.place(full, sh)
+        del full
+        torch.cuda.empty_cache()
+        opt = optim.adamw_init(placed, "int8")
+        leaves = _q8_leaves(placed, opt)
+        out["build_s"] = time.perf_counter() - t0
+        out["cases"] = {}
+        for key, p, mu, _ in leaves:
+            case = optim.adamw.layout_case(p, mu["q"])
+            out["cases"].setdefault(str(case), []).append(key)
+        shard_list = optim.adamw.tree_leaves(sh)
+        updates, snaps, snap_s = [], [], 0.0
+        for u in range(Q8_UPDATES + 1):
+            # The seeded gradients, placed as the params (each rank keeps
+            # its own shard of the same values).
+            flat = [SH.place(_q8_grad(t.shape, t.dtype, u, i), s)
+                    for i, (t, s) in enumerate(zip(
+                        optim.adamw.tree_leaves(placed), shard_list))]
+            it = iter(flat)
+            g_tree = optim.adamw.tree_map(lambda _: next(it), placed)
+            optim.adamw.reset_transfer_counts()
+            dist.barrier()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if u < Q8_UPDATES:
+                placed, opt = optim.adamw_update(
+                    placed, g_tree, opt, lr=Q8_MOE_LR, moment_dtype="int8")
+            else:
+                placed, opt, gn = lm_steps.apply_grads(
+                    placed, g_tree, opt, lr=Q8_MOE_LR, moment_dtype="int8")
+                out["grad_norm_placed"] = float(_local(gn))
+            torch.cuda.synchronize()
+            updates.append({"wall_ms": (time.perf_counter() - t0) * 1e3,
+                            **optim.adamw.transfer_counts})
+            del g_tree, flat, it
+            if u >= Q8_UPDATES - 1:
+                t0 = time.perf_counter()
+                snaps.append(_q8_snapshot(leaves))
+                snap_s += time.perf_counter() - t0
+        out["updates"], out["snapshot_s"] = updates, snap_s
+        out["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        # Case 1 leaves alone through one more update: no collective, no
+        # byte moved.
+        ones = [(k, p, mu, nu) for k, p, mu, nu in leaves
+                if optim.adamw.layout_case(p, mu["q"]) == 1]
+        sub = {str(i): p for i, (_, p, _, _) in enumerate(ones)}
+        sub_opt = optim.AdamWState(
+            opt.step, {str(i): mu for i, (_, _, mu, _) in enumerate(ones)},
+            {str(i): nu for i, (_, _, _, nu) in enumerate(ones)}, None)
+        optim.adamw.reset_transfer_counts()
+        with CommDebugMode() as cm:
+            optim.adamw_update(sub, {k: torch.zeros_like(v)
+                                     for k, v in sub.items()},
+                               sub_opt, lr=Q8_MOE_LR, moment_dtype="int8")
+        out["case1"] = {"leaves": [k for k, _, _, _ in ones],
+                        "collectives": {str(k): v for k, v in
+                                        cm.get_comm_counts().items()},
+                        **optim.adamw.transfer_counts}
+        n_leaves = len(leaves)
+        del placed, opt, leaves, ones, sub, sub_opt
+        torch.cuda.empty_cache()
+        # The unplaced port, leaf by leaf, each rank against its own
+        # shards: Q8_UPDATES updates (bit for bit), then the clipped
+        # gradient's update as apply_grads makes it. A leaf of a billion
+        # elements or more (an expert stack: the unplaced update peaks
+        # near 40 GB) one rank at a time, the rest at once.
+        t0 = time.perf_counter()
+        # The same seeded params again, whole, on the card (now free).
+        init = optim.adamw.tree_leaves(T.init_params(cfg, seed=0,
+                                                     device="cuda"))
+        norm = torch.sqrt(sum(
+            torch.sum(torch.square(_q8_grad(
+                h.shape, h.dtype, Q8_UPDATES, i).float()))
+            for i, h in enumerate(init)))
+        scale = torch.clamp(1.0 / torch.clamp(norm, min=1e-12), max=1.0)
+        out["grad_norm"] = float(norm)
+        out["update_rows"], out["apply_rows"] = [], []
+        for i in range(n_leaves):
+            turns = range(2) if init[i].numel() >= Q8_ALONE else [rank]
+            for turn in turns:
+                if len(turns) > 1:
+                    dist.barrier()
+                if turn != rank:
+                    continue
+                p = {"w": init[i].clone()}
+                ref = optim.adamw_init(p, "int8")
+                for u in range(Q8_UPDATES + 1):
+                    g = _q8_grad(p["w"].shape, p["w"].dtype, u, i)
+                    if u == Q8_UPDATES:
+                        out["update_rows"].append(_q8_compare(
+                            snaps[0][i], (p["w"], ref.mu["w"],
+                                          ref.nu["w"])))
+                        g.copy_((g.float() * scale).to(g.dtype))
+                    p, ref = optim.adamw_update(p, {"w": g}, ref,
+                                                lr=Q8_MOE_LR,
+                                                moment_dtype="int8")
+                    del g
+                out["apply_rows"].append(_q8_compare(
+                    snaps[1][i], (p["w"], ref.mu["w"], ref.nu["w"])))
+                del p, ref
+                torch.cuda.empty_cache()
+            if len(turns) > 1:
+                dist.barrier()
+        del init
+        torch.cuda.empty_cache()
+        out["reference_s"] = time.perf_counter() - t0
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(root, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def _q8_two_ranks(env: dict) -> dict:
+    """(b) Two gloo processes on cuda:0; a failed child fails the run."""
+    ctx = mp.get_context("spawn")
+    with tempfile.TemporaryDirectory(prefix="q8_b_") as root:
+        procs = [ctx.Process(target=_q8_moe_rank, args=(r, root))
+                 for r in range(2)]
+        t0 = time.perf_counter()
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(timeout=max(1.0, Q8_JOIN_S - (time.perf_counter() - t0)))
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        codes = [p.exitcode for p in procs]
+        if codes != [0, 0]:
+            raise SmokeFailure(f"the two int8-moment ranks exited {codes}")
+        ranks = [json.loads(Path(root, f"rank{r}.json").read_text())
+                 for r in range(2)]
+    seconds = time.perf_counter() - t0
+    upd_ok = all(row["param_equal"] and row["codes_equal"]
+                 for r in ranks for row in r["update_rows"])
+    apply = [row for r in ranks for row in r["apply_rows"]]
+    over = sum(row["param_over_tol"] for row in apply) / sum(
+        row["elements"] for row in apply)
+    code_off = sum(row["code_off"] for row in apply) / sum(
+        row["codes"] for row in apply)
+    row = {"phase": "int8_moments_two_ranks", "arch": MLA_ARCH,
+           "layers": Q8_LAYERS, "mesh": [1, 2], "backend": "gloo",
+           "device": "cuda:0 for both ranks", "lr": Q8_MOE_LR,
+           "cases": {c: len(v) for c, v in ranks[0]["cases"].items()},
+           "case1_leaves": ranks[0]["cases"].get("1", []),
+           "updates_bit_for_bit": upd_ok,
+           "update_leaves": len(ranks[0]["update_rows"]),
+           "updates": [r["updates"] for r in ranks],
+           "apply_grads": {"grad_norm": ranks[0]["grad_norm"],
+                           "grad_norm_placed": [r["grad_norm_placed"]
+                                                for r in ranks],
+                           "param_max_err": max(r["param_max_err"]
+                                                for r in apply),
+                           "param_over_tol_share": over,
+                           "code_off_share": code_off,
+                           "code_max_diff": max(r["code_max_diff"]
+                                                for r in apply)},
+           "case1_update": [r["case1"] for r in ranks],
+           "build_s": [r["build_s"] for r in ranks],
+           "snapshot_s": [r["snapshot_s"] for r in ranks],
+           "reference_s": [r["reference_s"] for r in ranks],
+           "peak_memory_gb": [r["peak_memory_gb"] for r in ranks],
+           "seconds": seconds, "card": env["nvidia_smi"]}
+    emit(row)
+    if not upd_ok:
+        bad = [(r["rank"], i) for r in ranks for i, x in
+               enumerate(r["update_rows"])
+               if not (x["param_equal"] and x["codes_equal"])]
+        raise SmokeFailure(f"placed adamw_update differs from the unplaced "
+                           f"one at (rank, leaf) {bad[:10]}")
+    a = row["apply_grads"]
+    if a["param_max_err"] > 2 * Q8_MOE_LR or over > Q8_FLIP_SHARE or \
+            code_off > Q8_CODE_OFF_SHARE or a["code_max_diff"] > 1:
+        raise SmokeFailure(f"placed apply_grads off the unplaced one: {a}")
+    if not ranks[0]["cases"].get("1") or any(
+            r["case1"]["calls"] or r["case1"]["collectives"]
+            for r in ranks):
+        raise SmokeFailure(f"case 1 leaves moved data: "
+                           f"{row['case1_update']}")
+    return row
+
+
+def phase_int8_moments(env: dict) -> dict:
+    """(a) and (b)."""
+    t_phase = time.perf_counter()
+    one = _q8_one_rank(env)
+    torch.cuda.empty_cache()
+    two = _q8_two_ranks(env)
+    row = {"phase": "int8_moments", "one_rank": one,
+           "two_ranks": {k: two[k] for k in ("updates_bit_for_bit",
+                                             "apply_grads", "seconds")},
+           "phase_s": time.perf_counter() - t_phase,
+           "card": env["nvidia_smi"]}
+    emit(row)
+    return one
+
+
 def _meta_bytes(tree) -> int:
     """Bytes of a tree's tensors from their shapes and dtypes (the meta
     device has no storage to ask)."""
@@ -4511,40 +4971,59 @@ PIPE_DRYRUN_ERRORS = {("deepseek-v3-671b", "train_4k"),
                       ("qwen2-vl-2b", "prefill_32k")}
 
 
-def _dryrun_sweep(dist_: str) -> tuple:
-    """``launch/dryrun.py --all --mesh pod --dist <dist_>`` in spawned
-    processes that see no card: (the finished process, cells by tag, s)."""
-    jobs = min(DRYRUN_JOBS, os.cpu_count() or 1)
-    with tempfile.TemporaryDirectory(prefix="dryrun_") as out:
-        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
-               "--mesh", "pod", "--dist", dist_, "--jobs", str(jobs),
-               "--out", out]
-        # The sweep runs on the meta device: no process of it sees the card.
+def _dryrun_sweeps() -> dict:
+    """``launch/dryrun.py --all --mesh pod --dist <dist>`` for each dist of
+    DRYRUN_JOBS, at once, in spawned processes that see no card: {dist:
+    (exit code, its stdout and stderr, cells by tag, s)}."""
+    with tempfile.TemporaryDirectory(prefix="dryrun_") as root:
+        # The sweeps run on the meta device: no process of them sees the
+        # card.
         penv = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
                     CUDA_VISIBLE_DEVICES="")
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, cwd=ROOT, env=penv, capture_output=True,
-                              text=True, timeout=900)
-        sweep_s = time.perf_counter() - t0
-        cells = {p.stem: json.loads(p.read_text())
-                 for p in sorted(Path(out).glob("*.json"))}
-    emit({"phase": f"dryrun_cells_{dist_}", "sweep_s": sweep_s,
-          "jobs": jobs, "exit_code": proc.returncode,
-          "columns": ["cell", "status", "compile_s",
-                      "argument_bytes_per_device",
-                      "output_bytes_per_device", "flops",
-                      "flops_over_n_devices", "collectives_count_per_kind",
-                      "collectives_total_bytes", "plan"],
-          "cells": [[tag, c["status"], c.get("compile_s"),
-                     c.get("memory", {}).get("argument_size_in_bytes"),
-                     c.get("memory", {}).get("output_size_in_bytes"),
-                     c.get("cost", {}).get("flops"),
-                     c.get("cost", {}).get("flops_over_n_devices"),
-                     (c.get("collectives") or {}).get("count_per_kind"),
-                     (c.get("collectives") or {}).get("total_bytes"),
-                     c.get("plan")]
-                    for tag, c in cells.items()]})
-    return proc, cells, sweep_s
+        procs = {dist_: subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
+             "--mesh", "pod", "--dist", dist_, "--jobs", str(jobs),
+             "--out", os.path.join(root, dist_)], cwd=ROOT, env=penv,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for dist_, jobs in DRYRUN_JOBS.items()}
+        out = {}
+        while len(out) < len(procs):
+            for dist_, proc in procs.items():
+                if dist_ not in out and proc.poll() is not None:
+                    out[dist_] = [proc.returncode,
+                                  *proc.communicate(),
+                                  time.perf_counter() - t0]
+            if time.perf_counter() - t0 > 900:
+                for proc in procs.values():
+                    proc.kill()
+                raise SmokeFailure(f"the dry-run sweeps took over 900 s: "
+                                   f"{sorted(out)} finished")
+            time.sleep(0.5)
+        result = {}
+        for dist_, (code, stdout, stderr, sweep_s) in out.items():
+            cells = {p.stem: json.loads(p.read_text()) for p in sorted(
+                Path(root, dist_).glob("*.json"))}
+            emit({"phase": f"dryrun_cells_{dist_}", "sweep_s": sweep_s,
+                  "jobs": DRYRUN_JOBS[dist_], "exit_code": code,
+                  "columns": ["cell", "status", "compile_s",
+                              "argument_bytes_per_device",
+                              "output_bytes_per_device", "flops",
+                              "flops_over_n_devices",
+                              "collectives_count_per_kind",
+                              "collectives_total_bytes", "plan"],
+                  "cells": [[tag, c["status"], c.get("compile_s"),
+                             c.get("memory", {}).get("argument_size_in_bytes"),
+                             c.get("memory", {}).get("output_size_in_bytes"),
+                             c.get("cost", {}).get("flops"),
+                             c.get("cost", {}).get("flops_over_n_devices"),
+                             (c.get("collectives") or {}).get(
+                                 "count_per_kind"),
+                             (c.get("collectives") or {}).get("total_bytes"),
+                             c.get("plan")]
+                            for tag, c in cells.items()]})
+            result[dist_] = (code, stdout, stderr, cells, sweep_s)
+    return result
 
 
 def _pipeline_status(arch: str, cfg, shape: str) -> str:
@@ -4557,10 +5036,11 @@ def _pipeline_status(arch: str, cfg, shape: str) -> str:
 
 def phase_dryrun(env: dict, train: dict, int8: dict) -> dict:
     t_phase = time.perf_counter()
-    proc, cells, sweep_s = _dryrun_sweep("pjit")
-    if proc.returncode != 0:
-        raise SmokeFailure(f"the dry run exited {proc.returncode}: "
-                           f"{proc.stdout[-2000:]} {proc.stderr[-2000:]}")
+    sweeps = _dryrun_sweeps()
+    code, stdout, stderr, cells, sweep_s = sweeps["pjit"]
+    if code != 0:
+        raise SmokeFailure(f"the dry run exited {code}: "
+                           f"{stdout[-2000:]} {stderr[-2000:]}")
     want = {f"{arch}_{shape}_pod_pjit":
             "ok" if cell_is_runnable(cfg, shape)[0] else "skipped"
             for arch, cfg in ARCHS.items() for shape in SHAPES}
@@ -4575,15 +5055,15 @@ def phase_dryrun(env: dict, train: dict, int8: dict) -> dict:
     # --dist pipeline: the reference's statuses (its errors make the sweep
     # exit 1, as the reference's does), every traced cell with its plan and
     # the stage hand-off counted.
-    pproc, pcells, pipe_sweep_s = _dryrun_sweep("pipeline")
+    pcode, _, pstderr, pcells, pipe_sweep_s = sweeps["pipeline"]
     pwant = {f"{arch}_{shape}_pod_pipeline": _pipeline_status(arch, cfg,
                                                               shape)
              for arch, cfg in ARCHS.items() for shape in SHAPES}
     pgot = {tag: c["status"] for tag, c in pcells.items()}
-    if pgot != pwant or pproc.returncode != 1:
-        raise SmokeFailure(f"the pipeline dry run exited {pproc.returncode} "
-                           f"with cells {pgot}, expected 1 and {pwant}: "
-                           f"{pproc.stderr[-2000:]}")
+    if pgot != pwant or pcode != 1:
+        raise SmokeFailure(f"the pipeline dry run exited {pcode} with cells "
+                           f"{pgot}, expected 1 and {pwant}: "
+                           f"{pstderr[-2000:]}")
     # Every "ok" cell but RecurrentGemma-2B's two (C9's) was traced.
     traced = [c for c in pcells.values() if "plan" in c]
     untraced_ok = sum(c["status"] == "ok" and c.get("reason") == "unit kind"
@@ -4597,7 +5077,7 @@ def phase_dryrun(env: dict, train: dict, int8: dict) -> dict:
 
     # The dry run against the card: the training state phase train held,
     # the int8 params phase int8 held, and the FLOPs of the training step.
-    rg = ARCHS[TRAIN_ARCH]
+    rg = _train_cfg()
     state_meta = _meta_bytes(lm_steps.abstract_state(rg))
     yi_meta = T.init_params(ARCHS[LM_ARCH], device="meta")
     param_meta = {"bf16": _meta_bytes(yi_meta),
@@ -4689,6 +5169,8 @@ def main() -> int:
         mesh = phase_mesh(env)
         torch.cuda.empty_cache()
         pipe = phase_pipeline_lm(env)
+        torch.cuda.empty_cache()
+        q8 = phase_int8_moments(env)
         torch.cuda.empty_cache()
         phase_dryrun(env, train, int8)
     except SmokeFailure as e:
@@ -4826,6 +5308,12 @@ def main() -> int:
         "bound_by": train["times"][f"{d}_bound_by"], "library_ms": None,
         "library_note": "null: no single PyTorch call computes the "
                         "recurrence or its gradient",
+        "launches_on": {f"{TRAIN_ARCH}-int8-moments":
+                        q8["launches_total"][d]},
+        "launches_on_per": {f"{TRAIN_ARCH}-int8-moments":
+                            f"{Q8_STEPS} training steps placed on a "
+                            f"one-rank (1, 1) mesh with int8 AdamW "
+                            f"moments, {q8['launches'][d]} a step"},
         "path": f"{TRAIN_ARCH}-train",
         "per": f"one launch at the training shape (B {TRAIN_B}, S "
                f"{TRAIN_S}, D {rg_cfg.lru_width}, fp32); {per}"}

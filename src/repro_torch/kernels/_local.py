@@ -149,7 +149,11 @@ def reshape(t, shape: Sequence[int]):
     split dim lies over mesh dims whose product does not divide the
     split's leading factor (16 ``model`` ranks over 8 KV heads) is first
     gathered on those mesh dims, in the forward and for the gradient of a
-    merge: DTensor refuses an uneven unflatten, where XLA reshards."""
+    merge: DTensor refuses an uneven unflatten, where XLA reshards. A dim
+    of size 1 split over a mesh dim of size 1 (one KV head on a one-rank
+    ``model`` axis) is first marked replicated, which moves nothing:
+    DTensor drops a size-1 dim from a merge and refuses to drop a split
+    one."""
     if not isinstance(t, DTensor):
         return t.reshape(shape)
     return _Reshape.apply(t, tuple(shape))
@@ -167,6 +171,11 @@ class _Reshape(torch.autograd.Function):
 
 
 def _even_reshape(t: DTensor, shape: tuple) -> DTensor:
+    if any(isinstance(pl, Shard) and t.shape[pl.dim] == 1
+           for pl in t.placements):
+        t = t.redistribute(t.device_mesh, [
+            Replicate() if isinstance(pl, Shard) and t.shape[pl.dim] == 1
+            else pl for pl in t.placements])
     if len(shape) > t.ndim:             # the last dim is split
         d = t.ndim - 1
         on = [i for i, pl in enumerate(t.placements)

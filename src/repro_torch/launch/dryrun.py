@@ -26,9 +26,11 @@ runs the step the reference lowers (train: ``value_and_grad`` then
     dispatches, counted by kind, and the bytes of its operand on one rank.
     The reference reads them from XLA's partitioned HLO
     (``launch/hlo_stats.py``), which fuses and schedules collectives; the
-    port's are its eager dispatch's (a recorded divergence). AdamW's int8
-    moments on placed leaves are not ported (ROADMAP): a cell whose
-    config keeps int8 moments counts its step up to the update.
+    port's are its eager dispatch's (a recorded divergence). A config
+    with int8 AdamW moments (DeepSeek-V2/V3) updates each leaf where its
+    block codes live: the update's layout transfer shows as
+    ``all-to-all`` (``optim/adamw.py``; the record also keeps the
+    transfer's own count of it, on one rank, as ``update_transfer``).
 
 ``--dist pipeline`` runs the reference's ``_run_pipeline_cell``: the
 allocator's plan (``plan_pipeline`` over ``lm_layer_workloads``, the
@@ -96,9 +98,6 @@ COLLECTIVES_NOTE = ("counted from the placed step's dispatch in a fake "
                     "process group of the mesh's size (CommDebugMode), bytes "
                     "the operand's on one rank; the reference reads XLA's "
                     "partitioned HLO (launch/hlo_stats.py)")
-INT8_MOMENTS_NOTE = ("; AdamW's int8 moments on placed leaves are not ported "
-                     "(ROADMAP): counted up to the update (value_and_grad "
-                     "and the clip)")
 # Collective ops by the reference's kind names (hlo_stats.py).
 _KINDS = (("all_gather", "all-gather"), ("reduce_scatter", "reduce-scatter"),
           ("all_reduce", "all-reduce"), ("allreduce", "all-reduce"),
@@ -189,7 +188,7 @@ def trace_cell(cfg, case: ShapeCase, mesh: dict, dp_model: bool = False,
                 (new_cache, SH.cache_specs(mesh, new_cache))]
     flops = fc.get_total_flops()
     collectives, note = _placed_collectives(cfg, case, mesh, args)
-    return {
+    res = {
         "memory": {
             "argument_size_in_bytes": sum(
                 SH.tree_shard_bytes(t, sp, mesh) for t, sp in args),
@@ -200,6 +199,9 @@ def trace_cell(cfg, case: ShapeCase, mesh: dict, dp_model: bool = False,
                  "flops_over_n_devices": flops / n_dev},
         "collectives": collectives, "collectives_note": note,
         "n_devices": n_dev, "mesh_shape": dict(mesh)}
+    if case.mode == "train" and cfg.opt_moment_dtype == "int8":
+        res["update_transfer"] = dict(optim.adamw.transfer_counts)
+    return res
 
 
 def _kind(op_name: str) -> str | None:
@@ -233,7 +235,7 @@ def _placed_collectives(cfg, case: ShapeCase, mesh: dict,
     """The step of ``trace_cell`` again, its arguments (``args``: (tree,
     specs) pairs, params first) placed on a meta mesh of ``mesh``'s shape
     in a fake process group: the collectives it dispatches, by kind."""
-    note = COLLECTIVES_NOTE
+    optim.adamw.reset_transfer_counts()
     with fake_process_group(math.prod(mesh.values())):
         dmesh = build_mesh(mesh, "meta")
         placed = [SH.place(tree, SH.map_with_path(
@@ -245,12 +247,6 @@ def _placed_collectives(cfg, case: ShapeCase, mesh: dict,
                         if case.mode == "prefill"
                         else STEPS.make_serve_step(cfg))
                 step(*placed)
-            elif cfg.opt_moment_dtype == "int8":
-                params, _, batch = placed
-                _, grads = STEPS.value_and_grad(params, cfg, batch,
-                                                remat=True)
-                optim.clip_by_global_norm_(grads, 1.0)
-                note += INT8_MOMENTS_NOTE
             else:
                 STEPS.make_train_step(cfg)(*placed)
         counts: dict[str, int] = {}
@@ -258,7 +254,7 @@ def _placed_collectives(cfg, case: ShapeCase, mesh: dict,
             kind = _kind(str(op)) or str(op)
             counts[kind] = counts.get(kind, 0) + n
     return {"count_per_kind": counts, "bytes_per_kind": cm.bytes_by_kind,
-            "total_bytes": sum(cm.bytes_by_kind.values())}, note
+            "total_bytes": sum(cm.bytes_by_kind.values())}, COLLECTIVES_NOTE
 
 
 def pipeline_plan(cfg, case: ShapeCase, mesh: dict, stages: int = 0):
@@ -393,26 +389,18 @@ def dp_batch_specs(mesh: dict, batch):
     return SH.map_with_path(one, batch)
 
 
-def _is_q8(node) -> bool:
-    return isinstance(node, dict) and set(node) == {"q", "scale", "shape"}
-
-
 def opt_specs(opt, param_sp, mesh: dict) -> AdamWState:
     """Moments inherit param specs; ZeRO-1 additionally splits the first
     still-replicated dim over 'data' when divisible. q8-encoded moments
-    shard their block dim over the whole mesh. ``opt`` may be the port's
-    state or the reference's (any named tuple with its fields)."""
-    axes = tuple(a for a in ("pod", "data", "model") if a in mesh)
-    n_all = math.prod(mesh[a] for a in axes)
+    shard their block dim over the whole mesh (``SH.q8_specs``, the rule
+    ``adamw_init`` places them by). ``opt`` may be the port's state or the
+    reference's (any named tuple with its fields)."""
 
     def inherit(node, psp):
         if isinstance(node, list):
             return [inherit(v, s) for v, s in zip(node, psp)]
-        if _is_q8(node):
-            blocks = node["q"].shape[0]
-            spec = (axes, None) if blocks % n_all == 0 else (None, None)
-            return {"q": spec, "scale": spec,
-                    "shape": (None,) * len(node["shape"].shape)}
+        if SH.is_q8(node):
+            return SH.q8_specs(node, mesh)
         if isinstance(node, dict):
             return {k: inherit(v, psp[k]) for k, v in node.items()}
         shape = tuple(node.shape)

@@ -54,6 +54,8 @@ def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--arch", required=True)
     ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--n-layers", type=int, default=None,
+                    help="cut the decoder's depth (as launch/serve.py's)")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=128)
@@ -73,6 +75,8 @@ def main(argv=None) -> dict:
     cfg = get_arch(args.arch)
     if args.reduced:
         cfg = reduce_cfg(cfg)
+    if args.n_layers:
+        cfg = cfg.scaled(n_layers=args.n_layers)
     device = T._device(args.device)
     n = T.param_count(cfg)
     print(f"[train] {cfg.name}: {n/1e6:.1f}M params, "

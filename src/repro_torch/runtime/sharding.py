@@ -17,6 +17,12 @@ dim split over their product), the entries of the reference's
 leaf under its spec; the dry run (``launch/dryrun.py``) reads these rules
 to count the bytes each device holds.
 
+``q8_specs`` is the reference dry run's rule for AdamW's int8 moments
+(``_opt_shardings``): a moment's block codes split their block dim over
+every axis of (pod, data, model) when the block count divides the
+product, else replicated; the shape code replicated. ``opt_shardings``
+places an optimizer state by it.
+
 ``param_shardings``, ``batch_shardings``, ``cache_shardings`` and
 ``opt_state_shardings`` turn the specs into :class:`Sharding` objects, the
 counterpart of ``jax.sharding.NamedSharding``: a ``DeviceMesh`` and one
@@ -241,11 +247,38 @@ def cache_specs(mesh_shape: dict, cache: Any) -> Any:
     return map_with_path(one, cache)
 
 
+CODE_AXES = ("pod", "data", "model")
+
+
+def is_q8(node) -> bool:
+    """Whether ``node`` is an int8 moment's code (``optim/adamw.py``)."""
+    return isinstance(node, dict) and set(node) == {"q", "scale", "shape"}
+
+
+def q8_code_spec(blocks: int, mesh_shape: dict) -> Spec:
+    """The spec of an int8 moment's ``q`` [blocks, 128] and ``scale``
+    [blocks, 1]: the block dim over every axis of (pod, data, model) in
+    the mesh when ``blocks`` divides their product, else replicated (the
+    reference dry run's ``_opt_shardings``)."""
+    axes = tuple(a for a in CODE_AXES if a in mesh_shape)
+    n = math.prod(mesh_shape[a] for a in axes)
+    return (axes, None) if axes and blocks % n == 0 else (None, None)
+
+
+def q8_specs(code: dict, mesh_shape: dict) -> dict:
+    """The specs of an int8 moment's code (``is_q8``): ``q8_code_spec``
+    for ``q`` and ``scale``, ``shape`` replicated."""
+    spec = q8_code_spec(code["q"].shape[0], mesh_shape)
+    return {"q": spec, "scale": spec,
+            "shape": (None,) * len(code["shape"].shape)}
+
+
 def opt_state_specs(param_sp: Any) -> Any:
     """ZeRO-1 as the reference's rules module states it: moments inherit
     parameter specs (they are further split over 'data' where fsdp
     already shards params there). The dry run's own rule, which also
-    splits a replicated dim, is ``launch/dryrun.py::opt_specs``."""
+    splits a replicated dim, is ``launch/dryrun.py::opt_specs``; int8
+    codes are placed by ``q8_specs`` (``opt_shardings``)."""
     if isinstance(param_sp, dict):
         return {k: opt_state_specs(v) for k, v in param_sp.items()}
     if isinstance(param_sp, list):
@@ -313,21 +346,48 @@ def cache_shardings(mesh: DeviceMesh, cache: Any) -> Any:
 
 def opt_state_shardings(param_sh: Any) -> Any:
     """ZeRO-1 as the reference's rules module states it: the moments'
-    shardings are the parameters' (``opt_state_specs``)."""
+    shardings are the parameters' (``opt_state_specs``). An int8 moment's
+    code is placed by ``opt_shardings``."""
     return opt_state_specs(param_sh)
+
+
+def opt_shardings(mesh: DeviceMesh, opt_state: Any, param_sh: Any) -> Any:
+    """A :class:`Sharding` per leaf of an AdamW state (``optim/adamw.py``'s
+    ``AdamWState``) beside params placed on ``param_sh``, the counterpart of
+    the reference dry run's ``_opt_shardings`` for the port's update: an
+    int8 moment's code by ``q8_specs``; a float32 or bfloat16 moment and
+    the error-feedback residual on its parameter's sharding, as
+    ``adamw_init`` places them; the step None (a plain tensor on every
+    rank, which ``place`` leaves as it is)."""
+    shape = mesh_shape(mesh)
+
+    def moment(node, psh):
+        if is_q8(node):
+            return _shardings(mesh, q8_specs(node, shape))
+        if isinstance(node, dict):
+            return {k: moment(v, psh[k]) for k, v in node.items()}
+        if isinstance(node, list):
+            return [moment(v, s) for v, s in zip(node, psh)]
+        return psh
+
+    return opt_state._replace(
+        step=None, mu=moment(opt_state.mu, param_sh),
+        nu=moment(opt_state.nu, param_sh),
+        err=None if opt_state.err is None else param_sh)
 
 
 def place(tree: Any, shardings: Any) -> Any:
     """``tree`` with each tensor leaf a DTensor on its :class:`Sharding`
     (a tree of ``tree``'s structure), the counterpart of
-    ``jax.device_put``; host ints stay as they are. Every rank holds the
-    leaf's whole value, as every process of a jax program holds a global
-    array's: each takes its own shard, and no data moves between ranks
+    ``jax.device_put``; host ints, and leaves whose sharding is None, stay
+    as they are. Every rank holds the leaf's whole value, as every process
+    of a jax program holds a global array's: each takes its own shard, and
+    no data moves between ranks
     (``src_data_rank=None``). The placed tree shares no storage with
     ``tree`` (AdamW writes placed params in place). A DTensor leaf is
     redistributed."""
     def one(leaf, sh):
-        if not isinstance(leaf, torch.Tensor):
+        if not isinstance(leaf, torch.Tensor) or sh is None:
             return leaf
         if isinstance(leaf, DTensor):
             return leaf.redistribute(sh.mesh, sh.placements)
@@ -342,13 +402,16 @@ def place(tree: Any, shardings: Any) -> Any:
 
 def _zip_map(fn: Callable, tree: Any, other: Any) -> Any:
     """``fn(leaf, node)`` over ``tree``'s leaves and the nodes at the same
-    places of ``other`` (dicts, lists, named tuples; ``None`` stays)."""
+    places of ``other`` (dicts, lists, tuples, named tuples; ``None``
+    stays)."""
     if isinstance(tree, dict):
         return {k: _zip_map(fn, v, other[k]) for k, v in tree.items()}
     if isinstance(tree, list):
         return [_zip_map(fn, v, o) for v, o in zip(tree, other)]
-    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
-        return type(tree)(*(_zip_map(fn, v, o) for v, o in zip(tree, other)))
+    if isinstance(tree, tuple):
+        items = (_zip_map(fn, v, o) for v, o in zip(tree, other))
+        return type(tree)(*items) if hasattr(tree, "_fields") else \
+            tuple(items)
     if tree is None:
         return None
     return fn(tree, other)

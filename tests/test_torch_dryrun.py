@@ -7,7 +7,8 @@ and ZeRO-1 specs, the FLOPs ``FlopCounterMode`` counts, the meta
 branches of the code the dry run traces, the CLI, and ``--dist
 pipeline`` (the plan and K of the reference's ``_run_pipeline_cell``,
 each cell's status as the reference records it, the stage hand-off
-counted).
+counted), and DeepSeek-V2/V3's ``train_4k`` cells traced through the
+placed int8 AdamW update with the bytes and FLOPs they had before it.
 
 The reference's ``repro.launch.dryrun`` sets ``XLA_FLAGS`` (512 host
 devices) when imported, so nothing here imports it: its ``--dist dp`` and
@@ -568,6 +569,41 @@ def test_main_writes_one_json_per_cell(tmp_path):
     q = res["yi-6b_decode_32k_pod_pjit_int8.json"]["memory"]
     b = res["yi-6b_decode_32k_pod_pjit.json"]["memory"]
     assert q["argument_size_in_bytes"] < b["argument_size_in_bytes"]
+
+
+# DeepSeek-V2/V3's train_4k cells on the pod mesh (the two configs with
+# int8 AdamW moments), as the parent commit of the placed int8 update
+# recorded them, when their placed trace stopped before the update: the
+# bytes per device and the FLOPs, which the update changes neither of (the
+# same sharding rules; AdamW adds no matrix product).
+INT8_TRAIN_CELLS = {"deepseek-v2-236b": (4013550596, 2.747065205690204e+17),
+                    "deepseek-v3-671b": (11186341860, 4.3315920283212186e+17)}
+
+
+def test_int8_moment_train_cells_trace_the_update():
+    """DeepSeek-V2/V3's ``train_4k`` cells on the pod mesh trace the whole
+    placed step (one spawned process a cell): ok, no note of an update
+    left out, the update's layout transfer counted as all-to-all (the
+    step's only one: the transfer's own count of calls equals it), and
+    the bytes per device and FLOPs unchanged."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+    archs = list(INT8_TRAIN_CELLS)
+    with ProcessPoolExecutor(
+            len(archs), mp_context=multiprocessing.get_context("spawn")) \
+            as pool:
+        records = list(pool.map(dryrun.run_cell, archs,
+                                ["train_4k"] * len(archs),
+                                ["pod"] * len(archs)))
+    for arch, r in zip(archs, records):
+        assert ARCHS[arch].opt_moment_dtype == "int8"
+        assert r["status"] == "ok", r
+        assert "update" not in r["collectives_note"], r["collectives_note"]
+        coll, moved = r["collectives"], r["update_transfer"]
+        assert coll["count_per_kind"]["all-to-all"] == moved["calls"] > 0
+        assert coll["bytes_per_kind"]["all-to-all"] > 0
+        assert (r["memory"]["argument_size_in_bytes"],
+                r["cost"]["flops"]) == INT8_TRAIN_CELLS[arch]
 
 
 def _ref_pipeline_plan(arch, shape, mesh_name, stages=0):

@@ -10,7 +10,15 @@ shapes and dispatch are real, the collectives move no data):
   Yi-6B, DeepSeek-V2, RWKV6 and RecurrentGemma-2B on (4, 2);
 * a spec's placements follow ``PartitionSpec``'s semantics;
 * the mesh builders, ``set_mesh`` and ``place``;
-* the dry run's pjit cells report collectives.
+* the dry run's pjit cells report collectives;
+* the int8 AdamW moments' layout transfer on a (4, 2) mesh, one leaf of
+  each layout case: its collectives by kind and the bytes one rank
+  receives, none where every rank's blocks are its own shard;
+* on a one-rank ``gloo`` mesh (1, 1), three placed train steps of reduced
+  RecurrentGemma-2B in bf16 with int8 moments equal the unplaced steps
+  bit for bit (the card's phase ``int8_moments`` (a) at a small size; its
+  single KV head, split over a ``model`` axis of one rank, once failed
+  the attention output's merge under autograd).
 """
 
 import math
@@ -177,7 +185,95 @@ def test_pjit_cell_reports_collectives(mode):
     # The expert-parallel combine is an all-reduce.
     assert coll["count_per_kind"].get("all-reduce", 0) > 0
     assert "fake process group" in res["collectives_note"]
-    assert ("int8 moments" in res["collectives_note"]) == (mode == "train")
+    # The int8 moments' update transfer is the step's only all-to-all.
+    moved = res.get("update_transfer", {"calls": 0})["calls"]
+    assert coll["count_per_kind"].get("all-to-all", 0) == moved
+    assert (moved > 0) == (mode == "train")
     assert res["cost"]["flops"] > 0 and res["n_devices"] == 8
     assert not dist.is_initialized()
     assert math.prod(res["mesh_shape"].values()) == 8
+
+
+# (layout case, the leaf's shape and spec on the (4, 2) mesh, the bytes
+# rank (0, 0) receives in to_blocks and in from_blocks: float32, the
+# parameter and the gradient together on the way in, the parameter back).
+# [64, 128] holds 64 blocks, 8 a rank: rank (0, 0) holds rows 0-7.
+LAYOUT_CASES = {
+    "1: dim 0 over (data, model)": (1, (64, 128), (("data", "model"), None),
+                                    0, 0),
+    # Its box is columns 0-63: rows 0-7's other half comes in, 56 rows of
+    # its half go back.
+    "2: dim 1 over model": (2, (64, 128), (None, "model"), 512 * 8,
+                            56 * 64 * 4),
+    # Replicated: its rows are at hand; the other 56 rows come back.
+    "3: codes placed, param replicated": (3, (64, 128), (None, None), 0,
+                                          56 * 128 * 4),
+    # One block, replicated: the leaf's other 32 elements come in.
+    "3: codes replicated, param placed": (3, (64,), ("model",), 32 * 8, 0),
+    "0: both replicated": (0, (64,), (None,), 0, 0),
+}
+
+
+@pytest.mark.parametrize("name", list(LAYOUT_CASES))
+def test_int8_moment_transfer_by_layout_case(name):
+    """One placed leaf with int8 moments through ``adamw_update``: its
+    ``layout_case``, and the collectives of the update as the dry run
+    counts them (``CommDebugMode``) and as the transfer counts its own:
+    one all-to-all for each direction in which some rank needs an
+    off-rank piece, the bytes rank (0, 0) receives, none in case 1."""
+    from repro_torch import optim
+    from repro_torch.optim import adamw as A
+    case, shape, spec, bytes_in, bytes_back = LAYOUT_CASES[name]
+    with M.fake_process_group(8):
+        mesh = M.make_debug_mesh(4, 2, device_type="cpu")
+        sh = SH.named_sharding(mesh, spec)
+        p = SH.place(torch.zeros(shape), sh)
+        g = SH.place(torch.ones(shape), sh)
+        opt = optim.adamw_init({"w": p}, "int8")
+        assert A.layout_case(p, opt.mu["w"]["q"]) == case
+        A.reset_transfer_counts()
+        with dryrun._CollectiveBytes() as cm:
+            optim.adamw_update({"w": p}, {"w": g}, opt, lr=1e-3,
+                               moment_dtype="int8")
+        calls = (bytes_in > 0) + (bytes_back > 0)
+        counts = {dryrun._kind(str(op)): n
+                  for op, n in cm.get_comm_counts().items()}
+        assert counts == ({"all-to-all": calls} if calls else {}), counts
+        # CommDebugMode reads the exchange's output: what the rank gets.
+        assert cm.bytes_by_kind.get("all-to-all", 0) == bytes_in + bytes_back
+        assert A.transfer_counts["calls"] == calls
+
+
+def test_one_rank_placed_int8_steps_are_the_unplaced_steps():
+    """Reduced RecurrentGemma-2B (bf16, int8 moments) placed on a (1, 1)
+    mesh: three ``make_train_step`` calls give the unplaced calls' losses,
+    params, codes and scales bit for bit."""
+    from repro_torch import optim
+    from repro_torch.launch import steps as STEPS
+    from repro_torch.optim.adamw import tree_leaves
+    cfg = reduced(ARCHS["recurrentgemma-2b"]).scaled(opt_moment_dtype="int8")
+    params = T.init_params(cfg, seed=0, device="cpu", dtype=torch.bfloat16)
+    gen = torch.Generator().manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab, (2, 16), generator=gen)
+    batch = {"tokens": tokens, "labels": torch.roll(tokens, -1, 1)}
+    step = STEPS.make_train_step(cfg, lr=3e-4, remat=False)
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        mesh = M.make_debug_mesh(1, 1, device_type="cpu")
+        placed = SH.place(params, SH.param_shardings(cfg, mesh, params))
+        pbatch = SH.place(batch, SH.batch_shardings(mesh, batch))
+        opt, opt_p = optim.adamw_init(params, "int8"), \
+            optim.adamw_init(placed, "int8")
+        for _ in range(3):
+            params, opt, m = step(params, opt, batch)
+            with M.set_mesh(mesh):
+                placed, opt_p, m_p = step(placed, opt_p, pbatch)
+            assert torch.equal(m["loss"], m_p["loss"].to_local())
+            want = tree_leaves([params, opt.mu, opt.nu])
+            got = tree_leaves([placed, opt_p.mu, opt_p.nu])
+            assert len(want) == len(got) > 100
+            assert all(torch.equal(w, g.to_local())
+                       for w, g in zip(want, got))
+    finally:
+        dist.destroy_process_group()

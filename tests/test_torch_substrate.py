@@ -351,3 +351,17 @@ def test_train_launcher_on_the_cpu(tmp_path):
     assert all(set(n.values()) == {0} for n in out["launches"])
     assert sorted(os.listdir(tmp_path)) == ["step_2", "step_3"]
     assert train_t.main(args)["losses"] == []
+
+
+def test_train_launcher_cuts_depth(tmp_path):
+    """``--n-layers`` trains the config cut to that depth (as
+    ``launch/serve.py``'s), whose state the checkpoint then holds."""
+    out = train_t.main(["--arch", "recurrentgemma-2b", "--reduced",
+                        "--n-layers", "2", "--steps", "1", "--batch", "2",
+                        "--seq", "16", "--ckpt", str(tmp_path), "--device",
+                        "cpu"])
+    cfg = reduced(ARCHS["recurrentgemma-2b"]).scaled(n_layers=2)
+    assert out["params"] == T.param_count(cfg)
+    params, _ = out["state"]
+    assert sum(len(v) for k, v in params.items()
+               if isinstance(v, list)) == 2
