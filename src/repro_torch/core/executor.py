@@ -36,6 +36,7 @@ import torch
 
 from repro_torch.core import quant
 from repro_torch.core.program import CompiledRunner, EngineProgram
+from repro_torch.core.spans import span
 
 # In-flight micro-batches. Two mirrors the paper's double-buffered
 # activation memory: one batch computing on-device, one being staged
@@ -173,6 +174,9 @@ class EngineExecutor:
         self._max_inflight = max(1, int(max_inflight))
         self._results: list[np.ndarray] = []
         self._t0: float | None = None
+        # The spans' owner and batch numbers (never reset, unlike stats).
+        self._owner = id(self)
+        self._seq = 0
         # Pinned host staging, one buffer per in-flight slot: batch k uses
         # slot k % max_inflight, which is free again once batch
         # k - max_inflight has been collected (its event waited on, so its
@@ -263,22 +267,29 @@ class EngineExecutor:
         while len(self._inflight) >= self._max_inflight:
             self._collect_one()
         n = n_valid if n_valid is not None else len(frames)
-        batch = (frames if isinstance(frames, np.ndarray)
-                 else np.stack(frames))
-        xq = self.runner.quantize(batch)
+        owner, seq = self._owner, self._seq
+        self._seq += 1
+        with span("engine.stack", owner=owner, batch=seq):
+            batch = (frames if isinstance(frames, np.ndarray)
+                     else np.stack(frames))
+        with span("engine.quantize", owner=owner, batch=seq):
+            xq = self.runner.quantize(batch)
         t0 = time.perf_counter()
-        acc = self.runner(self._to_device(xq))
-        done = None
-        if self._cuda:
-            done = torch.cuda.Event()
-            done.record()
+        with span("engine.stage_in", owner=owner, batch=seq):
+            x = self._to_device(xq)
+        with span("engine.enqueue", owner=owner, batch=seq):
+            acc = self.runner(x)
+            done = None
+            if self._cuda:
+                done = torch.cuda.Event()
+                done.record()
         if self.stats.batches == 0:
             # The first launch builds the kernels; charge it separately so
             # steady_fps reflects the pipeline, not the build.
             if done is not None:
                 done.synchronize()
             self.stats.first_batch_s = time.perf_counter() - t0
-        self._inflight.append((acc, done, n, tag))
+        self._inflight.append((acc, done, n, tag, seq))
         self.stats.batches += 1
         self.stats.frames += n
         self.stats.padded_frames += len(frames) - n
@@ -288,16 +299,18 @@ class EngineExecutor:
         host — this runs while newer batches compute on device. Tagged
         batches go to ``on_result``; untagged ones accumulate for
         :meth:`drain`."""
-        acc, done, n, tag = self._inflight.popleft()
-        if done is not None:
-            done.synchronize()
-        out = self.runner.dequantize(acc)[:n]
-        if self.output == "top1":
-            out = np.argmax(out.reshape(n, -1), axis=-1)
-        if tag is not None and self.on_result is not None:
-            self.on_result(tag, out)
-        else:
-            self._results.append(out)
+        acc, done, n, tag, seq = self._inflight.popleft()
+        with span("engine.wait", owner=self._owner, batch=seq):
+            if done is not None:
+                done.synchronize()
+        with span("engine.collect", owner=self._owner, batch=seq):
+            out = self.runner.dequantize(acc)[:n]
+            if self.output == "top1":
+                out = np.argmax(out.reshape(n, -1), axis=-1)
+            if tag is not None and self.on_result is not None:
+                self.on_result(tag, out)
+            else:
+                self._results.append(out)
 
     # -- drain ---------------------------------------------------------------
 

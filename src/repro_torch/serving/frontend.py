@@ -79,6 +79,7 @@ import time
 
 import numpy as np
 
+from repro_torch.core.spans import span
 from repro_torch.serving.estimator import ServiceTimeEstimator, window_key
 
 DEFAULT_CLASS = "default"
@@ -499,6 +500,7 @@ class AsyncFrontend:
         # scoped to this frontend's lifetime (the pool's counters span
         # warmup and earlier frontends).
         self._replica_base = executor.replica_counts()
+        self._owner = id(self)      # of the batcher's spans
         executor.on_result = self._on_result
         # Pipelined executors report stage failures asynchronously; the
         # single-chain executor raises from submit_batch instead (handled
@@ -991,51 +993,54 @@ class AsyncFrontend:
         the tightest member deadline, then dispatch it. Fill pops are
         pinned to the first request's tenant: models take different
         frame shapes, so a batch can never mix tenants."""
-        tenant = first[0].tenant
-        batch = [first]
-        first[0].t_batched = time.perf_counter()
-        with self._lock:
-            self._assembling = 1
-            self._assembling_tenant = tenant
-        flush_at = first[0].t_submit + self.max_wait_s
-        # Holding the batch into a member's deadline would turn a
-        # servable request into a drop; flush with guard margin instead.
-        urgent_at = self._urgent_at(first[0])
-        reason = "full"
-
-        def take(nxt) -> None:
-            nonlocal urgent_at
-            nxt[0].t_batched = time.perf_counter()
-            batch.append(nxt)
+        with span("batcher.fill", owner=self._owner, batch=None) as fill:
+            tenant = first[0].tenant
+            batch = [first]
+            first[0].t_batched = time.perf_counter()
             with self._lock:
-                self._assembling = len(batch)
-            urgent_at = min(urgent_at, self._urgent_at(nxt[0]))
+                self._assembling = 1
+                self._assembling_tenant = tenant
+            flush_at = first[0].t_submit + self.max_wait_s
+            # Holding the batch into a member's deadline would turn a
+            # servable request into a drop; flush with guard margin instead.
+            urgent_at = self._urgent_at(first[0])
+            reason = "full"
 
-        while len(batch) < self.batch_size:
-            # Fill from the queued backlog before honoring any flush
-            # timer: once lane wait exceeds max_wait the timer is
-            # permanently expired, and flushing ahead of a non-empty
-            # lane would collapse a backlogged frontend into padded
-            # 1-frame batches (service rate / batch_size).
-            nxt = self._pop_next(timeout=0.0, tenant=tenant)
-            if nxt is not None:
-                take(nxt)
-                continue
-            if self._closing.is_set():
-                reason = "timeout"
-                break
-            now = time.perf_counter()
-            if now >= urgent_at:
-                reason = "deadline"
-                break
-            if now >= flush_at:
-                reason = "timeout"
-                break
-            nxt = self._pop_next(
-                timeout=min(flush_at - now, urgent_at - now, 0.05),
-                tenant=tenant)
-            if nxt is not None:
-                take(nxt)
+            def take(nxt) -> None:
+                nonlocal urgent_at
+                nxt[0].t_batched = time.perf_counter()
+                batch.append(nxt)
+                with self._lock:
+                    self._assembling = len(batch)
+                urgent_at = min(urgent_at, self._urgent_at(nxt[0]))
+
+            while len(batch) < self.batch_size:
+                # Fill from the queued backlog before honoring any flush
+                # timer: once lane wait exceeds max_wait the timer is
+                # permanently expired, and flushing ahead of a non-empty
+                # lane would collapse a backlogged frontend into padded
+                # 1-frame batches (service rate / batch_size).
+                nxt = self._pop_next(timeout=0.0, tenant=tenant)
+                if nxt is not None:
+                    take(nxt)
+                    continue
+                if self._closing.is_set():
+                    reason = "timeout"
+                    break
+                now = time.perf_counter()
+                if now >= urgent_at:
+                    reason = "deadline"
+                    break
+                if now >= flush_at:
+                    reason = "timeout"
+                    break
+                nxt = self._pop_next(
+                    timeout=min(flush_at - now, urgent_at - now, 0.05),
+                    tenant=tenant)
+                if nxt is not None:
+                    take(nxt)
+            # The number this batch's dispatch gives it.
+            fill.batch = self.stats.batches
         self._dispatch(batch, reason)
 
     def _dispatch(self, batch, reason: str) -> None:
@@ -1093,6 +1098,7 @@ class AsyncFrontend:
             # counter (it would under-price the work ahead by a batch).
             self._assembling = 0
             self._assembling_tenant = None
+            number = self.stats.batches
             self.stats.batches += 1
             self._inflight_batches += 1
             self._inflight[tenant] = self._inflight.get(tenant, 0) + 1
@@ -1103,8 +1109,9 @@ class AsyncFrontend:
             else:
                 self.stats.flushes_timeout += 1
         try:
-            frames = np.stack([f for _, f in live])
-            self.executor.submit_batch(frames, len(frames), tag=reqs)
+            with span("batcher.dispatch", owner=self._owner, batch=number):
+                frames = np.stack([f for _, f in live])
+                self.executor.submit_batch(frames, len(frames), tag=reqs)
         except BaseException as e:  # noqa: BLE001 - resolved per request
             for r in reqs:
                 r._fail(e)

@@ -48,6 +48,7 @@ synchronously in their threads.
 
 from __future__ import annotations
 
+import contextlib
 import queue
 import threading
 import time
@@ -60,6 +61,7 @@ from repro_torch.core.executor import (ServeStats, normalize_frames,
                                        pad_micro_batch, stage_into,
                                        staging_buffer)
 from repro_torch.core.program import CompiledRunner, EngineProgram
+from repro_torch.core.spans import span
 from repro_torch.serving.partition import (partition_from_boundaries,
                                            partition_program, stage_devices)
 
@@ -134,6 +136,13 @@ class PipelineExecutor:
         self.stats = ServeStats()
         self.stats._first_n = self.batch_size
         self.stage_busy_s = [0.0] * n
+        # The spans' owner, each stage's span names (made once) and the
+        # batch each stage is running.
+        self._owner = id(self)
+        self._stage_spans = [tuple(f"stage{i}.{part}" for part in
+                                   ("idle", "launch", "wait", "handoff"))
+                             for i in range(n)]
+        self._stage_batch: list[int | None] = [None] * n
 
         depth = max(1, int(queue_depth))
         # queues[i] feeds stage i; queues[K] feeds the collector.
@@ -237,7 +246,9 @@ class PipelineExecutor:
         self._check_error()
         self.start()
         frames = pad_micro_batch(self.program, frames, self.batch_size)
-        xq = self.runners[0].quantize(frames)
+        owner = self._owner
+        with span("pipeline.quantize", owner=owner, batch=None) as quantize:
+            xq = self.runners[0].quantize(frames)
         # seq assignment and the stage-0 enqueue must be one atomic step,
         # or two producers could enter the FIFO out of submission order
         # (and a close() racing a blocked producer could slot its stop
@@ -245,7 +256,9 @@ class PipelineExecutor:
         with self._order_lock:
             if self._closed:
                 raise RuntimeError("PipelineExecutor is closed")
-            payload = self._stage_in(xq)
+            with span("pipeline.stage_in", owner=owner,
+                      batch=None) as stage_in:
+                payload = self._stage_in(xq)
             with self._lock:
                 if self._t0 is None:
                     self._t0 = time.perf_counter()
@@ -256,7 +269,10 @@ class PipelineExecutor:
                 self.stats.batches += 1
                 self.stats.frames += n_valid
                 self.stats.padded_frames += len(frames) - n_valid
-            self._put(self._queues[0], ("batch", seq, tag, payload, n_valid))
+            quantize.batch = stage_in.batch = seq
+            with span("pipeline.put", owner=owner, batch=seq):
+                self._put(self._queues[0],
+                          ("batch", seq, tag, payload, n_valid))
 
     def _stage_in(self, xq: np.ndarray):
         """The host quantized batch as stage 0 takes it: on CUDA, a free
@@ -386,20 +402,28 @@ class PipelineExecutor:
         """Stage i on one batch: launch its steps on the device's current
         stream, record an event after them and wait on it. Stage 0 first
         copies the pinned host batch to the card and gives the buffer
-        back to the ring once the copy is known done."""
-        runner = self.runners[i]
-        if runner.device.type != "cuda":
-            return runner(payload)
-        with torch.cuda.device(runner.device):
-            x = payload
-            if isinstance(payload, torch.Tensor) and payload.is_pinned():
-                x = payload.to(runner.device, non_blocking=True)
-            out = runner(x)
-            done = torch.cuda.Event(blocking=True)
-            done.record()
-            done.synchronize()
-        if x is not payload:
-            self._free.put(payload)
+        back to the ring once the copy is known done. The two spans
+        cover the whole call, so they add up to ``stage_busy_s``."""
+        _, launch, wait, _ = self._stage_spans[i]
+        seq = self._stage_batch[i]
+        with span(launch, owner=self._owner, batch=seq):
+            runner = self.runners[i]
+            cuda = runner.device.type == "cuda"
+            x, done = payload, None
+            with (torch.cuda.device(runner.device) if cuda
+                  else contextlib.nullcontext()):
+                if (cuda and isinstance(payload, torch.Tensor)
+                        and payload.is_pinned()):
+                    x = payload.to(runner.device, non_blocking=True)
+                out = runner(x)
+                if cuda:
+                    done = torch.cuda.Event(blocking=True)
+                    done.record()
+        with span(wait, owner=self._owner, batch=seq):
+            if done is not None:
+                done.synchronize()
+            if x is not payload:
+                self._free.put(payload)
         return out
 
     def _stage_worker(self, i: int) -> None:
@@ -408,12 +432,15 @@ class PipelineExecutor:
         next queue. FIFO queues + one thread per stage preserve
         submission order end to end."""
         q_in, q_out = self._queues[i], self._queues[i + 1]
+        idle, _, _, handoff = self._stage_spans[i]
         while True:
-            item = q_in.get()
+            with span(idle, owner=self._owner, batch=None) as waiting:
+                item = q_in.get()
             if item[0] == "stop":
                 q_out.put(item)
                 return
             kind, seq, tag, payload, n_valid = item
+            waiting.batch = self._stage_batch[i] = seq
             if kind == "batch":
                 try:
                     t0 = time.perf_counter()
@@ -423,7 +450,8 @@ class PipelineExecutor:
                 except BaseException as e:  # noqa: BLE001 - forwarded
                     self._fail(e)
                     item = ("err", seq, tag, e, n_valid)
-            q_out.put(item)
+            with span(handoff, owner=self._owner, batch=seq):
+                q_out.put(item)
 
     def _collector(self) -> None:
         """Final stage: dequantize/argmax on the host (overlapping the
@@ -438,37 +466,41 @@ class PipelineExecutor:
             out = None
             if kind == "batch":
                 try:
-                    out = runner.dequantize(payload)[:n_valid]
-                    if self.output == "top1":
-                        # reshape(0, -1) is ill-posed for an all-padding
-                        # batch; its top-1 is just empty.
-                        out = (np.argmax(out.reshape(n_valid, -1), axis=-1)
-                               if n_valid else
-                               np.zeros((0,), dtype=np.int64))
+                    with span("collect.dequantize", owner=self._owner,
+                              batch=seq):
+                        out = runner.dequantize(payload)[:n_valid]
+                        if self.output == "top1":
+                            # reshape(0, -1) is ill-posed for an
+                            # all-padding batch; its top-1 is just empty.
+                            out = (np.argmax(out.reshape(n_valid, -1),
+                                             axis=-1)
+                                   if n_valid else
+                                   np.zeros((0,), dtype=np.int64))
                 except BaseException as e:  # noqa: BLE001 - recorded
                     self._fail(e)
                     kind, payload = "err", e
-            with self._done:
-                if self._collected == 0 and self._first_t0 is not None:
-                    # The first micro-batch traverses K cold stages
-                    # serially — pipeline fill + kernel build, charged
-                    # apart from steady state exactly like
-                    # EngineExecutor's first batch.
-                    self.stats.first_batch_s = (time.perf_counter()
-                                                - self._first_t0)
-                self._collected += 1
-                if kind == "batch":
-                    if tag is None:
-                        self._results.append(out)
-                self._done.notify_all()
-            if tag is not None:
-                try:
-                    if kind == "batch" and self.on_result:
-                        self.on_result(tag, out)
-                    elif kind == "err" and self.on_error:
-                        # A failed tagged batch must still answer its
-                        # requests — deliver the stage error instead of
-                        # leaving the futures hanging.
-                        self.on_error(tag, payload)
-                except BaseException as e:  # noqa: BLE001 - recorded
-                    self._fail(e)
+            with span("collect.deliver", owner=self._owner, batch=seq):
+                with self._done:
+                    if self._collected == 0 and self._first_t0 is not None:
+                        # The first micro-batch traverses K cold stages
+                        # serially — pipeline fill + kernel build, charged
+                        # apart from steady state exactly like
+                        # EngineExecutor's first batch.
+                        self.stats.first_batch_s = (time.perf_counter()
+                                                    - self._first_t0)
+                    self._collected += 1
+                    if kind == "batch":
+                        if tag is None:
+                            self._results.append(out)
+                    self._done.notify_all()
+                if tag is not None:
+                    try:
+                        if kind == "batch" and self.on_result:
+                            self.on_result(tag, out)
+                        elif kind == "err" and self.on_error:
+                            # A failed tagged batch must still answer its
+                            # requests — deliver the stage error instead of
+                            # leaving the futures hanging.
+                            self.on_error(tag, payload)
+                    except BaseException as e:  # noqa: BLE001 - recorded
+                        self._fail(e)
