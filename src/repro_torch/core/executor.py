@@ -9,7 +9,8 @@ frame stream:
 
 * ``submit(frame)`` micro-batches incoming frames to ``batch_size``;
 * a full micro-batch is quantized to int8 (int16 at bits=16) on the
-  *host* into a pinned staging buffer of that dtype, copied to the card
+  *host* straight into a pinned staging buffer of that dtype, a chunk of
+  frames at a time through a reused float32 scratch, copied to the card
   with ``non_blocking=True`` and the step chain is launched on the
   current stream; a ``torch.cuda.Event`` recorded after the chain marks
   the batch done. The device computes
@@ -48,8 +49,7 @@ def normalize_frames(program: EngineProgram,
                      frame: np.ndarray) -> np.ndarray:
     """Accept one ``[H, W, C]`` frame or a pre-batched ``[N, H, W, C]``
     chunk, validate it against ``program``'s input spec, and return the
-    ``[N, H, W, C]`` form — the submit()-side twin of
-    :func:`pad_micro_batch`."""
+    ``[N, H, W, C]`` form."""
     frame = np.asarray(frame)
     if frame.ndim == 3:
         frames = frame[None]
@@ -66,48 +66,16 @@ def normalize_frames(program: EngineProgram,
     return frames
 
 
-def staging_buffer(program: EngineProgram, batch_size: int) -> torch.Tensor:
+def staging_buffer(program: EngineProgram, batch_size: int, *,
+                   pinned: bool) -> torch.Tensor:
     """One host staging buffer for a quantized batch of ``program``: the
-    batch's shape, the program's input dtype (int8, or int16 at bits=16),
-    pinned for an asynchronous copy to the card."""
+    batch's shape in the program's input dtype (int8, or int16 at
+    bits=16), pinned for an asynchronous copy to the card when
+    ``pinned``. Quantize-in writes into it (and refuses any other dtype);
+    it is used by one thread at a time, with its scratch."""
     m = program.model
     return torch.empty((batch_size, m.input_hw, m.input_hw, m.input_ch),
-                       dtype=quant.int_dtype(program.bits), pin_memory=True)
-
-
-def stage_into(buf: torch.Tensor, xq: np.ndarray) -> torch.Tensor:
-    """Write a quantized host batch into a staging buffer and return the
-    buffer. A batch of another dtype or shape is refused, never cast:
-    numpy's assignment casts unsafely, so an int16 batch written into an
-    int8 buffer would wrap without a word."""
-    view = buf.numpy()
-    if xq.dtype != view.dtype or xq.shape != view.shape:
-        raise ValueError(
-            f"quantized batch {xq.dtype}{list(xq.shape)} does not match "
-            f"the staging buffer {view.dtype}{list(view.shape)}")
-    view[...] = xq
-    return buf
-
-
-def pad_micro_batch(program: EngineProgram, frames: np.ndarray,
-                    batch_size: int) -> np.ndarray:
-    """Validate a ``[B, H, W, C]`` micro-batch against ``program``'s input
-    spec and zero-pad it to ``batch_size`` (the fixed batch shape)."""
-    frames = np.asarray(frames)
-    hw = program.model.input_hw
-    if frames.ndim != 4 or frames.shape[1:] != (hw, hw,
-                                                program.model.input_ch):
-        raise ValueError(
-            f"micro-batch shape {frames.shape} does not match the "
-            f"compiled program [B, {hw}, {hw}, {program.model.input_ch}]")
-    if len(frames) > batch_size:
-        raise ValueError(f"micro-batch of {len(frames)} exceeds the "
-                         f"compiled batch size {batch_size}")
-    if len(frames) < batch_size:
-        pad = np.zeros((batch_size - len(frames),) + frames.shape[1:],
-                       frames.dtype)
-        frames = np.concatenate([frames, pad], axis=0)
-    return frames
+                       dtype=quant.int_dtype(program.bits), pin_memory=pinned)
 
 
 @dataclasses.dataclass
@@ -177,12 +145,13 @@ class EngineExecutor:
         # The spans' owner and batch numbers (never reset, unlike stats).
         self._owner = id(self)
         self._seq = 0
-        # Pinned host staging, one buffer per in-flight slot: batch k uses
-        # slot k % max_inflight, which is free again once batch
-        # k - max_inflight has been collected (its event waited on, so its
-        # host-to-device copy is done).
+        # Host staging, one slot (buffer and quantize-in scratch) per
+        # in-flight batch, pinned on CUDA: batch k uses slot k %
+        # max_inflight, which is free again once batch k - max_inflight
+        # has been collected (its event waited on, so its host-to-device
+        # copy is done). The CPU runs the same ring, unpinned.
         self._cuda = program.device.type == "cuda"
-        self._staging: list[torch.Tensor] = []
+        self._staging: list[tuple[torch.Tensor, np.ndarray]] = []
         self._slot = 0
 
     # -- intake --------------------------------------------------------------
@@ -207,9 +176,8 @@ class EngineExecutor:
         frontend's batcher uses. ``tag`` is handed to ``on_result`` with
         this batch's outputs. Thread-safe; blocks when ``max_inflight``
         batches are already on the device."""
-        batch = pad_micro_batch(self.program, frames, self.batch_size)
         with self._lock:
-            self._dispatch(batch, n_valid=n_valid, tag=tag)
+            self._dispatch(frames, n_valid=n_valid, tag=tag)
 
     def flush_inflight(self) -> None:
         """Collect every dispatched micro-batch (delivering their
@@ -241,27 +209,22 @@ class EngineExecutor:
 
     # -- the overlap core ----------------------------------------------------
 
-    def _to_device(self, xq: np.ndarray) -> torch.Tensor:
-        """Host quantized batch -> device tensor: through a pinned staging
-        buffer of the program's input dtype (:func:`stage_into` refuses
-        any other) and an asynchronous copy on the current stream on
-        CUDA."""
+    def _to_device(self, buf: torch.Tensor) -> torch.Tensor:
+        """A staged batch on the program's device: an asynchronous copy
+        from its pinned buffer on the current stream on CUDA, the buffer
+        itself on the CPU."""
         if not self._cuda:
-            return torch.from_numpy(xq)
-        if not self._staging:
-            self._staging = [staging_buffer(self.program, self.batch_size)
-                             for _ in range(self._max_inflight)]
-        buf = stage_into(self._staging[self._slot], xq)
-        self._slot = (self._slot + 1) % self._max_inflight
+            return buf
         return buf.to(self.program.device, non_blocking=True)
 
     def _dispatch(self, frames, n_valid: int | None = None,
                   tag: object = None):
         """Host quantize-in + asynchronous launch of one micro-batch (a
-        list of frames from the pending buffer, or an already-stacked
-        ``[B, H, W, C]`` array). Blocks only when ``max_inflight`` batches
-        are already on device (the double-buffer back-pressure). Caller
-        holds the lock."""
+        list of frames from the pending buffer, or an ``[n, H, W, C]``
+        array, ``n <= batch_size``), quantized straight into the next
+        staging slot and zero-padded there. Blocks only when
+        ``max_inflight`` batches are already on device (the double-buffer
+        back-pressure). Caller holds the lock."""
         if self._t0 is None:
             self._t0 = time.perf_counter()
         while len(self._inflight) >= self._max_inflight:
@@ -270,13 +233,24 @@ class EngineExecutor:
         owner, seq = self._owner, self._seq
         self._seq += 1
         with span("engine.stack", owner=owner, batch=seq):
-            batch = (frames if isinstance(frames, np.ndarray)
-                     else np.stack(frames))
+            if not self._staging:
+                # Chunk scratches: no other thread of this executor wants
+                # the GIL while it quantizes, so quantize-in walks the
+                # batch in numpy, in cache.
+                for _ in range(self._max_inflight):
+                    buf = staging_buffer(self.program, self.batch_size,
+                                         pinned=self._cuda)
+                    self._staging.append(
+                        (buf, quant.quantize_scratch(buf.shape)))
+            buf, scratch = self._staging[self._slot]
         with span("engine.quantize", owner=owner, batch=seq):
-            xq = self.runner.quantize(batch)
+            self.runner.quantize(frames, out=buf.numpy(), scratch=scratch)
+        # The slot moves on only once it holds this batch: a refused batch
+        # leaves the ring where it was.
+        self._slot = (self._slot + 1) % self._max_inflight
         t0 = time.perf_counter()
         with span("engine.stage_in", owner=owner, batch=seq):
-            x = self._to_device(xq)
+            x = self._to_device(buf)
         with span("engine.enqueue", owner=owner, batch=seq):
             acc = self.runner(x)
             done = None
@@ -292,7 +266,7 @@ class EngineExecutor:
         self._inflight.append((acc, done, n, tag, seq))
         self.stats.batches += 1
         self.stats.frames += n
-        self.stats.padded_frames += len(frames) - n
+        self.stats.padded_frames += self.batch_size - n
 
     def _collect_one(self) -> None:
         """Wait for the oldest in-flight batch and argmax/dequant it on the
@@ -320,11 +294,9 @@ class EngineExecutor:
         Thread-safe."""
         with self._lock:
             if self._pending:
-                tail = np.stack(self._pending)
+                tail = self._pending
                 self._pending = []
-                self._dispatch(pad_micro_batch(self.program, tail,
-                                               self.batch_size),
-                               n_valid=len(tail))
+                self._dispatch(tail)
             while self._inflight:
                 self._collect_one()
             if self._t0 is not None:

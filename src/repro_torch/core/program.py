@@ -433,17 +433,22 @@ class CompiledRunner:
     def is_last(self) -> bool:
         return self.stop == len(self.program.steps)
 
-    def quantize(self, x: np.ndarray) -> np.ndarray:
+    def quantize(self, x, out: np.ndarray | None = None,
+                 scratch: np.ndarray | None = None) -> np.ndarray:
         """Host-side quantize onto the program's frozen input format
         (numpy twin of ``quant.quantize_to_exponent`` — bit-identical).
-        Only the first stage consumes float frames."""
+        With ``out`` (and its ``scratch``), the frames are written straight
+        into that batch buffer, zero-padded: the serve loops' staging
+        buffers (``quant.quantize_to_exponent_np``). Only the first stage
+        consumes float frames."""
         if not self.is_first:
             raise ValueError(
                 f"stage [{self.start}, {self.stop}) does not start the "
                 f"chain; it consumes the previous stage's quantized "
                 f"activations, not float frames")
         return quant.quantize_to_exponent_np(
-            x, self.program.e_input, self.program.bits)
+            x, self.program.e_input, self.program.bits, out=out,
+            scratch=scratch)
 
     def __call__(self, xq) -> torch.Tensor:
         """Launch one quantized batch (numpy, or a tensor on any device) on

@@ -74,15 +74,130 @@ def quantize_to_exponent(x: torch.Tensor, e: int,
     return q.to(int_dtype(bits))
 
 
-def quantize_to_exponent_np(x, e: int, bits: int = 8) -> np.ndarray:
+def quantize_to_exponent_np(x, e: int, bits: int = 8, out=None,
+                            scratch=None) -> np.ndarray:
     """Numpy twin of :func:`quantize_to_exponent` for host-side
     quantize-in (the serving executor overlaps it with device compute).
     Bit-identical: same float32 multiply, same round-half-to-even, same
-    clip."""
+    clip.
+
+    With ``out`` (an int8 / int16 ``[B, H, W, C]`` array, the dtype of
+    ``bits``), ``x`` is an ``[n, H, W, C]`` array or a sequence of ``n <=
+    B`` frames ``[H, W, C]``: the n quantized frames go to ``out[:n]``,
+    ``out[n:]`` is zeroed (what a zero frame quantizes to) and ``out`` is
+    returned. The frames pass through the float32 ``scratch`` (from
+    :func:`quantize_scratch`; one chunk is allocated without it), cast,
+    multiplied, rounded, clipped and cast into ``out`` in that order, so a
+    scratch its owner reuses leaves no array the size of the batch made.
+    The scratch sets the walk:
+
+    * one chunk (:data:`SCRATCH_BYTES` of whole frames): numpy, a chunk at
+      a time on the calling thread, in cache; it gives the GIL up and
+      takes it back three times a chunk;
+    * the whole batch, where that is more than one chunk: five torch ops
+      over the batch on torch's intra-op threads, so five times a batch.
+      An intake beside threads that launch kernels under the GIL (a
+      pipeline's stage workers) needs the latter.
+
+    An ``out`` or ``scratch`` of another dtype or frame shape is refused,
+    never cast."""
     qmax = 2 ** (bits - 1) - 1
-    q = np.clip(np.rint(np.asarray(x, np.float32) * np.float32(2.0 ** (-e))),
-                -qmax - 1, qmax)
-    return q.astype(np.int8 if bits <= 8 else np.int16)
+    scale = np.float32(2.0 ** (-e))
+    if out is None:
+        q = np.clip(np.rint(np.asarray(x, np.float32) * scale),
+                    -qmax - 1, qmax)
+        return q.astype(np.int8 if bits <= 8 else np.int16)
+    frame = out.shape[1:]
+    want = np.dtype(np.int8 if bits <= 8 else np.int16)
+    if out.dtype != want:
+        raise ValueError(f"quantize-in at bits={bits} writes {want}, not "
+                         f"into {out.dtype}")
+    if isinstance(x, np.ndarray):
+        if x.ndim != out.ndim or x.shape[1:] != frame:
+            raise ValueError(f"frames {list(x.shape)} do not fit a batch "
+                             f"{list(out.shape)}")
+    else:
+        x = [np.asarray(f) for f in x]
+        if any(f.shape != frame for f in x):
+            raise ValueError(f"a frame's shape is not {list(frame)}")
+    n = len(x)
+    if n > len(out):
+        raise ValueError(f"{n} frames exceed a batch of {len(out)}")
+    if scratch is None:
+        scratch = quantize_scratch((max(n, 1),) + frame)
+    elif scratch.dtype != np.float32 or scratch.shape[1:] != frame:
+        raise ValueError(f"scratch {scratch.dtype}{list(scratch.shape)} is "
+                         f"not float32 frames {list(frame)}")
+    if len(scratch) <= scratch_frames(frame):
+        _quantize_chunks(x, n, scale, qmax, out, scratch)
+    elif len(scratch) >= n:
+        _quantize_batch(x, n, e, qmax, out, torch.from_numpy(scratch[:n]))
+    else:
+        raise ValueError(f"a scratch of {len(scratch)} frames is neither "
+                         f"one chunk nor the batch of {n}")
+    out[n:] = 0
+    return out
+
+
+# The float32 scratch of the chunk walk: at most 1 MiB of whole frames
+# (never fewer than one), small enough to stay in a core's cache and be
+# reused, where a batch-sized temporary is faulted in afresh.
+SCRATCH_BYTES = 1 << 20
+
+
+def scratch_frames(frame_shape) -> int:
+    """Whole float32 frames of ``frame_shape`` in one chunk."""
+    return max(1, SCRATCH_BYTES // (4 * math.prod(frame_shape)))
+
+
+def quantize_scratch(batch_shape, *, whole: bool = False) -> np.ndarray:
+    """A float32 scratch for :func:`quantize_to_exponent_np`'s ``out=``
+    form into ``[B, H, W, C]`` batches, for its owner to reuse: one chunk
+    (the whole batch where it is smaller), or with ``whole`` the whole
+    batch, which takes the torch walk."""
+    b, *frame = batch_shape
+    return np.empty((b if whole else min(b, scratch_frames(frame)), *frame),
+                    np.float32)
+
+
+def _quantize_chunks(x, n, scale, qmax, out, scratch) -> None:
+    for i in range(0, n, len(scratch)):
+        s = scratch[:min(len(scratch), n - i)]
+        if isinstance(x, np.ndarray):
+            _scale_into(s, x[i:i + len(s)], scale)
+        else:
+            for j in range(len(s)):
+                _scale_into(s[j], x[i + j], scale)
+        np.rint(s, out=s)
+        np.clip(s, -qmax - 1, qmax, out=s)
+        np.copyto(out[i:i + len(s)], s, casting="unsafe")
+
+
+def _scale_into(s: np.ndarray, x: np.ndarray, scale: np.float32) -> None:
+    """``s = float32(x) * scale``: float32 frames are multiplied where they
+    lie, any other dtype is cast into ``s`` first (a float64 frame is never
+    multiplied before its cast)."""
+    if x.dtype != np.float32:
+        s[...] = x
+        x = s
+    np.multiply(x, scale, out=s)
+
+
+def _quantize_batch(x, n, e, qmax, out, s: torch.Tensor) -> None:
+    if isinstance(x, np.ndarray):
+        s.copy_(_host_tensor(x))
+    elif n:
+        torch.stack([_host_tensor(f) for f in x], out=s)
+    s.mul_(2.0 ** (-e)).round_().clamp_(-qmax - 1, qmax)
+    torch.from_numpy(out)[:n].copy_(s)
+
+
+def _host_tensor(a: np.ndarray) -> torch.Tensor:
+    """``a`` as a CPU tensor sharing its memory (a copy only where torch
+    cannot view it: a negative stride)."""
+    if any(st < 0 for st in a.strides):
+        a = np.ascontiguousarray(a)
+    return torch.from_numpy(a)
 
 
 def _channel_shape(ndim: int, axis: int) -> list[int]:

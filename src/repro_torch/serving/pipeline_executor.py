@@ -37,13 +37,14 @@ event is created with ``blocking=True`` so a waiting worker sleeps
 instead of spinning a core the other stages' host work needs. The wait
 gives ``stage_busy_s`` and hands a finished tensor to the next queue.
 Stage 0 moves the quantized host batch to the card from a pinned staging
-ring of ``queue_depth + 1`` buffers in the program's input dtype: the
+ring of ``queue_depth + 1`` buffers in the program's input dtype, each
+with the float32 scratch quantize-in passes frames through: the
 submitting thread takes a free buffer (blocking while all are in
-flight), writes the batch into it and queues it; stage 0 copies it to
-the card with ``non_blocking=True`` and returns the buffer to the ring
-once its event has completed, so no buffer is rewritten while its copy
-is in flight. On the CPU the stages run
-synchronously in their threads.
+flight), quantizes the float frames straight into it and queues it;
+stage 0 copies it to the card with ``non_blocking=True`` and returns the
+buffer to the ring once its event has completed, so no buffer is
+rewritten while its copy is in flight. On the CPU the stages run
+synchronously in their threads, over the same ring unpinned.
 """
 
 from __future__ import annotations
@@ -57,8 +58,8 @@ from typing import Callable, Iterable, Sequence
 import numpy as np
 import torch
 
+from repro_torch.core import quant
 from repro_torch.core.executor import (ServeStats, normalize_frames,
-                                       pad_micro_batch, stage_into,
                                        staging_buffer)
 from repro_torch.core.program import CompiledRunner, EngineProgram
 from repro_torch.core.spans import span
@@ -147,13 +148,18 @@ class PipelineExecutor:
         depth = max(1, int(queue_depth))
         # queues[i] feeds stage i; queues[K] feeds the collector.
         self._queues = [queue.Queue(maxsize=depth) for _ in range(n + 1)]
-        # The pinned staging ring (CUDA only): its free buffers, depth + 1
-        # of them (stage 0's queue full and one batch in stage 0).
+        # The staging ring (pinned on CUDA): its free slots, a buffer and
+        # its quantize-in scratch each, depth + 1 of them (stage 0's queue
+        # full and one batch in stage 0). Whole-batch scratches: the
+        # intake runs beside K stage threads that launch under the GIL,
+        # so quantize-in takes the torch walk, which gives the GIL up and
+        # back a handful of times a batch.
         self._cuda = self.runners[0].device.type == "cuda"
         self._free: queue.Queue = queue.Queue()
-        if self._cuda:
-            for _ in range(depth + 1):
-                self._free.put(staging_buffer(program, self.batch_size))
+        for _ in range(depth + 1):
+            buf = staging_buffer(program, self.batch_size, pinned=self._cuda)
+            self._free.put((buf, quant.quantize_scratch(buf.shape,
+                                                        whole=True)))
         self._threads: list[threading.Thread] = []
         self._lock = threading.RLock()
         # Serializes batch assembly + seq assignment + stage-0 enqueue as
@@ -226,12 +232,12 @@ class PipelineExecutor:
         # a second producer could assemble and enqueue a later batch
         # between this one's assembly and its enqueue.
         with self._order_lock:
-            full: list[np.ndarray] = []
+            full: list[list[np.ndarray]] = []
             with self._lock:
                 for f in frames:
                     self._pending.append(f)
                     if len(self._pending) >= self.batch_size:
-                        full.append(np.stack(self._pending[:self.batch_size]))
+                        full.append(self._pending[:self.batch_size])
                         self._pending = self._pending[self.batch_size:]
             for batch in full:
                 self.submit_batch(batch, len(batch))
@@ -239,60 +245,57 @@ class PipelineExecutor:
     def submit_batch(self, frames: np.ndarray, n_valid: int,
                      tag: object = None) -> None:
         """Dispatch one float micro-batch ``[B, H, W, C]`` (padded with
-        zero frames to the batch size if short). Quantizes on the calling
-        thread — the host half of the stage-0 double buffer — and blocks
-        when the stage-0 queue (or the staging ring) is full
-        (backpressure)."""
+        zero frames to the batch size if short; a list of frames is taken
+        too). Takes a free buffer of the staging ring and quantizes into
+        it on the calling thread — the host half of the stage-0 double
+        buffer — and blocks while the ring is empty or the stage-0 queue
+        is full (backpressure)."""
         self._check_error()
         self.start()
-        frames = pad_micro_batch(self.program, frames, self.batch_size)
         owner = self._owner
-        with span("pipeline.quantize", owner=owner, batch=None) as quantize:
-            xq = self.runners[0].quantize(frames)
-        # seq assignment and the stage-0 enqueue must be one atomic step,
-        # or two producers could enter the FIFO out of submission order
-        # (and a close() racing a blocked producer could slot its stop
-        # sentinel ahead of this batch).
-        with self._order_lock:
-            if self._closed:
-                raise RuntimeError("PipelineExecutor is closed")
-            with span("pipeline.stage_in", owner=owner,
-                      batch=None) as stage_in:
-                payload = self._stage_in(xq)
-            with self._lock:
-                if self._t0 is None:
-                    self._t0 = time.perf_counter()
-                if self._first_t0 is None:
-                    self._first_t0 = time.perf_counter()
-                seq = self._submitted
-                self._submitted += 1
-                self.stats.batches += 1
-                self.stats.frames += n_valid
-                self.stats.padded_frames += len(frames) - n_valid
-            quantize.batch = stage_in.batch = seq
-            with span("pipeline.put", owner=owner, batch=seq):
-                self._put(self._queues[0],
-                          ("batch", seq, tag, payload, n_valid))
+        with span("pipeline.stage_in", owner=owner, batch=None) as stage_in:
+            slot = self._stage_in()
+        try:
+            with span("pipeline.quantize", owner=owner,
+                      batch=None) as quantize:
+                self.runners[0].quantize(frames, out=slot[0].numpy(),
+                                         scratch=slot[1])
+            # seq assignment and the stage-0 enqueue must be one atomic
+            # step, or two producers could enter the FIFO out of
+            # submission order (and a close() racing a blocked producer
+            # could slot its stop sentinel ahead of this batch).
+            with self._order_lock:
+                if self._closed:
+                    raise RuntimeError("PipelineExecutor is closed")
+                with self._lock:
+                    if self._t0 is None:
+                        self._t0 = time.perf_counter()
+                    if self._first_t0 is None:
+                        self._first_t0 = time.perf_counter()
+                    seq = self._submitted
+                    self._submitted += 1
+                    self.stats.batches += 1
+                    self.stats.frames += n_valid
+                    self.stats.padded_frames += self.batch_size - n_valid
+                quantize.batch = stage_in.batch = seq
+                with span("pipeline.put", owner=owner, batch=seq):
+                    self._put(self._queues[0],
+                              ("batch", seq, tag, slot, n_valid))
+        except BaseException:
+            # The batch never reached stage 0: its slot goes back.
+            self._free.put(slot)
+            raise
 
-    def _stage_in(self, xq: np.ndarray):
-        """The host quantized batch as stage 0 takes it: on CUDA, a free
-        pinned buffer of the ring holding it (waits while every buffer is
-        in flight; :func:`stage_into` refuses a batch of another dtype);
-        on the CPU, the array itself."""
-        if not self._cuda:
-            return xq
+    def _stage_in(self) -> tuple[torch.Tensor, np.ndarray]:
+        """A free slot of the staging ring (buffer, scratch) for the next
+        batch's quantize-in; waits while every buffer is in flight (stage
+        0 gives one back once its copy to the card is done)."""
         while True:
             self._check_error()
             try:
-                buf = self._free.get(timeout=0.1)
-                break
+                return self._free.get(timeout=0.1)
             except queue.Empty:
                 continue
-        try:
-            return stage_into(buf, xq)
-        except ValueError:
-            self._free.put(buf)
-            raise
 
     def serve(self, frames: Iterable[np.ndarray]) -> list[np.ndarray]:
         """Convenience: submit a finite stream and drain."""
@@ -358,7 +361,7 @@ class PipelineExecutor:
             tail = self._pending
             self._pending = []
         if tail:
-            self.submit_batch(np.stack(tail), len(tail))
+            self.submit_batch(tail, len(tail))
         with self._done:
             while self._collected < self._submitted and self._error is None:
                 self._done.wait(timeout=0.1)
@@ -400,21 +403,21 @@ class PipelineExecutor:
 
     def _run_stage(self, i: int, payload):
         """Stage i on one batch: launch its steps on the device's current
-        stream, record an event after them and wait on it. Stage 0 first
-        copies the pinned host batch to the card and gives the buffer
-        back to the ring once the copy is known done. The two spans
-        cover the whole call, so they add up to ``stage_busy_s``."""
+        stream, record an event after them and wait on it. Stage 0 takes
+        a slot of the staging ring, copies its pinned buffer to the card
+        (runs on it in place on the CPU) and gives the slot back to the
+        ring once the copy is known done. The two spans cover the whole
+        call, so they add up to ``stage_busy_s``."""
         _, launch, wait, _ = self._stage_spans[i]
         seq = self._stage_batch[i]
         with span(launch, owner=self._owner, batch=seq):
             runner = self.runners[i]
             cuda = runner.device.type == "cuda"
-            x, done = payload, None
+            x, done = (payload[0] if i == 0 else payload), None
             with (torch.cuda.device(runner.device) if cuda
                   else contextlib.nullcontext()):
-                if (cuda and isinstance(payload, torch.Tensor)
-                        and payload.is_pinned()):
-                    x = payload.to(runner.device, non_blocking=True)
+                if cuda and i == 0:
+                    x = x.to(runner.device, non_blocking=True)
                 out = runner(x)
                 if cuda:
                     done = torch.cuda.Event(blocking=True)
@@ -422,7 +425,7 @@ class PipelineExecutor:
         with span(wait, owner=self._owner, batch=seq):
             if done is not None:
                 done.synchronize()
-            if x is not payload:
+            if i == 0:
                 self._free.put(payload)
         return out
 

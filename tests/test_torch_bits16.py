@@ -357,40 +357,42 @@ def test_registry_refuses_same_shape_different_bits():
     reg.register("fake", object())
 
 
-def test_staging_rings_refuse_a_batch_of_another_dtype(monkeypatch):
-    """The host-to-card rings are made in the program's input dtype and
-    refuse, rather than cast, any other batch. The card's buffers are
-    pinned; here the same code runs on unpinned stand-ins."""
+def test_staging_rings_refuse_a_batch_of_another_dtype():
+    """The host-to-card rings are made in the program's input dtype, and
+    quantize-in refuses, rather than casts into, a buffer of any other
+    dtype or frame shape, writing nothing. The card's buffers are pinned;
+    here the same rings run unpinned."""
     prog = _tiny16()
-
-    def unpinned(p, batch):
-        m = p.model
-        return torch.empty((batch, m.input_hw, m.input_hw, m.input_ch),
-                           dtype=qt.int_dtype(p.bits))
-    monkeypatch.setattr(ex_t, "staging_buffer", unpinned)
-    buf = ex_t.staging_buffer(prog, 4)
+    runner = prog.compile_runner()
+    frames = (np.random.default_rng(7).standard_normal((3, 8, 8, 3))
+              * 4).astype(np.float32)
+    buf = ex_t.staging_buffer(prog, 4, pinned=False)
     assert buf.dtype == torch.int16 and tuple(buf.shape) == (4, 8, 8, 3)
-    xq = np.arange(4 * 8 * 8 * 3, dtype=np.int16).reshape(4, 8, 8, 3) * 97
-    assert torch.equal(ex_t.stage_into(buf, xq), torch.from_numpy(xq))
-    with pytest.raises(ValueError, match="int8"):
-        ex_t.stage_into(buf, xq.astype(np.int8))
+    scratch = qt.quantize_scratch(buf.shape)
+    view = buf.numpy()
+    view[...] = 97
+    assert runner.quantize(frames, out=view, scratch=scratch) is view
+    np.testing.assert_array_equal(view[:3], runner.quantize(frames))
+    assert not view[3:].any()
+    for bad in (np.full((4, 8, 8, 3), 5, np.int8),
+                np.full((4, 8, 9, 3), 5, np.int16)):
+        with pytest.raises(ValueError):
+            runner.quantize(frames, out=bad)
+        assert (bad == 5).all()
+    want = runner.logits(frames)
+    # The executor's own ring: a refused batch leaves it where it was.
+    ex = ex_t.EngineExecutor(prog, batch_size=4, output="logits")
     with pytest.raises(ValueError):
-        ex_t.stage_into(buf, xq[:2])
-    # The executor's own ring, as it is used on the card.
-    ex = ex_t.EngineExecutor(prog, batch_size=4)
-    ex._cuda = True
-    got = ex._to_device(xq)
-    assert got.dtype == torch.int16 and torch.equal(got,
-                                                    torch.from_numpy(xq))
+        ex.submit_batch(frames[:, :, :6], 3)
+    np.testing.assert_array_equal(np.stack(ex.serve(list(frames))), want)
+    assert ex._staging[0][0].dtype == torch.int16
+    # The pipeline's ring: a refused batch gives its slot back.
+    px = PipelineExecutor(prog, stages=2, batch_size=4, output="logits")
+    free = px._free.qsize()
     with pytest.raises(ValueError):
-        ex._to_device(xq.astype(np.int8))
-    # The pipeline's ring: a refused batch gives its buffer back.
-    px = PipelineExecutor(prog, stages=2, batch_size=4)
-    px._cuda = True
-    px._free.put(ex_t.staging_buffer(prog, 4))
-    with pytest.raises(ValueError):
-        px._stage_in(xq.astype(np.int8))
-    assert torch.equal(px._stage_in(xq), torch.from_numpy(xq))
+        px.submit_batch(frames[:, :, :6], 3)
+    assert px._free.qsize() == free
+    np.testing.assert_array_equal(np.stack(px.serve(list(frames))), want)
     px.close()
 
 

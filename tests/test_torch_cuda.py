@@ -298,8 +298,9 @@ def test_bits16_on_the_card_equals_the_cpu():
     want = runner_cpu.logits(frames)
     ex = EngineExecutor(prog, batch_size=4, output="logits")
     np.testing.assert_array_equal(np.stack(ex.serve(list(frames))), want)
-    assert ex._staging[0].dtype == torch.int16
-    assert ex._staging[0].is_pinned()
+    buf, scratch = ex._staging[0]
+    assert buf.dtype == torch.int16 and buf.is_pinned()
+    assert scratch.dtype == np.float32
     with PipelineExecutor(prog, stages=2, batch_size=4,
                           output="logits") as px:
         got = np.stack(px.serve(list(frames)))

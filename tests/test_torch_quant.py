@@ -2,6 +2,8 @@
 reference's (``repro.core.quant``) on edge grids: int32 rails, every
 shift in -31..31, and round-half-to-even ties. Every comparison is exact."""
 
+import warnings
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -133,3 +135,111 @@ def test_align_partial_sums_bit_identical():
                                     torch.tensor(e_common), axis)
         assert got.dtype == torch.int32
         np.testing.assert_array_equal(got.numpy(), want)
+
+
+def _quantize_in_frames(bits, e, dtype, n, frame=(4, 5, 3)):
+    """``n`` frames on the format 2^e, each carrying the edges (ties
+    +-0.5, +-1.5, +-2.5, values at and beyond +-qmax, +-inf, +-0.0) beside
+    a random spread, which in float64 is not float32."""
+    qmax = 2 ** (bits - 1) - 1
+    edges = np.array([0.0, 0.5, 1.5, 2.5, qmax, qmax + 0.5, qmax + 1,
+                      qmax + 1.5, qmax + 2, 10 * qmax, np.inf])
+    rng = np.random.default_rng(100 * bits + e)
+    x = rng.standard_normal((n, int(np.prod(frame)))) * (qmax / 2)
+    x[:, :2 * len(edges)] = np.concatenate([edges, -edges])
+    return (x * 2.0 ** e).astype(dtype).reshape((n,) + frame)
+
+
+# 360 KB float32 frames: a chunk holds two, so the chunk walk takes
+# several chunks and a whole-batch scratch takes the torch walk.
+WIDE = (300, 300, 1)
+
+
+@pytest.mark.parametrize("form", ["array", "list"])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("e", [-7, 0, 3])
+@pytest.mark.parametrize("bits", [8, 16])
+def test_quantize_into_out_equals_the_allocating_form(bits, e, dtype, form):
+    """The ``out=`` form writes the allocating form's bits into the batch
+    buffer and zeroes the rows past the frames, over stale data, on both
+    walks: chunks of two frames (its own scratch or a reused one) and the
+    whole batch in torch ops (7 and 9 frames into 9 rows)."""
+    batch = 9
+    assert qt.scratch_frames(WIDE) == 2
+    scratches = (None, qt.quantize_scratch((batch,) + WIDE),
+                 qt.quantize_scratch((batch,) + WIDE, whole=True))
+    for n in (7, batch):
+        x = _quantize_in_frames(bits, e, dtype, n, WIDE)
+        want = qt.quantize_to_exponent_np(x, e, bits)
+        src = x if form == "array" else list(x)
+        for scratch in scratches:
+            out = np.full((batch,) + WIDE, 77, want.dtype)
+            assert qt.quantize_to_exponent_np(src, e, bits, out=out,
+                                              scratch=scratch) is out
+            np.testing.assert_array_equal(out[:n], want)
+            assert not out[n:].any()
+
+
+@pytest.mark.parametrize("whole", [False, True])
+def test_quantize_into_out_takes_frames_torch_cannot_view(whole):
+    """Flipped (negative-stride), strided and read-only frames quantize
+    as their copies do, on either walk."""
+    x = _quantize_in_frames(8, -2, np.float32, 4, WIDE)
+    ro = x[3].copy()
+    ro.flags.writeable = False
+    frames = [x[0][:, ::-1], x[1][::-1], np.repeat(x[2], 2, 1)[:, ::2], ro]
+    want = qt.quantize_to_exponent_np(
+        np.stack([np.ascontiguousarray(f) for f in frames]), -2, 8)
+    out = np.full((5,) + WIDE, 77, np.int8)
+    scratch = qt.quantize_scratch(out.shape, whole=whole)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)   # torch: read-only
+        qt.quantize_to_exponent_np(frames, -2, 8, out=out, scratch=scratch)
+        np.testing.assert_array_equal(out[:4], want)
+        qt.quantize_to_exponent_np(x[:, ::-1], -2, 8, out=out,
+                                   scratch=scratch)
+    np.testing.assert_array_equal(
+        out[:4], qt.quantize_to_exponent_np(x[:, ::-1].copy(), -2, 8))
+    assert not out[4:].any()
+
+
+@pytest.mark.parametrize("bits", [8, 16])
+def test_quantize_into_out_refuses_what_it_would_cast(bits):
+    """An ``out`` of another dtype or frame shape, more frames than rows, a
+    lone frame, or a scratch of another dtype or frame shape, or one that
+    is neither a chunk nor the batch, is refused with nothing written."""
+    x = _quantize_in_frames(bits, 0, np.float32, 3)
+    good = np.int8 if bits == 8 else np.int16
+    other = np.int16 if bits == 8 else np.int8
+    wide = _quantize_in_frames(bits, 0, np.float32, 5, WIDE)
+    cases = [(x, np.full((4, 4, 5, 3), 5, other), None),
+             (x, np.full((4, 4, 5, 3), 5, np.int32), None),
+             (x, np.full((4, 5, 4, 3), 5, good), None),
+             (list(x), np.full((4, 4, 5, 2), 5, good), None),
+             (x, np.full((2, 4, 5, 3), 5, good), None),
+             (x[0], np.full((4, 4, 5, 3), 5, good), None),
+             (x, np.full((4, 4, 5, 3), 5, good),
+              np.empty((4, 4, 5, 3), np.float64)),
+             (x, np.full((4, 4, 5, 3), 5, good),
+              np.empty((4, 4, 4, 3), np.float32)),
+             (wide, np.full((5,) + WIDE, 5, good),
+              np.empty((3,) + WIDE, np.float32))]
+    for src, out, scratch in cases:
+        with pytest.raises(ValueError):
+            qt.quantize_to_exponent_np(src, 0, bits, out=out,
+                                       scratch=scratch)
+        assert (out == 5).all()
+
+
+@pytest.mark.parametrize("batch, frames", [
+    ((16, 227, 227, 3), 1),         # AlexNet: 618 KB a frame
+    ((16, 224, 224, 3), 1),         # VGG16: 602 KB
+    ((16, 28, 28, 1), 16),          # LeNet: the whole batch
+    ((4,) + WIDE, 2),               # 360 KB: two frames a chunk
+])
+def test_quantize_scratch_holds_whole_frames_within_a_mebibyte(batch,
+                                                               frames):
+    s = qt.quantize_scratch(batch)
+    assert s.dtype == np.float32 and s.shape == (frames,) + batch[1:]
+    assert s.nbytes <= qt.SCRATCH_BYTES or frames == 1
+    assert qt.quantize_scratch(batch, whole=True).shape == batch

@@ -17,7 +17,6 @@ from repro.core.executor import EngineExecutor as ExecutorJ
 from repro.models import cnn as cnn_j
 from repro_torch.core import program as prog_t
 from repro_torch.core.executor import EngineExecutor as ExecutorT
-from repro_torch.core.executor import pad_micro_batch
 from repro_torch.kernels.conv2d_int8.kernel import gemm_int8
 from repro_torch.launch import serve_cnn
 from repro_torch.models import cnn as cnn_t
@@ -65,7 +64,7 @@ def test_executor_chunks_drains_and_validation():
     with pytest.raises(ValueError):
         ex.submit(np.zeros((8, 8, 3), np.float32))
     with pytest.raises(ValueError):
-        pad_micro_batch(pt, frames, 4)          # 5 frames > batch of 4
+        ex.submit_batch(frames, 5)              # 5 frames > batch of 4
     with pytest.raises(ValueError):
         ExecutorT(pt, output="probs")
 
