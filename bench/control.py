@@ -1,8 +1,8 @@
 """The control of the comparison that decides ``correct``, at a cell's own
-size: the plain reference computed at 4 bits, the precision below the
-configuration's int8, put in the program's place and held against the
-int8 reference by the harness's own comparison. It has to come out as not
-correct. The benchmark's runs never run this.
+size: the configuration family's plain reference computed at 4 bits, the
+precision below the configuration's int8, put in the program's place and
+held against the int8 reference by the harness's own comparison. It has to
+come out as not correct. The benchmark's runs never run this.
 
     python3 bench/control.py --workload vgg16-b16-closed --seeds 1,2,3
 
@@ -20,17 +20,20 @@ ROOT = Path(__file__).resolve().parents[1]
 CONTROL_BITS = 4
 
 
-def readings(cfg: dict, pool_size: int, seed: int, device) -> dict:
+def readings(cell, seed: int, device) -> dict:
+    """The comparison's readings of the cell's pool of frames, the
+    family's reference at ``CONTROL_BITS`` against it at the
+    configuration's bits."""
     import numpy as np
 
     from bench.core import compare, inputs
-    from bench.reference import cnn_int8
 
-    params = inputs.make_params(cfg, seed, device)
+    cfg, fam, pool_size = cell.config, cell.family, cell.traffic["pool"]
+    params = fam.make_params(cfg, seed, device)
     calib = inputs.make_calib(cfg, seed, device)
     frames = inputs.make_frames(cfg, pool_size, seed, device)
-    ref = cnn_int8.logits(cfg, params, calib, frames, bits=cfg["bits"])
-    low = cnn_int8.logits(cfg, params, calib, frames, bits=CONTROL_BITS)
+    ref = fam.logits(cfg, params, calib, frames, bits=cfg["bits"])
+    low = fam.logits(cfg, params, calib, frames, bits=CONTROL_BITS)
     r = compare.compare(list(low), np.arange(pool_size), ref)
     return dict(r, correct=compare.correct(r))
 
@@ -45,8 +48,8 @@ def main(argv=None, *, device="cuda", root: Path = ROOT) -> list[dict]:
     cell = spec.cell(args.workload, root)
     rows = []
     for seed in (int(s) for s in args.seeds.split(",")):
-        row = dict(readings(cell.config, cell.traffic["pool"], seed, device),
-                   workload=args.workload, seed=seed)
+        row = dict(readings(cell, seed, device), workload=args.workload,
+                   seed=seed)
         print(json.dumps(row), flush=True)
         rows.append(row)
     return rows

@@ -2,14 +2,15 @@
 
     python3 bench/run.py --workload <cell> --seed <n> --seconds <s> --trace <0|1>
 
-Loads the cell's configuration and traffic mix by name, makes the weights,
-the calibration frame and the frame pool on the card from ``--seed``,
-compiles the int8 engine (``repro_torch``), warms the one batch shape the
-cell uses, frees its own inputs on the card, then loads the cell's entry
-for ``--seconds`` seconds. After the window it reads the window's memory
-peak, frees the program, draws the inputs again from the seed and holds
-every answer the window produced against the plain reference
-(``bench/reference``).
+Loads the cell's configuration, its family and traffic mix by name, makes
+the weights, the calibration frame and the frame pool on the card from
+``--seed``, compiles the int8 engine (``repro_torch``), warms the one batch
+shape the cell uses, frees its own inputs on the card, then loads the
+cell's entry for ``--seconds`` seconds. After the window it reads the
+window's memory peak, frees the program, draws the inputs again from the
+seed and holds every answer the window produced against the family's plain
+reference. The weights, the program, the reference and the roofline
+counts all come from the family (``bench/families/<family>.py``).
 The last line of standard output is the result; the numbers compared,
 each with its limit, are the last lines of standard error.
 
@@ -97,8 +98,7 @@ def main(argv=None, *, device=None, root: Path = ROOT) -> dict:
 
     from bench.core import compare, drive, inputs, spec
     from bench.core import trace as T
-    from bench.reference import cnn_int8
-    from bench.roofline import counts, peaks
+    from bench.roofline import peaks
     from bench.traffic import replay, schedule
 
     cell = spec.cell(args.workload, root)
@@ -111,15 +111,15 @@ def main(argv=None, *, device=None, root: Path = ROOT) -> dict:
         device = "cuda"
     dev = torch.device(device)
     cuda = dev.type == "cuda"
-    cfg, mix = cell.config, cell.traffic
+    cfg, mix, fam = cell.config, cell.traffic, cell.family
     batch, entry = cfg["batch"], mix["entry"]
 
     # -- set-up: inputs, compile, warm-up --------------------------------
-    params = inputs.make_params(cfg, args.seed, dev)
+    params = fam.make_params(cfg, args.seed, dev)
     calib = inputs.make_calib(cfg, args.seed, dev)
     pool_dev = inputs.make_frames(cfg, mix["pool"], args.seed, dev)
     pool = inputs.host_pool(pool_dev)
-    prog = drive.compile_program(cfg, params, calib, dev)
+    prog = fam.compile_program(cfg, params, calib, dev)
     ex = drive.executor(prog, cell)
     fe = None
     drive.warm(ex, pool, batch)
@@ -182,10 +182,10 @@ def main(argv=None, *, device=None, root: Path = ROOT) -> dict:
 
     # -- the comparison --------------------------------------------------
     t_ref = time.perf_counter()
-    params = inputs.make_params(cfg, args.seed, dev)
+    params = fam.make_params(cfg, args.seed, dev)
     calib = inputs.make_calib(cfg, args.seed, dev)
     pool_dev = inputs.make_frames(cfg, mix["pool"], args.seed, dev)
-    ref = cnn_int8.logits(cfg, params, calib, pool_dev, bits=cfg["bits"])
+    ref = fam.logits(cfg, params, calib, pool_dev, bits=cfg["bits"])
     readings = compare.compare(outputs, pool_index, ref)
     ok = compare.correct(readings)
     ref_s = time.perf_counter() - t_ref
@@ -228,9 +228,9 @@ def main(argv=None, *, device=None, root: Path = ROOT) -> dict:
             entry=entry, window_s=red["window_s"],
             busy_s=red["busy_s"], batches=c1["batches"] - c0["batches"],
             frames=c1["frames"] - c0["frames"],
-            least_batch_s=(counts.least_seconds(cfg, batch, card[1], card[2])
+            least_batch_s=(fam.least_seconds(cfg, batch, card[1], card[2])
                            if card else None),
-            ops_per_frame=counts.ops_per_frame(cfg),
+            ops_per_frame=fam.ops_per_frame(cfg),
             peak_ops=card[1] if card else None, stage_busy_s=stage,
             stage_batches=c1["batches"] - c0["batches"] if stage else None,
             waits_s=waits)

@@ -41,11 +41,11 @@ def main(argv=None, *, device="cuda", root: Path = ROOT) -> list[dict]:
 
     cell = spec.cell(args.workload, root)
     cfg, mix = cell.config, cell.traffic
-    params = inputs.make_params(cfg, args.seed, device)
+    params = cell.family.make_params(cfg, args.seed, device)
     calib = inputs.make_calib(cfg, args.seed, device)
     pool = inputs.host_pool(inputs.make_frames(cfg, mix["pool"], args.seed,
                                                device))
-    prog = drive.compile_program(cfg, params, calib, device)
+    prog = cell.family.compile_program(cfg, params, calib, device)
     ex = drive.executor(prog, cell)
     drive.warm(ex, pool, cfg["batch"])
     rows = []

@@ -7,7 +7,6 @@ from a process where JAX is loaded, and test workers load it."""
 
 from __future__ import annotations
 
-import json
 import os
 import subprocess
 import sys
@@ -18,7 +17,6 @@ import pytest
 from bench.tests import tiny
 
 REPO = Path(__file__).resolve().parents[2]
-KEYS = {"correct", "attempted", "failed", "metrics", "device"}
 
 
 @pytest.fixture(scope="module")
@@ -26,27 +24,11 @@ def checkout(tmp_path_factory):
     return tiny.checkout(tmp_path_factory.mktemp("tiny"))
 
 
-def _run(checkout, cell, trace=0, fault=None):
-    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
-        [str(REPO), str(REPO / "src")]))
-    args = [sys.executable, "-m", "bench.tests.drive_tiny", str(checkout),
-            cell, str(trace)] + ([fault] if fault else [])
-    p = subprocess.run(args, capture_output=True, text=True, env=env,
-                       cwd=REPO, timeout=240)
-    assert p.returncode == 0, p.stderr[-3000:]
-    last = json.loads(p.stdout.strip().splitlines()[-1])
-    assert KEYS <= set(last)
-    assert list(last)[-1] == "compared"
-    tail = [l for l in p.stderr.splitlines() if l.startswith("compared ")]
-    assert p.stderr.rstrip().splitlines()[-len(tail):] == tail
-    return last
-
-
 @pytest.mark.parametrize("cell,trace", [
     ("tiny-b4-closed", 0), ("tiny-k2-poisson", 0), ("tiny-k2-closed", 1),
     ("tiny-r2-onoff", 1)])
 def test_tiny_runs_print_a_well_formed_correct_line(checkout, cell, trace):
-    r = _run(checkout, cell, trace)
+    r = tiny.run(checkout, cell, trace)
     assert r["correct"] is True and r["failed"] == 0
     assert r["attempted"] > 0
     assert r["compared"]["wrong_frames"] == {"value": 0, "limit": 0}
@@ -68,7 +50,7 @@ def test_tiny_runs_print_a_well_formed_correct_line(checkout, cell, trace):
     ("tiny-b4-closed", "altered"), ("tiny-k2-closed", "handoff"),
     ("tiny-k2-poisson", "half_batch"), ("tiny-k2-poisson", "handoff")])
 def test_each_planted_fault_makes_correct_false(checkout, cell, fault):
-    r = _run(checkout, cell, 0, fault)
+    r = tiny.run(checkout, cell, 0, fault)
     assert r["correct"] is False
     assert r["compared"]["wrong_frames"]["value"] > 0
 
@@ -86,7 +68,7 @@ def test_without_a_card_the_run_refuses(checkout, tmp_path):
     """No CUDA device: exit non-zero and no result line."""
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
     p = subprocess.run([sys.executable, str(REPO / "bench" / "run.py"),
-                        "--workload", "alexnet-b16-closed", "--seed", "1",
+                        "--workload", "vgg16-b16-closed", "--seed", "1",
                         "--seconds", "1", "--trace", "0"],
                        capture_output=True, text=True, env=env,
                        cwd=tmp_path, timeout=120)

@@ -50,6 +50,15 @@ def test_cell_file_names_existing_config_traffic_and_metrics(cell):
     assert len(entry["why"]) <= 200
 
 
+def test_every_workload_file_is_a_cell_and_every_config_is_used():
+    """No file of a cell that BENCHMARK.json no longer names stays behind,
+    and every configuration keeps at least one cell."""
+    files = {p.stem for p in (spec.ROOT / "bench" / "workloads").glob("*.json")}
+    assert files == set(CELLS)
+    used = {w["config"] for w in BENCH["workloads"]}
+    assert used == {c["name"] for c in BENCH["configs"]}
+
+
 def test_names_and_units_use_allowed_characters():
     names = ([m["name"] for m in _metrics()] + CELLS
              + [c["name"] for c in BENCH["configs"]]
