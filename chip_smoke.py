@@ -17,8 +17,10 @@ failure exits nonzero without the final line:
    ``wgmma`` kernels): the reference's shape sweep, ``emit_int32``/ReLU,
    biases near +-2^30, every shift in -31..31 with accumulators at the
    int32 rails, the ``wgmma`` paths' edges (N across the small-N limit,
-   ragged K and M, a deep K over few tiles), and every AlexNet and VGG16
-   batch-16 shape (generated from ``core/workload.py``), each timed on
+   ragged K and M, a deep K over few tiles), and every AlexNet, VGG16
+   and ResNet-50 batch-16 shape (generated from ``core/workload.py``;
+   ResNet-50's bottlenecks add an int8 skip in the epilogue, aligned by
+   left and right shifts), each timed on
    the main path's layouts (kernel, the ``dp4a`` kernel on the same
    operands, plain version, one library call) beside its bound, with a
    per-batch line for each model; at each of those shapes every
@@ -35,7 +37,11 @@ failure exits nonzero without the final line:
    the host cost of one ``gemm_int8`` call on either path); then one
    batch of full-width VGG16 through the kernel (13 + 3 launches),
    oracle and f32 routes, identical int32, with its chain's wall time,
-   device time by kernel and idle share; then the layer-pipelined serving
+   device time by kernel and idle share; then one batch of full-width
+   ResNet-50 v1.5 through the kernel (53 ``large_n``, 16 of them adding
+   the skip, + 1 ``small_n``), oracle and f32 routes, identical int32 and
+   equal on two frames to the kernel route's plain version on the CPU,
+   with the same times; then the layer-pipelined serving
    path (phase ``pipeline``): full-width AlexNet through ``serve_async``
    at K = 1, 2 and 4 stages and through the replica pool at R = 2, K = 2
    on the one card, each with its partition, steady fps beside the single
@@ -278,8 +284,8 @@ from repro_torch.kernels import _build, autotune  # noqa: E402
 from repro_torch.kernels.conv2d_int8 import kernel as gemm_kernel  # noqa
 from repro_torch.kernels.conv2d_int8.kernel import (  # noqa: E402
     gemm_int8, k_major_view, plan_for, plans)
-from repro_torch.kernels.conv2d_int8.ref import (gemm_int8_ref,  # noqa: E402
-                                                 requantize_ref)
+from repro_torch.kernels.conv2d_int8.ref import (  # noqa: E402
+    bias_relu_ref, gemm_int8_ref, requantize_ref)
 from repro_torch.kernels.flash_attention import kernel as flash_kernel  # noqa
 from repro_torch.kernels.flash_attention.kernel import (  # noqa: E402
     flash_attention)
@@ -326,28 +332,28 @@ F32_PEAKS = {"H100 SXM": 67e12, "H100 PCIe": 51e12, "H200": 67e12}
 def gemm_shapes(model_name: str, batch: int) -> list:
     """The ``gemm_int8`` launches of one batch of ``model_name`` on the
     main path, from ``core/workload.py``: (engine, N, K, M, launches per
-    batch, groups, emits int32), one row per distinct (N, K, M), named by
-    its first engine. A grouped engine launches once per group on M /
-    groups of its output channels; the last engine emits int32."""
+    batch, groups, emits int32, adds a skip), one row per distinct (N, K,
+    M, skip), named by its first engine. A grouped engine launches once
+    per group on M / groups of its output channels; the last engine emits
+    int32; a bottleneck's last conv adds its skip in the epilogue."""
     model = CNN_MODELS[model_name]()
-    compute = [l for l in model.layers if l.kind != "pool"]
+    compute = [l for l in model.layers if l.computes]
     rows: dict = {}
-    hw = model.input_hw
-    for lyr in model.layers:
-        out_hw = lyr.out_hw(hw)
-        if lyr.kind != "pool":
-            if lyr.kind == "fc":
-                n, k = batch, lyr.in_ch
-            else:
-                n = batch * out_hw * out_hw
-                k = lyr.kernel * lyr.kernel * lyr.in_ch // lyr.groups
-            key = (n, k, lyr.out_ch // lyr.groups, lyr is compute[-1])
-            if key in rows:
-                rows[key][4] += lyr.groups
-            else:
-                rows[key] = [lyr.name, n, k, key[2], lyr.groups, lyr.groups,
-                             key[3]]
-        hw = out_hw
+    for lyr, hw in zip(model.layers, model.in_sizes()):
+        if not lyr.computes:
+            continue
+        if lyr.kind == "fc":
+            n, k = batch, lyr.in_ch
+        else:
+            n = batch * lyr.out_hw(hw) ** 2
+            k = lyr.kernel * lyr.kernel * lyr.in_ch // lyr.groups
+        key = (n, k, lyr.out_ch // lyr.groups, lyr is compute[-1],
+               lyr.residual is not None)
+        if key in rows:
+            rows[key][4] += lyr.groups
+        else:
+            rows[key] = [lyr.name, n, k, key[2], lyr.groups, lyr.groups,
+                         key[3], key[4]]
     return [tuple(r) for r in rows.values()]
 
 
@@ -376,7 +382,7 @@ CHAOS_FRAMES, CHAOS_KILL_AT, CHAOS_LOAD = 384, 3, 2.0
 KNEE_FRAMES = 96
 # The import phase: frames served by the imported LeNet (batch 4).
 IMPORT_FRAMES = 16
-GEMM_MODELS = ("alexnet", "vgg16")
+GEMM_MODELS = ("alexnet", "vgg16", "resnet50")
 # The first design's per-shape times at AlexNet batch 16 (__dp4a, 64 x 64
 # tiles; cold L2, median of 10), recorded by this script on an NVIDIA
 # H100 80GB HBM3 at 700 W when that design was new (PERF.md), not measured
@@ -750,16 +756,19 @@ def _rand_int8(gen, shape, lo=-128, hi=128):
 
 
 def _compare(cases: list, max_err: list, label: str, x, w, shift, bias,
-             relu, emit_int32, w_k=None) -> str:
+             relu, emit_int32, w_k=None, **skip) -> str:
     """The kernel against its plain version, bit for bit, on ``w`` as given
     (row-major: the dp4a path) and on its K-major copy ``w_k`` (by default
-    made here: a wgmma path). Returns the path the K-major copy took."""
-    want = gemm_int8_ref(x, w, shift, bias, relu=relu, emit_int32=emit_int32)
+    made here: a wgmma path), with the ``residual`` and ``res_shift`` in
+    ``skip`` where given. Returns the path the K-major copy took."""
+    want = gemm_int8_ref(x, w, shift, bias, relu=relu, emit_int32=emit_int32,
+                         **skip)
     w_k = k_major_view(w) if w_k is None else w_k
     path = None
     for layout, ww in (("row-major", w), ("K-major", w_k)):
         before = dict(gemm_int8.launches_by_path)
-        got = gemm_int8(x, ww, shift, bias, relu=relu, emit_int32=emit_int32)
+        got = gemm_int8(x, ww, shift, bias, relu=relu, emit_int32=emit_int32,
+                        **skip)
         torch.cuda.synchronize()
         path = next(p for p, n in gemm_int8.launches_by_path.items()
                     if n != before[p])
@@ -815,9 +824,10 @@ def _time_cold_ms(fn, flush: torch.Tensor, iters: int = 10) -> float:
     return float(np.median([s.elapsed_time(e) for s, e in zip(starts, ends)]))
 
 
-def _library_call(x, w, shift, bias, relu, emit_int32):
+def _library_call(x, w, shift, bias, relu, emit_int32, **skip):
     """One PyTorch int8 GEMM (``torch._int_mm``, cuBLASLt) with the plain
-    epilogue on the same inputs, or None where ``_int_mm``'s shape rules
+    epilogue (the skip's add too, where ``skip`` holds ``residual`` and
+    ``res_shift``) on the same inputs, or None where ``_int_mm``'s shape rules
     (more than 16 rows, K and M multiples of 8) exclude them. A K that is
     not a multiple of 8 is zero-padded (the zeros add nothing to the
     product), and N = 16 runs as the transposed product; both operand
@@ -841,15 +851,16 @@ def _library_call(x, w, shift, bias, relu, emit_int32):
         acc = torch._int_mm(a, b)
         acc = acc.t() if transposed else acc
         if emit_int32:
-            acc = acc + bias[None, :]
-            return torch.clamp(acc, min=0) if relu else acc
-        return requantize_ref(acc, shift, bias, relu)
+            return bias_relu_ref(acc, bias, relu, **skip)
+        return requantize_ref(acc, shift, bias, relu, **skip)
     return run
 
 
-def _bound_ms(N, K, M, emit_int32, peak_ops, peak_bytes):
+def _bound_ms(N, K, M, emit_int32, peak_ops, peak_bytes, skip=False):
     ops = 2 * N * K * M
     nbytes = N * K + K * M + 8 * M + N * M * (4 if emit_int32 else 1)
+    if skip:                        # the int8 skip and its [M] shifts
+        nbytes += N * M + 4 * M
     t_ops, t_bytes = ops / peak_ops * 1e3, nbytes / peak_bytes * 1e3
     return ops, nbytes, max(t_ops, t_bytes), \
         ("operations" if t_ops >= t_bytes else "bytes")
@@ -905,11 +916,14 @@ def _gemm_model_shapes(model: str, gen, peaks, flush, cases,
     layouts, then timed: the kernel on the main path's layouts (patch rows
     of 16-byte multiples, K-major weights: a wgmma path), the first design
     on the same operands with a row-major w (``dp4a_ms``), the plain
-    version, one library call, the bound. Returns the per-batch sums."""
+    version, one library call, the bound. A bottleneck's last conv adds
+    an int8 skip [N, M] whose alignment shifts take both signs (left and
+    right shifts onto the accumulators). Returns the per-batch sums, and
+    those of the launches that add a skip under ``residual``."""
     _, peak_ops, _, peak_bytes = peaks
     shapes, tilings = [], []
-    for name, N, K, M, launches, groups, emit_int32 in gemm_shapes(
-            model, SERVE_BATCH):
+    for name, N, K, M, launches, groups, emit_int32, has_skip in \
+            gemm_shapes(model, SERVE_BATCH):
         x = _patch_rows(gen, N, K)
         w_full = _rand_int8(gen, (K, M * groups))
         w = w_full[:, :M]                      # row-major, ld = groups * M
@@ -919,17 +933,26 @@ def _gemm_model_shapes(model: str, gen, peaks, flush, cases,
         bias = torch.randint(-2 ** 24, 2 ** 24, (M,), generator=gen,
                              device="cuda", dtype=torch.int32)
         relu = not emit_int32
-        path = _compare(cases, max_err, f"{model} {name} {N}x{K}x{M}", x, w,
-                        shift, bias, relu, emit_int32, w_k=w_k)
+        skip = {}
+        if has_skip:
+            res_shift = torch.randint(-8, 12, (M,), generator=gen,
+                                      device="cuda", dtype=torch.int32)
+            res_shift[:2] = torch.tensor([-8, 11], dtype=torch.int32)
+            skip = {"residual": _rand_int8(gen, (N, M)),
+                    "res_shift": res_shift}
+        path = _compare(cases, max_err, f"{model} {name} {N}x{K}x{M}"
+                        + (" skip" if has_skip else ""), x, w, shift, bias,
+                        relu, emit_int32, w_k=w_k, **skip)
 
         def call(ww):
             return lambda: gemm_int8(x, ww, shift, bias, relu=relu,
-                                     emit_int32=emit_int32)
+                                     emit_int32=emit_int32, **skip)
         ms = _time_cold_ms(call(w_k), flush)
         dp4a_ms = _time_cold_ms(call(w), flush)
         plain_ms = _time_cold_ms(lambda: gemm_int8_ref(
-            x, w, shift, bias, relu=relu, emit_int32=emit_int32), flush)
-        lib = _library_call(x, w, shift, bias, relu, emit_int32)
+            x, w, shift, bias, relu=relu, emit_int32=emit_int32, **skip),
+            flush)
+        lib = _library_call(x, w, shift, bias, relu, emit_int32, **skip)
         library_ms, library_note = None, None
         if lib is None:
             library_note = "torch._int_mm shape rules exclude this shape"
@@ -943,13 +966,14 @@ def _gemm_model_shapes(model: str, gen, peaks, flush, cases,
             except RuntimeError as e:       # a yardstick, not the port
                 library_note = f"torch._int_mm refused: {e}"[:200]
         ops, nbytes, bound_ms, bound_by = _bound_ms(N, K, M, emit_int32,
-                                                    peak_ops, peak_bytes)
+                                                    peak_ops, peak_bytes,
+                                                    has_skip)
         plan = plan_for(N, K, M, torch.cuda.get_device_properties(
             0).multi_processor_count)
         row = {"phase": "gemm_int8_shape", "model": model, "engine": name,
                "N": N, "K": K, "M": M, "ld_x": x.stride(0),
                "ld_w_k": w_k.stride(1), "launches_per_batch": launches,
-               "emit_int32": emit_int32, "path": path,
+               "emit_int32": emit_int32, "skip": has_skip, "path": path,
                "plan": dataclasses.asdict(plan), "ops": ops, "bytes": nbytes,
                "ms": ms, "dp4a_ms": dp4a_ms, "plain_ms": plain_ms,
                "library_ms": library_ms, "library": library_note,
@@ -980,6 +1004,14 @@ def _gemm_model_shapes(model: str, gen, peaks, flush, cases,
              else "bytes",
              "library_ms": per("library_ms") if have_lib else None,
              "ops": per("ops"), "tilings": tilings}
+    res = [r for r in shapes if r["skip"]]
+    if res:
+        have_lib = all(r["library_ms"] is not None for r in res)
+        batch["residual"] = {
+            "launches": sum(r["launches_per_batch"] for r in res),
+            **{k: per(k, res) for k in ("ms", "dp4a_ms", "plain_ms",
+                                        "bound_ms", "ops")},
+            "library_ms": per("library_ms", res) if have_lib else None}
     emit({"phase": "gemm_int8_batch", "model": model, "batch": SERVE_BATCH,
           **{k: v for k, v in batch.items() if k != "tilings"},
           "ops_per_s": batch["ops"] / (batch["ms"] * 1e-3),
@@ -1035,7 +1067,8 @@ def phase_gemm(env: dict) -> dict:
                      f"emit_int32={emit_int32}", x, w, shift, bias, relu,
                      emit_int32)
 
-    # Every shape of one batch of AlexNet and of VGG16, checked and timed.
+    # Every shape of one batch of AlexNet, VGG16 and ResNet-50, checked
+    # and timed.
     peaks = card_peaks(env["device"])
     flush = torch.empty(64 << 20, dtype=torch.int8, device="cuda")
     batches = {model: _gemm_model_shapes(model, gen, peaks, flush, cases,
@@ -1063,7 +1096,8 @@ def _program_on_cpu(prog):
         s, wq=None if s.wq is None else s.wq.cpu(),
         wk=None if s.wk is None else s.wk.cpu(),
         bias_q=None if s.bias_q is None else s.bias_q.cpu(),
-        shift=None if s.shift is None else s.shift.cpu())
+        shift=None if s.shift is None else s.shift.cpu(),
+        skip_shift=None if s.skip_shift is None else s.skip_shift.cpu())
         for s in prog.steps]
     return dataclasses.replace(prog, steps=steps, device=torch.device("cpu"))
 
@@ -1320,6 +1354,84 @@ def phase_vgg16() -> dict:
             and launches == 16 and row["acc_shape"] == [SERVE_BATCH, 1000]
             and acc.dtype == torch.int32):
         raise SmokeFailure(f"VGG16 check failed: {row}")
+    return {"launches": launches}
+
+
+# ResNet-50 v1.5 a batch: 53 convs on the large-N kernels (16 of them
+# adding their bottleneck's skip), the fc on the small-N one.
+RESNET_PATHS = {"large_n": 53, "small_n": 1, "dp4a": 0}
+RESNET_SKIPS = 16
+# Frames of the batch the plain version runs on the CPU.
+RESNET_CPU_FRAMES = 2
+
+
+def phase_resnet50(gemm: dict) -> dict:
+    """Full-width ResNet-50 v1.5 (seed 0) on one batch of 16 frames: the
+    kernel route with its launches counted (``RESNET_PATHS``, and 16 that
+    add the skip: ``residual_launches``), its int32 accumulators equal to
+    the oracle and f32 routes' on the card and, on two frames, to the
+    kernel route's plain version (``gemm_int8_ref``) run on the CPU; the
+    chain's wall time, device time by kernel and idle share, beside the
+    skip-adding launches' kernel, plain, library and bound times from
+    phase 2's ``gemm_int8_shape`` lines."""
+    prog = compile_for_serving("resnet50", seed=0, device="cuda")
+    frames = synthetic_stream("resnet50", SERVE_BATCH, 0)
+    kernel = prog.compile_runner(route="kernel")
+    xq = torch.as_tensor(kernel.quantize(frames), device="cuda")
+    reset_launches()
+    acc = kernel(xq)
+    torch.cuda.synchronize()
+    launches, by_path = gemm_int8.launches, dict(gemm_int8.launches_by_path)
+    skips = gemm_int8.residual_launches
+    accs = {"kernel": acc}
+    for route in ("oracle", "f32"):
+        accs[route] = prog.compile_runner(route=route)(xq)
+        torch.cuda.synchronize()
+    identical = all(torch.equal(acc, a) for a in accs.values())
+    cpu = _program_on_cpu(prog).compile_runner(route="kernel")
+    plain = cpu(xq[:RESNET_CPU_FRAMES].cpu())
+    matches_plain = torch.equal(plain, acc[:RESNET_CPU_FRAMES].cpu())
+    logits = kernel.dequantize(acc)
+    n = 5
+    for _ in range(2):
+        kernel(xq)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        kernel(xq)
+    enqueue_ms = (time.perf_counter() - t0) / n * 1e3
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) / n * 1e3
+    ops = _device_ops(lambda: kernel(xq))
+    device_ms = sum(us for _, us, _ in ops) / 1e3
+    gemm_ms = sum(us for k, us, _ in ops if _is_gemm_int8(k)) / 1e3
+    row = {"phase": "resnet50", "batch": SERVE_BATCH,
+           "acc_shape": list(acc.shape), "acc_dtype": str(acc.dtype),
+           "routes_identical_int32": identical,
+           "kernel_matches_cpu_plain": matches_plain,
+           "cpu_plain_frames": RESNET_CPU_FRAMES,
+           "logits_finite": bool(np.isfinite(logits).all()),
+           "distinct_top1": len(np.unique(logits.argmax(-1))),
+           "gemm_int8_launches": launches, "launches_by_path": by_path,
+           "expected_by_path": RESNET_PATHS, "residual_launches": skips,
+           "expected_residual_launches": RESNET_SKIPS,
+           "host_enqueue_ms": enqueue_ms, "wall_ms": wall_ms,
+           "device_busy_ms": device_ms, "gemm_int8_ms": gemm_ms,
+           "other_device_ms": device_ms - gemm_ms,
+           "device_idle_share": max(0.0, 1.0 - device_ms / wall_ms),
+           "top_device_ops_us": [[k[:60], round(us, 1)]
+                                 for k, us, _ in ops[:6]],
+           "gemm_int8_batch_cold": {k: gemm["resnet50"][k] for k in (
+               "launches", "ms", "plain_ms", "library_ms", "bound_ms")},
+           "gemm_int8_skip_launches_cold": gemm["resnet50"]["residual"]}
+    emit(row)
+    if not (identical and matches_plain and row["logits_finite"]
+            and by_path == RESNET_PATHS and skips == RESNET_SKIPS
+            and launches == sum(RESNET_PATHS.values())
+            and gemm["resnet50"]["residual"]["launches"] == RESNET_SKIPS
+            and row["acc_shape"] == [SERVE_BATCH, 1000]
+            and acc.dtype == torch.int32):
+        raise SmokeFailure(f"ResNet-50 check failed: {row}")
     return {"launches": launches}
 
 
@@ -5134,6 +5246,7 @@ def main() -> int:
         phase_autotune(env, gemm)
         main_path = phase_main_path()
         vgg = phase_vgg16()
+        resnet = phase_resnet50(gemm)
         torch.cuda.empty_cache()
         pipeline = phase_pipeline()
         torch.cuda.empty_cache()
@@ -5192,7 +5305,8 @@ def main() -> int:
                     "alexnet-elastic": elastic["launches"],
                     "lenet": lenet["launches"]},
         "vgg16": {"vgg16": vgg["launches"],
-                  "vgg16-pipeline": pipeline["vgg16_launches"]}}
+                  "vgg16-pipeline": pipeline["vgg16_launches"]},
+        "resnet50": {"resnet50": resnet["launches"]}}
     launches_per = {
         "alexnet": {
             "alexnet-pipeline": f"serve_async at {pipe_configs}: "
@@ -5212,9 +5326,11 @@ def main() -> int:
             "vgg16-pipeline": f"PipelineExecutor at K "
                               f"{', '.join(map(str, VGG_PIPE_STAGES))}: "
                               f"{VGG_PIPE_BATCHES} batches of "
-                              f"{SERVE_BATCH} each, 16 launches a batch"}}
+                              f"{SERVE_BATCH} each, 16 launches a batch"},
+        "resnet50": {}}
     by_path_on = {"alexnet": {"alexnet-elastic": elastic["by_path"],
-                              "lenet": lenet["by_path"]}, "vgg16": {}}
+                              "lenet": lenet["by_path"]}, "vgg16": {},
+                  "resnet50": {}}
     kernels = [{
         "name": "gemm_int8", "route": "cuda", "source": GEMM_SOURCE,
         "replaces": GEMM_REPLACES,
@@ -5225,6 +5341,8 @@ def main() -> int:
         **{k: gemm[model][k] for k in ("max_abs_err", "ms", "plain_ms",
                                        "bound_ms", "bound_by",
                                        "library_ms")},
+        **({"skip_launches": gemm[model]["residual"]}
+           if "residual" in gemm[model] else {}),
         "path": model,
         "per": f"one {model} batch of {SERVE_BATCH}: the sum over its "
                f"{gemm[model]['launches']} launches"}

@@ -24,9 +24,10 @@ therefore has to *normalize* the explicit graph onto that shape:
   the existing :class:`ConvLayer` fields: the layer's own
   ``padding(in_hw)`` must reproduce the graph's declared (lo, hi) pads
   exactly, otherwise the engine's window positions would shift.
-* **Rejection** — ops the IR carries but the engine cannot run
-  (``avgpool``: the integer pool stage is max-only; ``add``: no
-  residual datapath across the linear engine chain) raise
+* **Rejection** — ops the IR carries but this importer does not lower
+  (``avgpool``: the integer pool stage is max-only; ``add``: the engine
+  adds a skip in a conv's epilogue, but the importer maps only linear
+  chains, not a fan-out graph, onto it) raise
   :class:`UnsupportedOpError`.
 
 The output is a ready-to-compile ``(CNNModel, params-or-None)`` pair:
@@ -50,9 +51,10 @@ _REJECT_WHY = {
     "avgpool": "average pooling is not representable — the engine's "
                "integer pool stage is max-only (exact on the po2 "
                "format; an average needs a divider the fabric lacks)",
-    "add": "residual add is not representable — the engine executes a "
-           "linear chain of pipelined stages with no cross-stage "
-           "adder datapath",
+    "add": "residual add is not imported yet — the engine runs residual "
+           "layers (a skip added in a conv's epilogue, as ResNet-50 "
+           "v1.5's core.workload.resnet50 builds them), but the importer "
+           "does not yet map a fan-out graph onto them",
 }
 
 

@@ -16,7 +16,10 @@ The paper's central object is a *balanced plan*: per-layer workloads
    accumulator format.
 3. **lower** — each layer becomes an :class:`EngineStep` whose bias-add,
    ReLU and requantize-to-int8 are fused into the GEMM epilogue
-   (``kernels/conv2d_int8``), so activations stay int8 end to end.
+   (``kernels/conv2d_int8``), so activations stay int8 end to end. In a
+   residual graph (ResNet-50 v1.5) a step may read an earlier step's
+   output, and a bottleneck's last conv adds its skip in the same
+   epilogue (the rule is :func:`_lower`'s).
 
 Layouts are the reference's at every public function: NHWC activations,
 HWIO conv weights, ``[F, M]`` fc weights (fc6's flatten order depends on
@@ -63,14 +66,15 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core import quant
+from repro_torch.core import quant, spans
 from repro_torch.core.quant import ref_exp2
 from repro_torch.core.allocator import (LayerAlloc, allocate_buffers,
                                         allocate_compute)
 from repro_torch.core.workload import CNNModel, ConvLayer
 from repro_torch.kernels.conv2d_int8.kernel import k_major_view
 from repro_torch.kernels.conv2d_int8.ops import conv2d_int8, fc_int8
-from repro_torch.kernels.conv2d_int8.ref import (conv2d_int8_via,
+from repro_torch.kernels.conv2d_int8.ref import (bias_relu_ref,
+                                                 conv2d_int8_via,
                                                  matmul_int8_exact,
                                                  requantize_ref)
 
@@ -160,37 +164,75 @@ def _conv_nhwc(x: torch.Tensor, w: torch.Tensor, stride: int,
 # ---------------------------------------------------------------------------
 
 
+def _last_reads(reads, start: int = 0,
+                stop: int | None = None) -> dict[int, int]:
+    """For each output (-1: the frames) that the layers or steps ``[start,
+    stop)`` of a graph read, the index of the last of them that reads it.
+    ``reads`` holds what each one reads (:meth:`CNNModel.reads`,
+    :func:`_step_reads`)."""
+    last: dict[int, int] = {}
+    for i in range(start, len(reads) if stop is None else stop):
+        for j in reads[i]:
+            last[j] = i
+    return last
+
+
+def folded_weights(model: CNNModel, params: Params, i: int) -> torch.Tensor:
+    """The float weights layer ``i`` is run and quantized with: its own,
+    divided by the map's area where it reads a global average pool (the
+    pool emits the sum; a po2 format cannot hold 1/49)."""
+    w = params[model.layers[i].name]["w"]
+    src = model.sources()[i]
+    if src >= 0 and model.layers[src].kind == "gap":
+        hw = model.in_sizes()[src]
+        w = w / float(hw * hw)
+    return w
+
+
 @torch.no_grad()
 def float_forward(params: Params, model: CNNModel, x: torch.Tensor,
                   record: dict[str, float] | None = None) -> torch.Tensor:
     """Reference float forward over the model graph (NHWC), with TF32 off.
     With ``record`` it doubles as the calibration pass: per-layer output
-    amax (post-ReLU for hidden layers — what the next engine actually
-    consumes) is stored under the layer name, the network input under
-    ``"__input__"``."""
+    amax (post-ReLU where the layer has ReLU — what the next engine
+    actually consumes; a block's last conv after its skip add and ReLU, a
+    projection before the add) is stored under the layer name, the
+    network input under ``"__input__"``. The global average pool emits the
+    sum over the map (its amax is the sum's), and the fc after it runs on
+    :func:`folded_weights`."""
     with exact_float32():
         if record is not None:
             record["__input__"] = float(torch.max(torch.abs(x)))
-        hw = x.shape[1]
-        last = [l for l in model.layers if l.kind != "pool"][-1]
-        for lyr in model.layers:
-            out_hw = lyr.out_hw(hw)
+        last = [l for l in model.layers if l.computes][-1]
+        reads = model.reads()
+        last_read = _last_reads(reads)
+        outs = {-1: x}
+        for i, (lyr, (src, *skip), hw) in enumerate(zip(
+                model.layers, reads, model.in_sizes())):
+            x = outs[src]
             if lyr.kind == "pool":
                 lo, hi = lyr.padding(hw)
                 x = _max_pool_nhwc(x, lyr.kernel, lyr.stride, lo, hi,
                                    float("-inf"))
+            elif lyr.kind == "gap":
+                x = x.sum(dim=(1, 2), keepdim=True)
             else:
-                w, b = params[lyr.name]["w"], params[lyr.name]["b"]
+                w, b = folded_weights(model, params, i), params[lyr.name]["b"]
                 if lyr.kind == "fc":
                     x = x.reshape(x.shape[0], -1) @ w + b
                 else:
                     x = _conv_nhwc(x, w, lyr.stride, lyr.padding(hw),
                                    lyr.groups) + b
-                if lyr is not last:
+                if skip:
+                    x = x + outs[skip[0]]
+                if lyr.relu if lyr.relu is not None else lyr is not last:
                     x = torch.relu(x)
-                if record is not None:
-                    record[lyr.name] = float(torch.max(torch.abs(x)))
-            hw = out_hw
+            if record is not None and lyr.kind != "pool":
+                record[lyr.name] = float(torch.max(torch.abs(x)))
+            outs[i] = x
+            for j in reads[i]:
+                if last_read[j] == i:
+                    outs.pop(j, None)
     return x
 
 
@@ -205,7 +247,7 @@ class EngineStep:
     shift schedule, and the spatial plumbing the kernel needs."""
 
     name: str
-    kind: str                      # "conv" | "fc" | "pool"
+    kind: str                      # "conv" | "fc" | "pool" | "gap"
     layer: ConvLayer
     pad: tuple[int, int]           # (lo, hi), both spatial dims
     # compute-step payload (None for pool):
@@ -222,6 +264,14 @@ class EngineStep:
     e_out: int = 0                         # output activation exponent
     relu: bool = False
     requantize: bool = True        # False on the last engine (emit acc32)
+    # The graph, where it is not a chain: the index of the step whose
+    # output this one reads (None: the previous step's), the index of the
+    # step whose int8 output is added to the accumulators before ReLU
+    # (the skip), and that skip's int32 [M] alignment shift onto each
+    # channel's accumulator format (right shift >= 0, left shift < 0).
+    src: int | None = None
+    skip: int | None = None
+    skip_shift: torch.Tensor | None = None
 
 
 @dataclasses.dataclass
@@ -262,7 +312,7 @@ class EngineProgram:
     def out_scale(self) -> np.ndarray:
         """Per-channel float32 po2 scale of the final engine's int32
         (int64 at bits=16) accumulators (logits = acc * out_scale)."""
-        last = [s for s in self.steps if s.kind != "pool"][-1]
+        last = [s for s in self.steps if s.kind in ("conv", "fc")][-1]
         return np.exp2(np.asarray(last.e_in + last.e_w, np.float32))
 
     def _require_steps(self) -> None:
@@ -284,13 +334,8 @@ class EngineProgram:
             require_kernel(self.bits)
         x = torch.as_tensor(x, dtype=torch.float32, device=self.device)
         xq = quant.quantize_to_exponent(x, self.e_input, self.bits)
-        for step in self.steps:
-            if step.kind == "pool":
-                xq = _pool_int(xq, step)
-            elif use_kernel:
-                xq = _step_kernel(xq, step)
-            else:
-                xq = _step_oracle(xq, step)
+        xq = _chain(self.steps, 0, len(self.steps),
+                    _step_kernel if use_kernel else _step_oracle)(xq)
         scale = torch.as_tensor(self.out_scale(), device=self.device)
         return xq.to(torch.float32) \
             * scale.reshape((1,) * (xq.ndim - 1) + (-1,))
@@ -344,7 +389,11 @@ class EngineProgram:
         boundaries as the same int8 (int16 at bits=16) tensors the full
         chain passes between steps, so chained stage runners reproduce
         :meth:`compile_runner` bit-exactly. ``compile_runner`` is the case
-        ``[0, len(steps))``.
+        ``[0, len(steps))``. Where a residual graph has more than one
+        tensor live at a cut (a cut inside a bottleneck: the block's input,
+        which its last conv adds, beside the activation), the stage takes
+        and hands on the tuple of them, in the order of :meth:`live_at`;
+        a single live tensor crosses alone, as in a chain.
 
         ``device`` pins the stage to one ``torch.device`` (the counterpart
         of the reference's ``jax.Device`` pin): its input is moved there
@@ -358,20 +407,19 @@ class EngineProgram:
                 f"stage range [{start}, {stop}) outside the "
                 f"{len(self.steps)}-step chain")
         device = self.device if device is None else torch.device(device)
-        steps = tuple(self.steps_on(device)[start:stop])
         route = self._resolve_route(route)
         step_fn = {"kernel": _step_kernel, "f32": _step_exact_f32,
                    "oracle": _step_oracle}[route]
-
-        @torch.no_grad()
-        def chain(xq: torch.Tensor) -> torch.Tensor:
-            for step in steps:
-                xq = _pool_int(xq, step) if step.kind == "pool" \
-                    else step_fn(xq, step)
-            return xq
-
+        chain = _chain(self.steps_on(device), start, stop, step_fn)
         return CompiledRunner(program=self, route=route, fn=chain,
                               start=start, stop=stop, device=device)
+
+    def live_at(self, cut: int) -> list[int]:
+        """The step outputs live at the cut before step ``cut`` (-1: the
+        quantized frames), in index order: those a step at or after the
+        cut reads; the last step's output at the end of the chain."""
+        self._require_steps()
+        return _live_at(_step_reads(self.steps), cut)
 
     def steps_on(self, device) -> list[EngineStep]:
         """The lowered steps with their tensors on ``device``: the
@@ -386,12 +434,16 @@ class EngineProgram:
         if key not in self._placed:
             placed = []
             for s in self.steps:
-                if s.kind != "pool":
+                if s.kind in ("conv", "fc"):
                     wq = s.wq.to(device)
                     s = dataclasses.replace(
                         s, wq=wq,
                         wk=None if s.wk is None else k_major_view(wq),
-                        bias_q=s.bias_q.to(device), shift=s.shift.to(device))
+                        bias_q=s.bias_q.to(device), shift=s.shift.to(device),
+                        skip_shift=None if s.skip_shift is None
+                        else s.skip_shift.to(device))
+                elif s.kind == "gap":
+                    s = dataclasses.replace(s, shift=s.shift.to(device))
                 placed.append(s)
             self._placed[key] = placed
         return self._placed[key]
@@ -451,9 +503,13 @@ class CompiledRunner:
             scratch=scratch)
 
     def __call__(self, xq) -> torch.Tensor:
-        """Launch one quantized batch (numpy, or a tensor on any device) on
-        the runner's device's current stream; returns the output tensor
+        """Launch one quantized batch (numpy, or a tensor on any device; a
+        tuple of them at a cut where several are live) on the runner's
+        device's current stream; returns the output tensor (or tuple)
         without waiting for the device."""
+        if isinstance(xq, tuple):
+            return self.fn(tuple(torch.as_tensor(t, device=self.device)
+                                 for t in xq))
         return self.fn(torch.as_tensor(xq, device=self.device))
 
     def dequantize(self, acc) -> np.ndarray:
@@ -512,6 +568,92 @@ def require_kernel(bits: int = 8) -> None:
 # ---------------------------------------------------------------------------
 
 
+def _step_reads(steps) -> list[tuple[int, ...]]:
+    """The outputs each step reads (-1: the frames): its source, then its
+    skip, where it adds one (the steps' :meth:`CNNModel.reads`)."""
+    return [(i - 1 if s.src is None else s.src,)
+            + (() if s.skip is None else (s.skip,))
+            for i, s in enumerate(steps)]
+
+
+def _live_at(reads, cut: int) -> list[int]:
+    """The outputs live at the cut before step ``cut``: those a step at or
+    after it reads, in index order; the last output at the end."""
+    if cut == len(reads):
+        return [cut - 1]
+    return sorted(j for j in _last_reads(reads, cut) if j < cut)
+
+
+def _bottlenecks(reads) -> list[int | None]:
+    """For each step, the index of the step that adds the skip of the
+    bottleneck it belongs to (None: none). A bottleneck is the steps after
+    its input, the one output read into them from before them, up to the
+    step that adds the skip: its projection shortcut is inside, the stem
+    and the pools are not."""
+    block: list[int | None] = [None] * len(reads)
+    for i, r in enumerate(reads):
+        if len(r) > 1:
+            lo = i
+            while (first := min(j for k in range(lo, i + 1)
+                                for j in reads[k])) < lo - 1:
+                lo = first + 1
+            block[lo:i + 1] = [i] * (i + 1 - lo)
+    return block
+
+
+def _chain(steps, start: int, stop: int, step_fn) -> Callable:
+    """The launches of steps ``[start, stop)`` as one function: ``step_fn``
+    for the engines, the integer pools for the pools. Each output is kept
+    while a later step of the range still reads it. The function takes the
+    outputs live at ``start`` (:func:`_live_at`) and returns those live at
+    ``stop``, a tuple where there are several (a cut inside a bottleneck)
+    and one tensor alone otherwise, as along a chain. The launches of each
+    bottleneck (:func:`_bottlenecks`) run inside a ``residual.launch``
+    span carrying the enclosing span's owner and batch."""
+    kinds = {"pool": _pool_int, "gap": _gap_int}
+    reads = _step_reads(steps)
+    ins, outs = _live_at(reads, start), _live_at(reads, stop)
+    block = _bottlenecks(reads)
+    last = _last_reads(reads, start, stop)
+    plan = [(kinds.get(steps[i].kind, step_fn), steps[i], i, reads[i][0],
+             reads[i][1] if len(reads[i]) > 1 else None,
+             tuple(j for j in set(reads[i]) if last[j] == i
+                   and j not in outs), block[i])
+            for i in range(start, stop)]
+
+    @torch.no_grad()
+    def chain(payload):
+        env = dict(zip(ins, payload)) if len(ins) > 1 else {ins[0]: payload}
+        cur, blk = None, None
+        try:
+            for fn, step, i, src, skip, drop, b in plan:
+                if b != cur:
+                    if blk is not None:
+                        blk.__exit__(None, None, None)
+                    blk = None if b is None else \
+                        spans.nested("residual.launch").__enter__()
+                    cur = b
+                env[i] = fn(env[src], step) if skip is None else \
+                    fn(env[src], step, env[skip])
+                for j in drop:
+                    del env[j]
+        finally:
+            if blk is not None:
+                blk.__exit__(None, None, None)
+        return env[outs[0]] if len(outs) == 1 else \
+            tuple(env[j] for j in outs)
+    return chain
+
+
+def _gap_int(xq: torch.Tensor, step: EngineStep) -> torch.Tensor:
+    """The global average pool on the integers: the int8 map summed
+    exactly in int32 over H and W (``[B, 1, 1, C]``), then requantized
+    once onto the pool's own po2 format (``step.shift``); the 1/area is in
+    the next engine's weights (:func:`folded_weights`)."""
+    acc = xq.to(torch.int32).sum(dim=(1, 2), dtype=torch.int32)
+    return requantize_ref(acc, step.shift)[:, None, None, :]
+
+
 def _pool_int(xq: torch.Tensor, step: EngineStep) -> torch.Tensor:
     """Max pool directly on the integer activations — max is monotone in
     the po2 format, so this is exact and the exponent passes through. The
@@ -523,9 +665,11 @@ def _pool_int(xq: torch.Tensor, step: EngineStep) -> torch.Tensor:
     return _max_pool_nhwc(xq, lyr.kernel, lyr.stride, lo, hi, fill)
 
 
-def _step_kernel(xq: torch.Tensor, step: EngineStep) -> torch.Tensor:
-    """The kernel route: ``gemm_int8`` with the fused epilogue, on the
-    K-major weights (the layout its ``wgmma`` kernels read)."""
+def _step_kernel(xq: torch.Tensor, step: EngineStep,
+                 skip: torch.Tensor | None = None) -> torch.Tensor:
+    """The kernel route: ``gemm_int8`` with the fused epilogue (the skip,
+    where the step has one, added in it), on the K-major weights (the
+    layout its ``wgmma`` kernels read)."""
     lyr = step.layer
     emit = not step.requantize
     if step.kind == "fc":
@@ -533,10 +677,12 @@ def _step_kernel(xq: torch.Tensor, step: EngineStep) -> torch.Tensor:
                        step.bias_q, relu=step.relu, emit_int32=emit)
     return conv2d_int8(xq, step.wk, step.shift, step.bias_q,
                        stride=lyr.stride, padding=(step.pad, step.pad),
-                       groups=lyr.groups, relu=step.relu, emit_int32=emit)
+                       groups=lyr.groups, relu=step.relu, emit_int32=emit,
+                       residual=skip, res_shift=step.skip_shift)
 
 
-def _step_oracle(xq: torch.Tensor, step: EngineStep) -> torch.Tensor:
+def _step_oracle(xq: torch.Tensor, step: EngineStep,
+                 skip: torch.Tensor | None = None) -> torch.Tensor:
     """The integer oracle with the identical fused epilogue. At bits=8 its
     MACs are a float64 ``F.conv2d`` / matmul, independent of im2col and of
     the kernel: every partial sum is an integer far below 2^53, and the
@@ -552,7 +698,7 @@ def _step_oracle(xq: torch.Tensor, step: EngineStep) -> torch.Tensor:
         acc = _conv_nhwc(xq.to(torch.float64), step.wq.to(torch.float64),
                          lyr.stride, step.pad, lyr.groups)
         acc = torch.round(acc).to(torch.int32)
-    return _epilogue_int32(acc, step)
+    return _epilogue_int32(acc, step, skip)
 
 
 # Max MAC terms per float32 partial sum on the exact-f32 route: every
@@ -575,7 +721,8 @@ def _matmul_exact_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return acc
 
 
-def _step_exact_f32(xq: torch.Tensor, step: EngineStep) -> torch.Tensor:
+def _step_exact_f32(xq: torch.Tensor, step: EngineStep,
+                    skip: torch.Tensor | None = None) -> torch.Tensor:
     """int8 conv/fc via *exact* float32 arithmetic, with the identical
     fused epilogue. The conv lowers through the shared int8 im2col and
     float32 GEMMs, not ``F.conv2d``: cuDNN's FFT and Winograd algorithms
@@ -591,7 +738,7 @@ def _step_exact_f32(xq: torch.Tensor, step: EngineStep) -> torch.Tensor:
                 patches, w2d),
             xq, step.wq, step.shift, None, stride=lyr.stride,
             padding=(step.pad, step.pad), groups=lyr.groups)
-    return _epilogue_int32(acc, step)
+    return _epilogue_int32(acc, step, skip)
 
 
 # Max MAC terms per float64 chain on the bits=16 oracle: every int16*int16
@@ -654,16 +801,20 @@ def _step_oracle16(xq: torch.Tensor, step: EngineStep) -> torch.Tensor:
     return torch.clamp(y, -qmax - 1, qmax).to(torch.int16)
 
 
-def _epilogue_int32(acc: torch.Tensor, step: EngineStep) -> torch.Tensor:
-    """The shared fused output stage on exact int32 accumulators."""
+def _epilogue_int32(acc: torch.Tensor, step: EngineStep,
+                    skip: torch.Tensor | None = None) -> torch.Tensor:
+    """The shared fused output stage on exact int32 accumulators (the
+    aligned skip added before ReLU where the step has one)."""
+    M = acc.shape[-1]
+    flat = acc.reshape(-1, M)
+    res = None if skip is None else skip.reshape(-1, M)
     if step.requantize:
-        flat = requantize_ref(acc.reshape(-1, acc.shape[-1]), step.shift,
-                              step.bias_q, step.relu)
-        return flat.reshape(acc.shape)
-    acc = acc + step.bias_q.reshape((1,) * (acc.ndim - 1) + (-1,))
-    if step.relu:
-        acc = torch.clamp(acc, min=0)
-    return acc
+        out = requantize_ref(flat, step.shift, step.bias_q, step.relu,
+                             residual=res, res_shift=step.skip_shift)
+    else:
+        out = bias_relu_ref(flat, step.bias_q, step.relu, residual=res,
+                            res_shift=step.skip_shift)
+    return out.reshape(acc.shape)
 
 
 # ---------------------------------------------------------------------------
@@ -707,6 +858,12 @@ def compile_model(model: CNNModel, params: Params | None = None, *,
     if calib_batch is None:
         raise ValueError("compiling an executable program needs a "
                          "calib_batch to freeze activation formats")
+    if bits > 8 and (not model.linear
+                     or any(l.kind == "gap" for l in model.layers)):
+        raise NotImplementedError(
+            f"{model.name} at bits={bits}: the skip's alignment and the "
+            f"global average pool's requantize are frozen for int8 "
+            f"activations; the bits=16 oracle runs linear chains only")
     params = {name: {k: torch.as_tensor(v, dtype=torch.float32,
                                         device=device)
                      for k, v in p.items()}
@@ -724,24 +881,63 @@ def _lower(model: CNNModel, params: Params, amax: dict[str, float],
            e_input: int, bits: int) -> list[EngineStep]:
     """Freeze every engine's formats and quantize its weights once.
 
+    The rule (``bench/reference/resnet_int8.py`` keeps a frozen copy):
+
+    * every activation is int<bits> on a per-tensor po2 format, ``e_out =
+      ceil(log2(amax / qmax))`` of the calibration forward's amax
+      (:func:`float_forward`): after ReLU where the layer has one, a
+      block's last conv after its skip add and ReLU, a projection
+      shortcut before the add; a pool passes its input's format on;
+    * an engine reads its source's format ``e_in``; its weights get
+      per-output-channel po2 exponents ``e_w[m]``, floored so the bias
+      fits 30 bits, the output shift 31 and, where the engine adds a
+      skip of format ``e_s``, the aligned skip 24 bits (``e_w[m] >= e_s -
+      24 - e_in``); biases are rounded onto each accumulator's format
+      ``e_in + e_w[m]``, and ``shift[m] = e_out - e_in - e_w[m]``, clipped
+      to [-31, 31];
+    * a residual engine computes ``clip(shift(relu(acc + bias +
+      align(skip))))``: ``skip_shift[m] = e_in + e_w[m] - e_s``; where it
+      is negative (the skip's format the coarser) ``align`` is a left
+      shift, exact for an int8 skip of at most 24 places; else an
+      arithmetic right shift, which rounds as the requantize shift does.
+      The adds wrap in int32 as the bias add does;
+    * the global average pool sums the map exactly in int32 and
+      requantizes the sum once onto its own format (calibrated on the
+      float sum); the fc after it quantizes its float weights divided by
+      the map's area (:func:`folded_weights`) and emits int32
+      accumulators, as the last engine does.
+
     The weight scale ``2^-e_w`` is the reference's ``jnp.exp2``, which XLA
     lowers to ``exp(ln2 * x)`` in float32: off the exact power of two for
     |x| >= 13. ``ref_exp2`` computes the same float32 value on the host,
     so the two lowerings agree for every exponent
     (``tests/test_torch_program.py``)."""
     steps: list[EngineStep] = []
-    compute = [l for l in model.layers if l.kind != "pool"]
-    last = compute[-1]
-    hw = model.input_hw
-    e_act = e_input
-    for lyr in model.layers:
+    last = [l for l in model.layers if l.computes][-1]
+    device = params[last.name]["w"].device
+    e_of: list[int] = []                   # each layer's output format
+    qmax = 2 ** (bits - 1) - 1
+    for i, (lyr, (src, *skips), hw) in enumerate(zip(
+            model.layers, model.reads(), model.in_sizes())):
         pad = lyr.padding(hw)
+        e_act = e_input if src < 0 else e_of[src]
+        src_step = None if lyr.src is None else src
         if lyr.kind == "pool":
             steps.append(EngineStep(name=lyr.name, kind="pool", layer=lyr,
-                                    pad=pad))
-            hw = lyr.out_hw(hw)
+                                    pad=pad, src=src_step))
+            e_of.append(e_act)
             continue
-        w = params[lyr.name]["w"]
+        if lyr.kind == "gap":
+            e_out = quant.po2_exponent(amax[lyr.name], bits)
+            shift = np.full(lyr.out_ch, np.clip(e_out - e_act, -31, 31),
+                            np.int32)
+            steps.append(EngineStep(
+                name=lyr.name, kind="gap", layer=lyr, pad=pad,
+                shift=torch.as_tensor(shift, device=device), e_in=e_act,
+                e_out=e_out, src=src_step))
+            e_of.append(e_out)
+            continue
+        w = folded_weights(model, params, i)
         b = params[lyr.name]["b"]
         e_w = quant.po2_scale(w, axis=-1, bits=bits).cpu().numpy().astype(
             np.int64)
@@ -759,9 +955,16 @@ def _lower(model: CNNModel, params: Params, amax: dict[str, float],
         b_mag = np.full(b_np.shape, -(10 ** 9), np.int64)
         b_mag[nz] = np.ceil(np.log2(np.abs(b_np[nz])))
         e_w = np.maximum(e_w, np.maximum(b_mag - 30, e_out - 31) - e_act)
+        skip = skip_shift = None
+        if skips:
+            skip, = skips
+            # (c) the skip, shifted left onto the accumulator, fits too.
+            e_w = np.maximum(e_w, e_of[skip] - 24 - e_act)
+            skip_shift = torch.as_tensor(
+                np.clip(e_act + e_w - e_of[skip], -24, 31).astype(np.int32),
+                device=w.device)
         # Quantize weights once onto the (possibly floored) formats, with
         # the reference's float32 multiply.
-        qmax = 2 ** (bits - 1) - 1
         scale = ref_exp2(-e_w).to(w.device).reshape(
             (1,) * (w.ndim - 1) + (-1,))
         wq = torch.clamp(torch.round(w * scale), -qmax - 1, qmax).to(
@@ -779,8 +982,9 @@ def _lower(model: CNNModel, params: Params, amax: dict[str, float],
             wq=wq, wk=k_major_view(wq) if bits <= 8 else None,
             bias_q=torch.as_tensor(bias_q, device=w.device),
             shift=torch.as_tensor(shift, device=w.device), e_in=e_act,
-            e_w=e_w, e_out=e_out, relu=not is_last,
-            requantize=not is_last))
-        e_act = e_out
-        hw = lyr.out_hw(hw)
+            e_w=e_w, e_out=e_out,
+            relu=lyr.relu if lyr.relu is not None else not is_last,
+            requantize=not is_last, src=src_step, skip=skip,
+            skip_shift=skip_shift))
+        e_of.append(e_out)
     return steps

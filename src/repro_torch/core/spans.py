@@ -14,6 +14,10 @@ inside it (``time.thread_time()``). Its wall time less its CPU seconds is
 time the thread was runnable or blocked but off the CPU: waiting for the
 GIL, descheduled, or in a blocking call.
 
+A span opened with :func:`nested` inside another on the same thread (a
+bottleneck's launches inside a stage's) takes the enclosing span's owner
+and batch.
+
 Recording is off by default. It is on between :func:`enable` and
 :func:`disable`, and while a ``torch.profiler`` session runs, so a profile
 of a server carries the program's spans on the host clock beside the
@@ -37,6 +41,8 @@ _on = False
 _lock = threading.Lock()
 _rows: collections.deque = collections.deque(maxlen=MAXLEN)
 _dropped = 0
+# The innermost recording span open on each thread.
+_local = threading.local()
 
 
 class Span:
@@ -45,12 +51,15 @@ class Span:
     only when it enqueues the batch, a stage worker only once its queue
     hands the batch over."""
 
-    __slots__ = ("name", "owner", "batch", "thread", "t0", "t1", "cpu_s")
+    __slots__ = ("name", "owner", "batch", "thread", "t0", "t1", "cpu_s",
+                 "outer")
 
     def __init__(self, name: str, owner: int, batch: int | None):
         self.name, self.owner, self.batch = name, owner, batch
 
     def __enter__(self) -> "Span":
+        self.outer = getattr(_local, "top", None)
+        _local.top = self
         self.thread = threading.get_ident()
         # Wall clock outside CPU clock on both ends: cpu_s <= t1 - t0.
         self.t0 = time.perf_counter()
@@ -61,6 +70,7 @@ class Span:
         global _dropped
         self.cpu_s = time.thread_time() - self.cpu_s
         self.t1 = time.perf_counter()
+        _local.top, self.outer = self.outer, None
         with _lock:
             if len(_rows) == _rows.maxlen:
                 _dropped += 1
@@ -88,6 +98,18 @@ def span(name: str, *, owner: int, batch: int | None):
     while recording is on, and does nothing otherwise."""
     if _on or _profiler._is_profiler_enabled:
         return Span(name, owner, batch)
+    return _OFF
+
+
+def nested(name: str):
+    """A context that records the span ``name`` with the owner and batch
+    of the innermost span open on this thread (owner 0 and no batch
+    outside any) while recording is on, and does nothing otherwise."""
+    if _on or _profiler._is_profiler_enabled:
+        outer = getattr(_local, "top", None)
+        if outer is None:
+            return Span(name, 0, None)
+        return Span(name, outer.owner, outer.batch)
     return _OFF
 
 

@@ -5,8 +5,11 @@ numbers: MAC count ``pi_i = H*W*R*S*C*M``, weight volume, and activation row
 sizes. This module provides those numbers for CNN graphs exactly as the
 paper defines them, and for the transformer-family configs
 (``lm_layer_workloads``, which the elastic re-plan of
-``runtime/fault_tolerance.py`` feeds to the allocator). It is a copy of
-``repro/core/workload.py``.
+``runtime/fault_tolerance.py`` feeds to the allocator). It began as a copy
+of ``repro/core/workload.py``; the residual graph (ResNet-50 v1.5: explicit
+padding, per-layer ReLU, layers that read an earlier output, the skip
+added in an engine's epilogue, the global average pool) is the port's
+own.
 
 Conventions
 -----------
@@ -62,26 +65,58 @@ class LayerWorkload:
 
 @dataclasses.dataclass(frozen=True)
 class ConvLayer:
+    """One layer of a CNN graph. The defaults make a linear chain: a layer
+    reads the previous layer's output, ReLU follows every compute layer
+    but the last, and the padding is derived from the output size.
+
+    A residual graph (ResNet) sets, where it differs: ``pad``, the
+    published ``(lo, hi)`` padding of both spatial dims (the output size
+    then follows from it); ``relu``; ``src``, the name of the earlier
+    layer whose output this one reads; ``residual``, the name of the
+    earlier layer whose output is added to this one's accumulators before
+    its ReLU (the bottleneck's skip). ``kind="gap"`` is the global
+    average pool over the whole map (``kernel`` is the map's side)."""
+
     name: str
     in_ch: int
     out_ch: int
     kernel: int                     # R == S (all four paper models are square)
     stride: int = 1
-    kind: Literal["conv", "fc", "pool"] = "conv"
+    kind: Literal["conv", "fc", "pool", "gap"] = "conv"
     groups: int = 1                 # AlexNet's two-tower grouped convs
     out_size: int | None = None     # explicit output H=W (valid-padding cases)
+    pad: tuple[int, int] | None = None     # explicit (lo, hi) padding
+    relu: bool | None = None        # None: every compute layer but the last
+    src: str | None = None          # None: the previous layer's output
+    residual: str | None = None     # the skip added before ReLU, if any
+
+    def __post_init__(self):
+        if self.pad is not None:    # a list from a JSON file, too
+            object.__setattr__(self, "pad", tuple(int(p) for p in self.pad))
+
+    @property
+    def computes(self) -> bool:
+        """Whether the layer is an engine with weights (conv or fc)."""
+        return self.kind in ("conv", "fc")
 
     def out_hw(self, in_hw: int) -> int:
-        if self.kind == "fc":
+        if self.kind in ("fc", "gap"):
             return 1
         if self.out_size is not None:
             return self.out_size
+        if self.pad is not None:
+            return (in_hw + sum(self.pad) - self.kernel) // self.stride + 1
         return in_hw // self.stride
 
     def padding(self, in_hw: int) -> tuple[int, int]:
-        """Explicit (lo, hi) spatial padding reproducing each model's
-        published output sizes (SAME for stride-1, VALID-like for the
-        stride-k stems; asymmetric when the arithmetic demands it)."""
+        """Explicit (lo, hi) spatial padding: the layer's own ``pad``, or
+        the padding that reproduces each model's published output sizes
+        (SAME for stride-1, VALID-like for the stride-k stems; asymmetric
+        when the arithmetic demands it)."""
+        if self.pad is not None:
+            return self.pad
+        if self.kind == "gap":
+            return 0, 0
         out_hw = self.out_hw(in_hw)
         need = max((out_hw - 1) * self.stride + self.kernel - in_hw, 0)
         lo = need // 2
@@ -95,14 +130,56 @@ class CNNModel:
     input_ch: int
     layers: tuple[ConvLayer, ...]
 
+    def __post_init__(self):
+        seen: set[str] = set()
+        for lyr in self.layers:
+            for ref in (lyr.src, lyr.residual):
+                if ref is not None and ref not in seen:
+                    raise ValueError(f"{self.name}: layer {lyr.name} reads "
+                                     f"{ref!r}, which is not an earlier "
+                                     f"layer")
+            if lyr.name in seen:
+                raise ValueError(f"{self.name}: two layers named "
+                                 f"{lyr.name!r}")
+            seen.add(lyr.name)
+
+    @property
+    def linear(self) -> bool:
+        """Whether every layer reads only the previous one's output."""
+        return all(l.src is None and l.residual is None for l in self.layers)
+
+    def sources(self) -> list[int]:
+        """The index of the layer each layer reads (-1: the frames)."""
+        index = {l.name: i for i, l in enumerate(self.layers)}
+        return [index[l.src] if l.src is not None else i - 1
+                for i, l in enumerate(self.layers)]
+
+    def reads(self) -> list[tuple[int, ...]]:
+        """The outputs each layer reads (-1: the frames): its source, then
+        the skip it adds, where it adds one."""
+        index = {l.name: i for i, l in enumerate(self.layers)}
+        return [(src,) if l.residual is None else (src, index[l.residual])
+                for src, l in zip(self.sources(), self.layers)]
+
+    def in_sizes(self) -> list[int]:
+        """Each layer's input side H = W."""
+        out: list[int] = []
+        for i, src in enumerate(self.sources()):
+            hw = self.input_hw if src < 0 else \
+                self.layers[src].out_hw(out[src])
+            out.append(hw)
+        return out
+
     def layer_workloads(self, weight_bits: int = 16) -> list[LayerWorkload]:
-        """Expand the graph into per-layer workloads (paper's pi/omega)."""
+        """Expand the graph into per-layer workloads (paper's pi/omega). A
+        projection shortcut is an engine like any conv; a residual add is
+        free in its engine's epilogue; the global average pool, like a
+        max pool, has no MACs."""
         wb = weight_bits // 8
         out: list[LayerWorkload] = []
-        hw = self.input_hw
-        for lyr in self.layers:
+        for lyr, hw in zip(self.layers, self.in_sizes()):
             o_hw = lyr.out_hw(hw)
-            if lyr.kind == "pool":
+            if not lyr.computes:
                 # Pooling has no MACs/weights; it is a pipeline stage that
                 # only shrinks H (paper folds it into the stride product G).
                 out.append(
@@ -139,7 +216,6 @@ class CNNModel:
                         M=lyr.out_ch, H=h, W=w,
                     )
                 )
-            hw = o_hw
         return out
 
     @property
@@ -241,7 +317,53 @@ def yolo() -> CNNModel:
     return CNNModel("yolo", 448, 3, tuple(layers))
 
 
-CNN_MODELS = {"vgg16": vgg16, "alexnet": alexnet, "zf": zfnet, "yolo": yolo}
+def _bottleneck(stage: int, block: int, cin: int, width: int, stride: int,
+                prev: str) -> list[ConvLayer]:
+    """One ResNet v1.5 bottleneck reading ``prev``: 1x1 to ``width``, 3x3
+    (carrying the block's stride), 1x1 to 4 ``width`` with the skip added
+    before the last ReLU. A block that changes the shape starts with its
+    1x1 projection shortcut (no ReLU), which the 1x1 then reads past."""
+    L, cout = ConvLayer, 4 * width
+    p = f"layer{stage}.{block}."
+    out: list[ConvLayer] = []
+    skip = prev
+    if stride != 1 or cin != cout:
+        out.append(L(p + "downsample", cin, cout, 1, stride=stride,
+                     pad=(0, 0), relu=False))
+        skip = p + "downsample"
+    out += [L(p + "conv1", cin, width, 1, pad=(0, 0), relu=True,
+              src=prev if out else None),
+            L(p + "conv2", width, width, 3, stride=stride, pad=(1, 1),
+              relu=True),
+            L(p + "conv3", width, cout, 1, pad=(0, 0), relu=True,
+              residual=skip)]
+    return out
+
+
+def resnet50() -> CNNModel:
+    """ResNet-50 v1.5 (He et al., arXiv:1512.03385, Table 1's 50-layer
+    column; v1.5 puts each stage's stride 2 on the 3x3 conv, as MLPerf
+    Inference runs it), BatchNorm folded into the convs: a 7x7/2 stem, a
+    3x3/2 max pool, 16 bottlenecks in stages of 3, 4, 6, 3, the global
+    average pool and a 2048 -> 1000 fc. 53 convs and the fc; 4.09 GMAC a
+    224 x 224 frame. Published padding (k - 1) // 2 in front."""
+    L = ConvLayer
+    layers = [L("conv1", 3, 64, 7, stride=2, pad=(3, 3), relu=True),
+              L("maxpool", 64, 64, 3, stride=2, kind="pool", pad=(1, 1))]
+    cin = 64
+    for stage, (blocks, width, stride) in enumerate(
+            ((3, 64, 1), (4, 128, 2), (6, 256, 2), (3, 512, 2)), start=1):
+        for b in range(blocks):
+            layers += _bottleneck(stage, b, cin, width,
+                                  stride if b == 0 else 1, layers[-1].name)
+            cin = 4 * width
+    layers += [L("avgpool", 2048, 2048, 7, kind="gap"),
+               L("fc", 2048, 1000, 1, kind="fc")]
+    return CNNModel("resnet50", 224, 3, tuple(layers))
+
+
+CNN_MODELS = {"vgg16": vgg16, "alexnet": alexnet, "zf": zfnet, "yolo": yolo,
+              "resnet50": resnet50}
 
 
 # ---------------------------------------------------------------------------

@@ -7,7 +7,12 @@
 // @ w[K, M]) with int32 accumulation, then + int32 bias[M], optional ReLU,
 // and a per-column saturating signed shift (negative = left shift, capped
 // at 16, clamped before the shift) clipped to int8. With emit_int32 the
-// epilogue stops after bias/ReLU and writes the int32 values.
+// epilogue stops after bias/ReLU and writes the int32 values. With a
+// residual (a bottleneck's skip: int8 res[N, M], any row stride, and an
+// int32 res_shift[M]) the skip, aligned onto each column's accumulator
+// format, is added before the ReLU; every kernel is instantiated with and
+// without it (the RES template flag), so a call with no residual runs the
+// code it ran before the residual existed.
 //
 // What bounds it on the H100: the fc layers at N = 16 rows are bound by
 // the weight bytes they must read (fc6 reads 37.7 MB for 0.6 G
@@ -97,6 +102,15 @@ __device__ __forceinline__ int bias_relu(int acc, unsigned bias, int relu) {
   return relu && v < 0 ? 0 : v;
 }
 
+// Accumulator + the int8 skip s aligned onto its format, wrapping as the
+// int32 add does: an arithmetic right shift by rs >= 0 (at most 31), an
+// exact left shift by -rs (at most 24) for rs < 0.
+__device__ __forceinline__ int add_skip(int acc, int s, int rs) {
+  const int a = rs >= 0 ? s >> (rs < 31 ? rs : 31)
+                        : (int)((unsigned)s << (rs < -24 ? 24 : -rs));
+  return (int)((unsigned)acc + (unsigned)a);
+}
+
 // ---------------------------------------------------------------------------
 // __dp4a: the operands TMA cannot take
 // ---------------------------------------------------------------------------
@@ -143,13 +157,15 @@ __device__ __forceinline__ unsigned load_w_word(const int8_t* __restrict__ w,
   return v;
 }
 
+template <bool RES>
 __global__ void __launch_bounds__(THREADS)
 gemm_int8_kernel(const int8_t* __restrict__ x, long long ldx,
                  const int8_t* __restrict__ w, long long swk, long long swm,
                  const int32_t* __restrict__ shift,
                  const int32_t* __restrict__ bias, void* __restrict__ out,
                  int N, int K, int M, int relu, int emit_int32, int vec_x,
-                 int vec_w) {
+                 int vec_w, const int8_t* __restrict__ res, long long ldr,
+                 const int32_t* __restrict__ res_shift) {
   __shared__ __align__(16) int xs[KQ][BN + PAD];  // xs[q][n]: x[n, 4q..4q+3]
   __shared__ __align__(16) int ws[KQ][BM + PAD];  // ws[q][m]: w[4q..4q+3, m]
 
@@ -207,7 +223,10 @@ gemm_int8_kernel(const int8_t* __restrict__ x, long long ldx,
     for (int j = 0; j < 4; ++j) {
       const int m = m0 + tx * 4 + j;
       if (m >= M) continue;
-      const int v = bias_relu(acc[i][j], bias ? (unsigned)bias[m] : 0u, relu);
+      int a = acc[i][j];
+      if constexpr (RES)
+        a = add_skip(a, res[(long long)n * ldr + m], res_shift[m]);
+      const int v = bias_relu(a, bias ? (unsigned)bias[m] : 0u, relu);
       const long long o = (long long)n * M + m;
       if (emit_int32)
         static_cast<int32_t*>(out)[o] = v;
@@ -257,6 +276,9 @@ struct WgTile {
 struct WgParams {
   const int32_t* shift;
   const int32_t* bias;      // or null
+  const int8_t* res;        // [N, M] int8 skip, row stride ldr (RES only)
+  long long ldr;
+  const int32_t* res_shift; // [M] (RES only)
   void* out;                // [N, M] int8, or int32 with emit_int32
   int rows_a, rows_b;       // A's and B's rows: N and M, or M and N swapped
   int M;                    // the output's row length
@@ -283,7 +305,7 @@ __device__ __forceinline__ void consumers_sync() {
   asm volatile("bar.sync 1, %0;\n" :: "n"(N) : "memory");
 }
 
-template <int W, int G, int KB, bool SWAP>
+template <int W, int G, int KB, bool SWAP, bool RES>
 __global__ void __launch_bounds__((G + 1) * 128, (WgTile<W, G, KB>::B))
 gemm_wgmma(const __grid_constant__ CUtensorMap ta,
            const __grid_constant__ CUtensorMap tb, const WgParams p) {
@@ -386,12 +408,26 @@ gemm_wgmma(const __grid_constant__ CUtensorMap ta,
         const unsigned bz1 = p.bias && two ? (unsigned)p.bias[m + 1] : 0u;
         const int sh0 = p.emit_int32 ? 0 : p.shift[m];
         const int sh1 = p.emit_int32 || !two ? 0 : p.shift[m + 1];
+        int rs0 = 0, rs1 = 0;
+        if constexpr (RES) {
+          rs0 = p.res_shift[m];
+          rs1 = two ? p.res_shift[m + 1] : 0;
+        }
         // Pairs go out as one store where M is even (then n M + m is).
         const bool pair = two && !(p.M & 1);
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
-          const int v0 = bias_relu(acc[4 * j + 2 * h], bz0, p.relu);
-          const int v1 = bias_relu(acc[4 * j + 2 * h + 1], bz1, p.relu);
+          int a0 = acc[4 * j + 2 * h], a1 = acc[4 * j + 2 * h + 1];
+          if constexpr (RES) {
+            const int n = r0 + 8 * h;
+            if (n < p.rows_a) {
+              const int8_t* r = p.res + (long long)n * p.ldr + m;
+              a0 = add_skip(a0, r[0], rs0);
+              if (two) a1 = add_skip(a1, r[1], rs1);
+            }
+          }
+          const int v0 = bias_relu(a0, bz0, p.relu);
+          const int v1 = bias_relu(a1, bz1, p.relu);
           if (staged) {
             const int r = warp * 16 + lane / 4 + 8 * h;
             *reinterpret_cast<char2*>(tile + r * LD + m - b0) =
@@ -447,13 +483,18 @@ gemm_wgmma(const __grid_constant__ CUtensorMap ta,
         if (m >= p.rows_a) continue;
         const unsigned bz = p.bias ? (unsigned)p.bias[m] : 0u;
         const int sh = p.emit_int32 ? 0 : p.shift[m];
+        int rs = 0;
+        if constexpr (RES) rs = p.res_shift[m];
 #pragma unroll
         for (int j = 0; j < W / 8; ++j)
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
             const int n = c0 + 8 * j + e;
             if (n >= p.rows_b) continue;
-            const int v = bias_relu(acc[4 * j + 2 * h + e], bz, p.relu);
+            int a = acc[4 * j + 2 * h + e];
+            if constexpr (RES)
+              a = add_skip(a, p.res[(long long)n * p.ldr + m], rs);
+            const int v = bias_relu(a, bz, p.relu);
             const long long o = (long long)n * p.M + m;
             if (p.emit_int32)
               static_cast<int32_t*>(p.out)[o] = v;
@@ -486,7 +527,7 @@ bool tensor_map(CUtensorMap* map, const void* base, int rows, int K,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int W, int G, int KB, bool SWAP>
+template <int W, int G, int KB, bool SWAP, bool RES>
 cudaError_t launch_wgmma(const void* a, long long lda, const void* b,
                          long long ldb, int K, WgParams p,
                          cudaStream_t stream) {
@@ -512,15 +553,15 @@ cudaError_t launch_wgmma(const void* a, long long lda, const void* b,
   // unset both set the same attribute, which is harmless.
   static std::atomic<bool> configured[MAX_DEVICES];   // zero: all false
   if (!configured[dev].load(std::memory_order_acquire)) {
-    err = cudaFuncSetAttribute(gemm_wgmma<W, G, KB, SWAP>,
+    err = cudaFuncSetAttribute(gemm_wgmma<W, G, KB, SWAP, RES>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                T::SMEM);
     if (err != cudaSuccess) return err;
     configured[dev].store(true, std::memory_order_release);
   }
   const dim3 grid((unsigned)tiles_b, (unsigned)tiles_a);
-  gemm_wgmma<W, G, KB, SWAP><<<grid, T::THREADS, T::SMEM, stream>>>(ta, tb,
-                                                                    p);
+  gemm_wgmma<W, G, KB, SWAP, RES><<<grid, T::THREADS, T::SMEM, stream>>>(
+      ta, tb, p);
   return cudaGetLastError();
 }
 
@@ -529,30 +570,45 @@ cudaError_t launch_wgmma(const void* a, long long lda, const void* b,
 // The __dp4a kernel. x [N, K] int8 with row stride ldx; w [K, M] int8 with
 // w[k, m] at k swk + m swm (any layout with unit stride along K or M);
 // shift [M] int32; bias [M] int32 or NULL; out [N, M] contiguous, int8, or
-// int32 with emit_int32. Launches on `stream` and returns the launch's
+// int32 with emit_int32; res [N, M] int8 with row stride ldr and res_shift
+// [M] int32, or both NULL. Launches on `stream` and returns the launch's
 // cudaError_t (0 on success); it does not synchronise.
 extern "C" int gemm_int8_launch(const void* x, long long ldx, const void* w,
                                 long long swk, long long swm,
                                 const void* shift, const void* bias,
                                 void* out, int N, int K, int M, int relu,
-                                int emit_int32, void* stream) {
+                                int emit_int32, const void* res,
+                                long long ldr, const void* res_shift,
+                                void* stream) {
   if (N <= 0 || M <= 0 || K < 0) return (int)cudaErrorInvalidValue;
   const long long row_tiles = ((long long)N + BN - 1) / BN;
   if (row_tiles > 65535) return (int)cudaErrorInvalidValue;
   const int vec_x = ((uintptr_t)x % 4 == 0) && (ldx % 4 == 0);
   const int vec_w = swm == 1 && ((uintptr_t)w % 4 == 0) && (swk % 4 == 0);
   const dim3 grid((M + BM - 1) / BM, (unsigned)row_tiles);
-  gemm_int8_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(x), ldx, static_cast<const int8_t*>(w), swk,
-      swm, static_cast<const int32_t*>(shift),
-      static_cast<const int32_t*>(bias), out, N, K, M, relu, emit_int32,
-      vec_x, vec_w);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int8_t* xs = static_cast<const int8_t*>(x);
+  const int8_t* ws = static_cast<const int8_t*>(w);
+  const int32_t* sh = static_cast<const int32_t*>(shift);
+  const int32_t* bz = static_cast<const int32_t*>(bias);
+  const int8_t* rs = static_cast<const int8_t*>(res);
+  const int32_t* rsh = static_cast<const int32_t*>(res_shift);
+  if (res)
+    gemm_int8_kernel<true><<<grid, THREADS, 0, s>>>(
+        xs, ldx, ws, swk, swm, sh, bz, out, N, K, M, relu, emit_int32, vec_x,
+        vec_w, rs, ldr, rsh);
+  else
+    gemm_int8_kernel<false><<<grid, THREADS, 0, s>>>(
+        xs, ldx, ws, swk, swm, sh, bz, out, N, K, M, relu, emit_int32, vec_x,
+        vec_w, rs, ldr, rsh);
   return (int)cudaGetLastError();
 }
 
 // The wgmma kernels. x [N, K] int8 with row stride ldx bytes; wk [M, K]
 // int8 (the weights K-major) with row stride ldw bytes; both bases and
-// strides 16-byte aligned, K >= 1. `swap` picks the small-N kernel,
+// strides 16-byte aligned, K >= 1; res and res_shift as for
+// gemm_int8_launch (the RES instantiation where res is not NULL). `swap`
+// picks the small-N kernel,
 // `width` its wgmma width, `warpgroups` the consumer warpgroups (64 rows
 // each), `k_boxes` the 128-byte K boxes a stage brings (a tiling no
 // kernel is built for is refused). Returns the first cudaError_t met (0 on
@@ -563,11 +619,15 @@ extern "C" int gemm_int8_wgmma_launch(const void* x, long long ldx,
                                       void* out, int N, int K, int M,
                                       int relu, int emit_int32, int swap,
                                       int width, int warpgroups, int k_boxes,
-                                      void* stream) {
+                                      const void* res, long long ldr,
+                                      const void* res_shift, void* stream) {
   if (N <= 0 || M <= 0 || K <= 0) return (int)cudaErrorInvalidValue;
   WgParams p;
   p.shift = static_cast<const int32_t*>(shift);
   p.bias = static_cast<const int32_t*>(bias);
+  p.res = static_cast<const int8_t*>(res);
+  p.ldr = ldr;
+  p.res_shift = static_cast<const int32_t*>(res_shift);
   p.out = out;
   p.rows_a = swap ? M : N;
   p.rows_b = swap ? N : M;
@@ -582,7 +642,10 @@ extern "C" int gemm_int8_wgmma_launch(const void* x, long long ldx,
 #define GEMM_CASE(W_, G_, KB_, SWAP_)                                       \
   else if (width == W_ && warpgroups == G_ && k_boxes == KB_                \
            && (bool)swap == SWAP_)                                          \
-    err = launch_wgmma<W_, G_, KB_, SWAP_>(a, lda, b, ldb, K, p, s);
+    err = res ? launch_wgmma<W_, G_, KB_, SWAP_, true>(a, lda, b, ldb, K,   \
+                                                       p, s)                \
+              : launch_wgmma<W_, G_, KB_, SWAP_, false>(a, lda, b, ldb, K,  \
+                                                        p, s);
   if (false) {}
   GEMM_CASE(64, 2, 1, false)
   GEMM_CASE(96, 2, 1, false)

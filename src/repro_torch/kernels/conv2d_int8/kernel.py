@@ -19,7 +19,8 @@ The ``wgmma`` paths want ``w`` as a [K, M] view whose stride along K is 1
 (a ``.t()`` of K-major [M, K] rows): :func:`k_major_view` makes it, once
 per engine at lowering (``core/program.py``). ``gemm_int8.launches`` counts the kernels'
 launches and nothing else; ``gemm_int8.launches_by_path`` splits them by
-path.
+path, and ``gemm_int8.residual_launches`` counts those that added a
+residual (a ResNet bottleneck's skip) in their epilogue.
 """
 
 from __future__ import annotations
@@ -120,9 +121,9 @@ def _lib():
     lib = _build.load(SOURCE)
     p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     lib.gemm_int8_launch.argtypes = [p, ll, p, ll, ll, p, p, p, i, i, i, i,
-                                     i, p]
+                                     i, p, ll, p, p]
     lib.gemm_int8_wgmma_launch.argtypes = [p, ll, p, ll, p, p, p, i, i, i,
-                                           i, i, i, i, i, i, p]
+                                           i, i, i, i, i, i, p, ll, p, p]
     lib.gemm_int8_launch.restype = ctypes.c_int
     lib.gemm_int8_wgmma_launch.restype = ctypes.c_int
     return lib
@@ -167,9 +168,24 @@ def _check_vec(name: str, t: torch.Tensor, m: int) -> None:
                          f"tensor, got {t.dtype} {tuple(t.shape)}")
 
 
+def _check_residual(residual: torch.Tensor, n: int, m: int) -> None:
+    """residual: an int8 [N, M] with unit stride along M and rows that do
+    not overlap (any row stride >= M)."""
+    if residual.dtype != torch.int8 or residual.shape != (n, m):
+        raise ValueError(f"residual: expected a torch.int8 [{n}, {m}] "
+                         f"tensor, got {residual.dtype} "
+                         f"{tuple(residual.shape)}")
+    if m > 1 and residual.stride(1) != 1 or \
+            n > 1 and residual.stride(0) < m:
+        raise ValueError(f"residual: rows must be contiguous (strides "
+                         f"{residual.stride()} for shape {(n, m)})")
+
+
 def gemm_int8(x: torch.Tensor, w: torch.Tensor, shift: torch.Tensor,
               bias: torch.Tensor | None = None, *, relu: bool = False,
-              emit_int32: bool = False) -> torch.Tensor:
+              emit_int32: bool = False,
+              residual: torch.Tensor | None = None,
+              res_shift: torch.Tensor | None = None) -> torch.Tensor:
     """int8 GEMM with fused requantize epilogue: [N,K]x[K,M] -> int8 [N,M].
 
     ``out = clip((relu?)(x @ w + bias) >> shift)`` with per-column (output
@@ -177,9 +193,12 @@ def gemm_int8(x: torch.Tensor, w: torch.Tensor, shift: torch.Tensor,
     ``emit_int32`` the epilogue stops after bias/ReLU and returns the raw
     int32 accumulators. ``x`` is a view with unit stride along K and any
     leading dimension; ``w`` has unit stride along K (the fast layout) or
-    along M; ``shift`` and ``bias`` are contiguous int32 [M]. The
-    ``wgmma`` tiling is :func:`plan_for`'s. On CPU tensors the plain
-    version runs.
+    along M; ``shift`` and ``bias`` are contiguous int32 [M]. With an int8
+    ``residual`` [N, M] (unit stride along M, any row stride) and its
+    contiguous int32 [M] ``res_shift``, the epilogue adds the residual
+    aligned onto each column's accumulator format before the ReLU
+    (``ref.align_residual``). The ``wgmma`` tiling is :func:`plan_for`'s.
+    On CPU tensors the plain version runs.
     """
     _check_x(x)
     k_major = _w_k_major(w)
@@ -191,13 +210,20 @@ def gemm_int8(x: torch.Tensor, w: torch.Tensor, shift: torch.Tensor,
     _check_vec("shift", shift, M)
     if bias is not None:
         _check_vec("bias", bias, M)
+    if (residual is None) != (res_shift is None):
+        raise ValueError("residual and res_shift come together")
+    if residual is not None:
+        _check_residual(residual, N, M)
+        _check_vec("res_shift", res_shift, M)
     device = x.device
-    devices = {t.device for t in (x, w, shift, bias) if t is not None}
+    devices = {t.device for t in (x, w, shift, bias, residual, res_shift)
+               if t is not None}
     if len(devices) != 1:
         raise ValueError(f"operands on several devices: {devices}")
     if device.type == "cpu":
         return gemm_int8_ref(x, w, shift, bias, relu=relu,
-                             emit_int32=emit_int32)
+                             emit_int32=emit_int32, residual=residual,
+                             res_shift=res_shift)
     if device.type != "cuda":
         raise ValueError(f"gemm_int8 runs on cuda or cpu, not {device}")
     out = torch.empty((N, M), dtype=torch.int32 if emit_int32 else torch.int8,
@@ -210,30 +236,38 @@ def gemm_int8(x: torch.Tensor, w: torch.Tensor, shift: torch.Tensor,
         and ldw % ALIGN == 0
     stream = torch.cuda.current_stream(device).cuda_stream
     bias_p = None if bias is None else bias.data_ptr()
+    res = (None, 0, None) if residual is None else \
+        (residual.data_ptr(), residual.stride(0), res_shift.data_ptr())
     if tma:
         plan = plan_for(N, K, M, _sms(device.index or 0))
         err = _lib().gemm_int8_wgmma_launch(
             x.data_ptr(), ldx, w.data_ptr(), ldw, shift.data_ptr(), bias_p,
             out.data_ptr(), N, K, M, int(relu), int(emit_int32),
             int(plan.path == "small_n"), plan.width, plan.warpgroups,
-            plan.k_boxes, stream)
+            plan.k_boxes, *res, stream)
         path = plan.path
     else:
         err = _lib().gemm_int8_launch(
             x.data_ptr(), ldx, w.data_ptr(), w.stride(0), w.stride(1),
             shift.data_ptr(), bias_p, out.data_ptr(), N, K, M, int(relu),
-            int(emit_int32), stream)
+            int(emit_int32), *res, stream)
         path = "dp4a"
     if err:
         raise RuntimeError(f"gemm_int8 launch failed: cudaError_t {err} "
                            f"(N={N}, K={K}, M={M}, path {path})")
     _build.count(gemm_int8, path)
+    if residual is not None:
+        with _build._COUNT_LOCK:
+            gemm_int8.residual_launches += 1
     return out
 
 
 def reset_launches() -> None:
-    """Set ``gemm_int8.launches`` and every path's count to 0."""
+    """Set ``gemm_int8.launches``, every path's count and the residual
+    launches to 0."""
     _build.reset_count(gemm_int8, PATHS)
+    with _build._COUNT_LOCK:
+        gemm_int8.residual_launches = 0
 
 
 reset_launches()

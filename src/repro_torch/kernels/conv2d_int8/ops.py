@@ -23,9 +23,13 @@ from repro_torch.kernels.conv2d_int8.ref import conv2d_int8_via
 def conv2d_int8(x: torch.Tensor, w: torch.Tensor, shift: torch.Tensor,
                 bias: torch.Tensor | None = None, *, stride: int = 1,
                 padding="same", groups: int = 1, relu: bool = False,
-                emit_int32: bool = False) -> torch.Tensor:
+                emit_int32: bool = False,
+                residual: torch.Tensor | None = None,
+                res_shift: torch.Tensor | None = None) -> torch.Tensor:
     """x [B,H,W,C] int8, w [R,S,C/groups,M] int8, shift/bias [M] int32 ->
-    int8 [B,Ho,Wo,M] (int32 with ``emit_int32``).
+    int8 [B,Ho,Wo,M] (int32 with ``emit_int32``). An int8 ``residual``
+    [B,Ho,Wo,M] (a bottleneck's skip) is added in the kernel's epilogue,
+    aligned by the int32 [M] ``res_shift``, before ReLU.
 
     ``padding`` is "same" or an explicit ((top, bottom), (left, right));
     ``stride`` and ``groups`` are arbitrary, so every conv shape in the
@@ -35,7 +39,8 @@ def conv2d_int8(x: torch.Tensor, w: torch.Tensor, shift: torch.Tensor,
     """
     return conv2d_int8_via(gemm_int8, x, w, shift, bias, stride=stride,
                            padding=padding, groups=groups, relu=relu,
-                           row_align=ALIGN, emit_int32=emit_int32)
+                           row_align=ALIGN, emit_int32=emit_int32,
+                           residual=residual, res_shift=res_shift)
 
 
 def fc_int8(x: torch.Tensor, w: torch.Tensor, shift: torch.Tensor,

@@ -1,7 +1,8 @@
 """Plain PyTorch versions of the int8 conv/GEMM engine (paper Fig. 3).
 
 The hardware pipeline: int8 activations x int8 weights -> int32 partial
-sums -> (+bias, ReLU) -> per-output-channel shift + truncate to int8. The
+sums -> (+bias, + a residual engine's aligned skip, ReLU) ->
+per-output-channel shift + truncate to int8. The
 conv is an implicit GEMM over int8 im2col patches (the activation line
 buffer's address generation), which is what the Hopper kernel computes
 tile by tile. Patch features are ordered ``(r, s, c)`` so
@@ -29,20 +30,43 @@ Pad2 = tuple[tuple[int, int], tuple[int, int]]
 
 def requantize_ref(acc: torch.Tensor, shift: torch.Tensor,
                    bias: torch.Tensor | None = None,
-                   relu: bool = False) -> torch.Tensor:
+                   relu: bool = False, *,
+                   residual: torch.Tensor | None = None,
+                   res_shift: torch.Tensor | None = None) -> torch.Tensor:
     """The fused epilogue on raw int32 accumulators ``[N, M]``: bias add,
+    the aligned residual (:func:`align_residual`) where there is one,
     optional ReLU, then the shared saturating signed shift + clip to int8
     (``quant.requantize_output`` — the CUDA epilogue inlines the identical
     math, pinned by the bit-identity checks)."""
-    acc = _bias_relu(acc, bias, relu)
+    acc = bias_relu_ref(acc, bias, relu, residual=residual,
+                        res_shift=res_shift)
     return quant.requantize_output(acc, 0, shift[None, :].to(torch.int32),
                                    bits=8)
 
 
-def _bias_relu(acc: torch.Tensor, bias: torch.Tensor | None,
-               relu: bool) -> torch.Tensor:
+def align_residual(residual: torch.Tensor,
+                   res_shift: torch.Tensor) -> torch.Tensor:
+    """An int8 residual ``[N, M]`` onto each column's accumulator format,
+    as int32: an arithmetic right shift by ``res_shift[m]`` (at most 31)
+    where it is >= 0, which rounds as the requantize shift does, and a
+    left shift by ``-res_shift[m]`` (at most 24, exact for int8) where it
+    is negative."""
+    r = residual.to(torch.int32)
+    sh = res_shift.to(torch.int32)[None, :]
+    return torch.where(
+        sh >= 0, torch.bitwise_right_shift(r, torch.clamp(sh, 0, 31)),
+        torch.bitwise_left_shift(r, torch.clamp(-sh, 0, 24)))
+
+
+def bias_relu_ref(acc: torch.Tensor, bias: torch.Tensor | None,
+                  relu: bool, *, residual: torch.Tensor | None = None,
+                  res_shift: torch.Tensor | None = None) -> torch.Tensor:
+    """``(relu?)(acc + bias + align(residual))`` on int32 ``[N, M]``; the
+    adds wrap as int32 adds do."""
     if bias is not None:
         acc = acc + bias.to(torch.int32)[None, :]
+    if residual is not None:
+        acc = acc + align_residual(residual, res_shift)
     if relu:
         acc = torch.clamp(acc, min=0)
     return acc
@@ -57,14 +81,20 @@ def matmul_int8_exact(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 def gemm_int8_ref(x: torch.Tensor, w: torch.Tensor, shift: torch.Tensor,
                   bias: torch.Tensor | None = None, relu: bool = False,
-                  emit_int32: bool = False) -> torch.Tensor:
+                  emit_int32: bool = False, *,
+                  residual: torch.Tensor | None = None,
+                  res_shift: torch.Tensor | None = None) -> torch.Tensor:
     """x [N, K] int8, w [K, M] int8, shift [M] int32 (signed shift bits).
     Returns int8 [N, M]: clip((relu?)(x @ w + bias) >> shift); with
-    ``emit_int32`` the int32 ``(relu?)(x @ w + bias)`` instead."""
+    ``emit_int32`` the int32 ``(relu?)(x @ w + bias)`` instead. With an
+    int8 ``residual`` [N, M] and its int32 [M] ``res_shift``, the aligned
+    residual is added before ReLU (:func:`align_residual`)."""
     acc = matmul_int8_exact(x, w)
     if emit_int32:
-        return _bias_relu(acc, bias, relu)
-    return requantize_ref(acc, shift, bias, relu)
+        return bias_relu_ref(acc, bias, relu, residual=residual,
+                             res_shift=res_shift)
+    return requantize_ref(acc, shift, bias, relu, residual=residual,
+                          res_shift=res_shift)
 
 
 def same_padding(in_hw: int, kernel: int, stride: int) -> tuple[int, int]:
@@ -110,6 +140,8 @@ def conv2d_int8_via(gemm_fn, x: torch.Tensor, w: torch.Tensor,
                     shift: torch.Tensor, bias: torch.Tensor | None = None, *,
                     stride: int = 1, padding="same", groups: int = 1,
                     relu: bool = False, row_align: int = 1,
+                    residual: torch.Tensor | None = None,
+                    res_shift: torch.Tensor | None = None,
                     **gemm_kwargs) -> torch.Tensor:
     """Conv as implicit GEMM over any engine: one weight-stationary
     ``gemm_fn(patches, w2d, shift, bias, relu=..., **gemm_kwargs)`` per
@@ -119,7 +151,9 @@ def conv2d_int8_via(gemm_fn, x: torch.Tensor, w: torch.Tensor,
     whatever layout ``w`` has: HWIO row-major, or a K-major view (unit
     stride along R, S, C); the GEMM takes such views as they are. The
     patches are an [N, K] view into rows of a multiple of ``row_align``
-    bytes (:func:`im2col_int8`)."""
+    bytes (:func:`im2col_int8`). An int8 ``residual`` [B, Ho, Wo, M] (and
+    its [M] ``res_shift``) reaches each group's GEMM as an [N, M/groups]
+    view of its columns."""
     R, S, Cg, M = w.shape
     B, H, W, C = x.shape
     if C != Cg * groups or M % groups:
@@ -133,10 +167,13 @@ def conv2d_int8_via(gemm_fn, x: torch.Tensor, w: torch.Tensor,
         patches = im2col_int8(xg, R, S, stride, pad, row_align)
         Bp, Ho, Wo, K = patches.shape
         wg = w[..., g * Mg:(g + 1) * Mg].reshape(R * S * Cg, Mg)
-        bg = None if bias is None else bias[g * Mg:(g + 1) * Mg]
-        out = gemm_fn(patches.reshape(-1, K), wg,
-                      shift[g * Mg:(g + 1) * Mg], bg, relu=relu,
-                      **gemm_kwargs)
+        cols = slice(g * Mg, (g + 1) * Mg)
+        bg = None if bias is None else bias[cols]
+        if residual is not None:
+            gemm_kwargs.update(residual=residual.reshape(-1, M)[:, cols],
+                               res_shift=res_shift[cols])
+        out = gemm_fn(patches.reshape(-1, K), wg, shift[cols], bg,
+                      relu=relu, **gemm_kwargs)
         outs.append(out.reshape(B, Ho, Wo, Mg))
     return outs[0] if groups == 1 else torch.cat(outs, dim=-1)
 

@@ -35,7 +35,7 @@ def init_params_np(model: CNNModel, seed: int = 0) -> dict[str, dict[str,
     ``repro.models.cnn.init_params``."""
     p: dict[str, dict[str, np.ndarray]] = {}
     for lyr in model.layers:
-        if lyr.kind == "pool":
+        if not lyr.computes:
             continue
         rng = np.random.default_rng([seed, zlib.crc32(lyr.name.encode())])
         if lyr.kind == "fc":

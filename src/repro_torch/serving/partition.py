@@ -16,7 +16,10 @@ single source of truth for modeled cycles — matched to steps by layer
 name: conv engines cost ``H * t_row / K`` busy cycles per frame, FC
 engines ``t_row``, pools zero (they ride with whichever compute stage the
 cut assigns them to, as on the FPGA where pooling hides inside the
-line-buffer read-out).
+line-buffer read-out). A residual graph is cut the same way, inside a
+bottleneck too: the stage runners hand on every tensor live at the cut
+(:meth:`EngineProgram.live_at`), the block's input beside the
+activation.
 """
 
 from __future__ import annotations
@@ -128,7 +131,7 @@ def partition_program(program: EngineProgram,
     if program.steps is None:
         raise ValueError("plan-only program (no lowered steps) cannot be "
                          "partitioned for serving")
-    n_compute = sum(1 for s in program.steps if s.kind != "pool")
+    n_compute = sum(1 for s in program.steps if s.kind in ("conv", "fc"))
     if not 1 <= n_stages <= n_compute:
         raise ValueError(
             f"n_stages={n_stages} outside [1, {n_compute}] "
@@ -139,10 +142,11 @@ def partition_program(program: EngineProgram,
     # The DP may cut between a compute step and a trailing zero-weight
     # pool; both cuts cost the same, but keeping a pool with its producer
     # mirrors the FPGA (pooling reads out of the producing engine's line
-    # buffer). Pull each boundary forward past any leading pools.
+    # buffer). Pull each boundary forward past any leading pools (max or
+    # global average).
     bounds = list(bounds)
     for i in range(1, n_stages):
         while (bounds[i] < len(weights) and bounds[i] < bounds[i + 1] - 1
-               and program.steps[bounds[i]].kind == "pool"):
+               and program.steps[bounds[i]].kind in ("pool", "gap")):
             bounds[i] += 1
     return partition_from_boundaries(program, bounds)

@@ -19,7 +19,10 @@ the same structure at micro-batch granularity:
   sit between any two stages.
 
 Activations cross stage boundaries as the same int8 (int16 at bits=16)
-tensors the whole chain passes between steps, and the last stage hands
+tensors the whole chain passes between steps (at a cut inside a residual
+block, the tuple of every tensor live there: the block's input beside
+the activation, each moved to the next stage's device by its runner, as
+the activation is), and the last stage hands
 the collector its int32 (int64 at bits=16) accumulators, so the K-stage
 pipeline is bit-identical to :meth:`EngineProgram.compile_runner` for
 every route (pinned by ``tests/test_torch_serving.py``); K=1 degenerates

@@ -393,8 +393,13 @@ def test_spec_lowers_to_the_reference_engine_chain():
         assert pj is None and pt is None
         assert (mt.name, mt.input_hw, mt.input_ch) == \
             (mj.name, mj.input_hw, mj.input_ch)
-        assert [dataclasses.asdict(l) for l in mt.layers] == \
+        keys = [f.name for f in dataclasses.fields(type(mj.layers[0]))]
+        assert [{k: getattr(l, k) for k in keys} for l in mt.layers] == \
             [dataclasses.asdict(l) for l in mj.layers]
+        # The port's graph fields (an explicit pad, a ReLU flag, another
+        # source, a skip) stay at their chain defaults on an import.
+        assert all((l.pad, l.relu, l.src, l.residual) == (None,) * 4
+                   for l in mt.layers)
         assert mt.gop == mj.gop
 
 

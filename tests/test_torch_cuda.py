@@ -3,7 +3,8 @@ same CUDA tensors: ``gemm_int8`` bit for bit, ``flash_attention`` and
 ``linear_scan`` within the reference's tolerances (2e-5 in float32, 3e-2
 in bfloat16, as ``tests/test_kernels.py`` states them; each attention
 output row also within a fraction of its own RMS); the bits=16 engine on
-the card bit for bit against the CPU, an imported LeNet's golden on
+the card bit for bit against the CPU, the residual epilogue on every
+tiling and full-width ResNet-50 v1.5, an imported LeNet's golden on
 every route, ``linear_scan``'s gradient against autograd through its
 plain version, and a reduced RecurrentGemma train step against the CPU.
 The CUDA kernels
@@ -14,6 +15,7 @@ GPU; on a machine with one (and ``nvcc``) run them with
 
 This file imports no JAX: the machine with the card has none."""
 
+import numpy as np
 import pytest
 import torch
 
@@ -163,6 +165,85 @@ def test_wgmma_plans_at_their_edges(gen, monkeypatch, N, K, M, plan, relu,
     assert path == plan.path
     assert torch.equal(got, ref.gemm_int8_ref(x, w, shift, bias, relu=relu,
                                               emit_int32=emit_int32))
+
+
+@pytest.mark.parametrize("N,K,M,plan", PLAN_CASES,
+                         ids=[f"{c[0]}x{c[1]}x{c[2]}-{c[3].path}-{c[3].width}"
+                              f"-{c[3].warpgroups}" for c in PLAN_CASES])
+@pytest.mark.parametrize("relu,emit_int32", [(True, False), (False, True)])
+def test_residual_epilogue_on_every_plan(gen, monkeypatch, N, K, M, plan,
+                                         relu, emit_int32):
+    """Each tiling with a residual (a bottleneck's skip): an int8 [N, M]
+    view with a row stride wider than M, aligned by shifts of both signs
+    (left up to 24, right up to 31), added before ReLU and shift; staged
+    and unstaged int8 stores and the int32 one, bit for bit. A launch with
+    a residual counts once more in ``residual_launches``."""
+    monkeypatch.setattr(gemm_kernel, "plan_for", lambda *shape: plan)
+    x = _patch_rows(gen, N, K)
+    w = k_major_view(_int(gen, (K, M), -128, 128))
+    shift = _int(gen, (M,), -20, 32, torch.int32)
+    bias = _int(gen, (M,), -2 ** 28, 2 ** 28, torch.int32)
+    res = _int(gen, (N, M + 24), -128, 128)[:, 8:M + 8]
+    rs = _int(gen, (M,), -24, 32, torch.int32)
+    before = gemm_int8.residual_launches
+    got, path = _path_of(lambda: gemm_int8(
+        x, w, shift, bias, relu=relu, emit_int32=emit_int32, residual=res,
+        res_shift=rs))
+    assert path == plan.path
+    assert gemm_int8.residual_launches == before + 1
+    assert torch.equal(got, ref.gemm_int8_ref(
+        x, w, shift, bias, relu=relu, emit_int32=emit_int32, residual=res,
+        res_shift=rs))
+
+
+def test_residual_epilogue_on_the_dp4a_kernel(gen):
+    xf = _int(gen, (50, 301), -128, 128)
+    w = k_major_view(_int(gen, (300, 90), -128, 128))
+    shift = _int(gen, (90,), 0, 16, torch.int32)
+    res = _int(gen, (50, 91), -128, 128)[:, 1:]
+    rs = _int(gen, (90,), -24, 32, torch.int32)
+    for relu, emit in ((True, False), (False, True)):
+        got, path = _path_of(lambda: gemm_int8(
+            xf[:, 1:], w, shift, relu=relu, emit_int32=emit, residual=res,
+            res_shift=rs))
+        assert path == "dp4a"
+        assert torch.equal(got, ref.gemm_int8_ref(
+            xf[:, 1:], w, shift, relu=relu, emit_int32=emit, residual=res,
+            res_shift=rs))
+
+
+def test_resnet50_chain_runs_on_the_wgmma_paths():
+    """One batch of 16 frames of full-width ResNet-50 v1.5 on the kernel
+    route: 54 launches, the 53 convs on the large-N kernels (16 of them
+    adding their block's skip), the fc on the small-N one, none on dp4a;
+    the accumulators equal the oracle route's. Two stages cut inside a
+    bottleneck, its input handed on beside the activation, equal the
+    whole chain."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    from repro_torch.serving.pipeline_executor import PipelineExecutor
+    from repro_torch.serving.server import (compile_for_serving,
+                                            synthetic_stream)
+    prog = compile_for_serving("resnet50", device="cuda")
+    runner = prog.compile_runner(route="kernel")
+    frames = synthetic_stream("resnet50", 16)
+    xq = torch.as_tensor(runner.quantize(frames), device="cuda")
+    before = dict(gemm_int8.launches_by_path)
+    res_before = gemm_int8.residual_launches
+    acc = runner(xq)
+    torch.cuda.synchronize()
+    ran = {p: n - before[p] for p, n in gemm_int8.launches_by_path.items()}
+    assert ran == {"large_n": 53, "small_n": 1, "dp4a": 0}
+    assert gemm_int8.residual_launches - res_before == 16
+    assert torch.equal(acc, prog.compile_runner(route="oracle")(xq))
+    cut = next(i for i, s in enumerate(prog.steps)
+               if s.name == "layer3.0.conv1")
+    assert len(prog.live_at(cut)) == 2
+    with PipelineExecutor(prog, stages=2, batch_size=16, route="kernel",
+                          output="logits",
+                          boundaries=(0, cut, len(prog.steps))) as px:
+        got = px.serve(list(frames))
+    assert np.array_equal(np.stack(got), runner.dequantize(acc))
 
 
 def test_wgmma_reaches_the_int32_rails():

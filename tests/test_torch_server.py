@@ -460,8 +460,9 @@ def _serve_both(monkeypatch, path, **kw):
     from repro_torch.serving import server as server_t
 
     mt = _tiny_model("m-a", 8, 3, seed=4).model
+    keys = [f.name for f in dataclasses.fields(Wj.ConvLayer)]
     mj = Wj.CNNModel(mt.name, mt.input_hw, mt.input_ch, tuple(
-        Wj.ConvLayer(**dataclasses.asdict(l)) for l in mt.layers))
+        Wj.ConvLayer(**{k: getattr(l, k) for k in keys}) for l in mt.layers))
     params = cnn.init_params_np(mt, 4)
     calib = np.random.default_rng(5).standard_normal(
         (2, 8, 8, 3)).astype(np.float32)
