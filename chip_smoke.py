@@ -41,7 +41,11 @@ failure exits nonzero without the final line:
    ResNet-50 v1.5 through the kernel (53 ``large_n``, 16 of them adding
    the skip, + 1 ``small_n``), oracle and f32 routes, identical int32 and
    equal on two frames to the kernel route's plain version on the CPU,
-   with the same times; then the layer-pipelined serving
+   with the same times; for each of the three, one batch on a fresh
+   runner launch by launch and replayed as its CUDA graph: the host's
+   enqueue of a batch and the profiled device time each way, the launch
+   counts a batch each way, the accumulators equal (lines
+   ``graph_enqueue``); then the layer-pipelined serving
    path (phase ``pipeline``): full-width AlexNet through ``serve_async``
    at K = 1, 2 and 4 stages and through the replica pool at R = 2, K = 2
    on the one card, each with its partition, steady fps beside the single
@@ -1189,6 +1193,7 @@ def phase_main_path() -> dict:
     if not ok:
         raise SmokeFailure(f"route check failed: {check}")
     phase_breakdown(prog, frames)
+    phase_graph_enqueue("alexnet", prog, frames)
     return {"launches": launches}
 
 
@@ -1220,6 +1225,65 @@ def _device_ops(fn) -> list:
 def _is_gemm_int8(kernel_name: str) -> bool:
     """Whether a profiled kernel is one of gemm_int8's."""
     return "gemm_wgmma" in kernel_name or "gemm_int8_kernel" in kernel_name
+
+
+GRAPH_ENQUEUE_REPS = 10
+
+
+def phase_graph_enqueue(model: str, prog, frames) -> None:
+    """One batch of ``model`` on a fresh kernel-route runner, launch by
+    launch (its ``fn``) and replayed as its CUDA graph (the runner's call,
+    captured at its second call, whose wall time is ``capture_ms``): the
+    host's enqueue of a batch each way
+    (``GRAPH_ENQUEUE_REPS`` calls without a synchronise, after two), the
+    device time of one profiled batch each way (the profiler must see the
+    graph's kernels: as many ``gemm_int8`` launches as the eager batch),
+    the launch counts a batch each way, and the replayed accumulators
+    equal the eager ones bit for bit."""
+    runner = prog.compile_runner(route="kernel")
+    xq = torch.as_tensor(runner.quantize(frames), device="cuda")
+    runner(xq)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    runner(xq)                  # the capture, and its first replay
+    torch.cuda.synchronize()
+    capture_ms = (time.perf_counter() - t0) * 1e3
+    ran = {}
+    for way, call in (("eager", lambda: runner.fn(xq)),
+                      ("replay", lambda: runner(xq))):
+        for _ in range(2):
+            call()
+        torch.cuda.synchronize()
+        before = gemm_kernel.launch_counts()
+        acc = call()
+        torch.cuda.synchronize()
+        after = gemm_kernel.launch_counts()
+        t0 = time.perf_counter()
+        for _ in range(GRAPH_ENQUEUE_REPS):
+            call()
+        enqueue_ms = (time.perf_counter() - t0) / GRAPH_ENQUEUE_REPS * 1e3
+        torch.cuda.synchronize()
+        ops = _device_ops(call)
+        ran[way] = {"acc": acc, "enqueue_ms": enqueue_ms,
+                    "counts": {k: after[k] - before[k] for k in after},
+                    "device_ms": sum(us for _, us, _ in ops) / 1e3,
+                    "gemm_int8_profiled": sum(n for k, _, n in ops
+                                              if _is_gemm_int8(k))}
+    eager, replay = ran["eager"], ran["replay"]
+    row = {"phase": "graph_enqueue", "model": model, "batch": len(frames),
+           "exact": torch.equal(eager["acc"], replay["acc"]),
+           "replays": runner.replays, "eager_calls": runner.eager_calls,
+           "cache_size": runner.cache_size(), "capture_ms": capture_ms,
+           **{f"{way}_{k}": v for way, r in ran.items()
+              for k, v in r.items() if k != "acc"}}
+    emit(row)
+    if not (row["exact"] and runner.cache_size() == 1
+            and eager["counts"] == replay["counts"]
+            and eager["counts"]["launches"] > 0
+            and replay["gemm_int8_profiled"]
+            == eager["gemm_int8_profiled"] == eager["counts"]["launches"]):
+        raise SmokeFailure(f"{model}: the replayed batch differs from the "
+                           f"eager one: {row}")
 
 
 def phase_breakdown(prog, frames) -> None:
@@ -1354,6 +1418,7 @@ def phase_vgg16() -> dict:
             and launches == 16 and row["acc_shape"] == [SERVE_BATCH, 1000]
             and acc.dtype == torch.int32):
         raise SmokeFailure(f"VGG16 check failed: {row}")
+    phase_graph_enqueue("vgg16", prog, frames)
     return {"launches": launches}
 
 
@@ -1432,6 +1497,7 @@ def phase_resnet50(gemm: dict) -> dict:
             and row["acc_shape"] == [SERVE_BATCH, 1000]
             and acc.dtype == torch.int32):
         raise SmokeFailure(f"ResNet-50 check failed: {row}")
+    phase_graph_enqueue("resnet50", prog, frames)
     return {"launches": launches}
 
 
@@ -1512,7 +1578,7 @@ def _pipeline_turns(prog, stream) -> dict:
 class _CaptureAcc:
     """A last-stage runner that keeps the raw int32 accumulators the
     collector receives before dequantizing them (in batch order: the
-    collector is FIFO)."""
+    collector is FIFO; on the host, where the last stage copies them)."""
 
     def __init__(self, runner):
         self.runner = runner
@@ -1563,7 +1629,7 @@ def _vgg16_pipeline() -> list:
         expect = {"large_n": 13 * VGG_PIPE_BATCHES,
                   "small_n": 3 * VGG_PIPE_BATCHES, "dp4a": 0}
         identical = len(cap.accs) == len(want) and all(
-            a.dtype == torch.int32 and torch.equal(a, w)
+            a.dtype == torch.int32 and torch.equal(a, w.cpu())
             for a, w in zip(cap.accs, want))
         row = {"phase": "pipeline_vgg16", "stages": k,
                "boundaries": list(px.partition.boundaries),

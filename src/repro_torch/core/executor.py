@@ -12,8 +12,11 @@ frame stream:
   *host* straight into a pinned staging buffer of that dtype, a chunk of
   frames at a time through a reused float32 scratch, copied to the card
   with ``non_blocking=True`` and the step chain is launched on the
-  current stream; a ``torch.cuda.Event`` recorded after the chain marks
-  the batch done. The device computes
+  current stream (from the third batch on the kernel route, the copy
+  into a CUDA graph's input and one replay of the graph), the final
+  accumulators are copied back to the host behind it, and a
+  ``torch.cuda.Event`` recorded after that copy marks the batch done.
+  The device computes
   batch ``k`` while the host quantizes batch ``k+1`` and argmax-decodes
   batch ``k-1`` (the two "buffer halves" are the bounded in-flight queue);
 * ``drain()`` flushes the partial tail batch (padded to the batch shape)
@@ -210,10 +213,12 @@ class EngineExecutor:
     # -- the overlap core ----------------------------------------------------
 
     def _to_device(self, buf: torch.Tensor) -> torch.Tensor:
-        """A staged batch on the program's device: an asynchronous copy
-        from its pinned buffer on the current stream on CUDA, the buffer
-        itself on the CPU."""
-        if not self._cuda:
+        """A staged batch as the runner takes it: on CUDA an asynchronous
+        copy from its pinned buffer on the current stream, or the buffer
+        itself where the runner replays a CUDA graph for it (the replay
+        copies it into the graph's input); the buffer itself on the
+        CPU."""
+        if not self._cuda or self.runner.will_replay(buf):
             return buf
         return buf.to(self.program.device, non_blocking=True)
 
@@ -255,6 +260,10 @@ class EngineExecutor:
             acc = self.runner(x)
             done = None
             if self._cuda:
+                # The accumulators go to the host behind this batch's own
+                # launches: collecting it then waits for its event alone,
+                # not for the next batch, already queued on the stream.
+                acc = acc.to("cpu", non_blocking=True)
                 done = torch.cuda.Event()
                 done.record()
         if self.stats.batches == 0:

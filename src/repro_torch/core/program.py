@@ -27,8 +27,11 @@ NHWC). A plain float conv permutes to NCHW inside itself only.
 
 Differences from the reference, each forced by PyTorch or by the card:
 
-* ``jax.jit`` and buffer donation become plain eager calls; a runner's
-  ``cache_size()`` is -1, the reference's own "unknown" value.
+* ``jax.jit`` and buffer donation become eager calls, and on the card's
+  kernel route one CUDA graph a runner: the second batch of a shape is
+  captured, every later one replays it (:class:`CompiledRunner`). A runner
+  that has captured nothing reports ``cache_size()`` -1, the reference's
+  own "unknown" value.
 * The default MAC route is ``"kernel"`` (the hand-written Hopper
   ``gemm_int8``) when the program lives on a CUDA device, and the
   reference's ``"f32"`` on the CPU. On the card the f32 route is a library
@@ -60,6 +63,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import threading
 from typing import Any, Callable
 
 import numpy as np
@@ -71,7 +75,9 @@ from repro_torch.core.quant import ref_exp2
 from repro_torch.core.allocator import (LayerAlloc, allocate_buffers,
                                         allocate_compute)
 from repro_torch.core.workload import CNNModel, ConvLayer
-from repro_torch.kernels.conv2d_int8.kernel import k_major_view
+from repro_torch.kernels.conv2d_int8.kernel import (add_launches,
+                                                    k_major_view,
+                                                    launch_counts)
 from repro_torch.kernels.conv2d_int8.ops import conv2d_int8, fc_int8
 from repro_torch.kernels.conv2d_int8.ref import (bias_relu_ref,
                                                  conv2d_int8_via,
@@ -449,19 +455,88 @@ class EngineProgram:
         return self._placed[key]
 
 
+class _LaunchGate:
+    """Launches on the card share it; a CUDA graph capture holds it alone.
+    Stage workers launch from several threads at once, and a capture has
+    to see none of them launching (:meth:`CompiledRunner.__call__`). A
+    capture waiting for the gate stops new launches from entering."""
+
+    def __init__(self):
+        self._cond = threading.Condition()
+        self._launching = 0
+        self._capturing = False
+
+    @contextlib.contextmanager
+    def shared(self):
+        with self._cond:
+            while self._capturing:
+                self._cond.wait()
+            self._launching += 1
+        try:
+            yield
+        finally:
+            with self._cond:
+                self._launching -= 1
+                if not self._launching:
+                    self._cond.notify_all()
+
+    @contextlib.contextmanager
+    def alone(self):
+        with self._cond:
+            while self._capturing:
+                self._cond.wait()
+            self._capturing = True
+            while self._launching:
+                self._cond.wait()
+        try:
+            yield
+        finally:
+            with self._cond:
+                self._capturing = False
+                self._cond.notify_all()
+
+
+# One gate for the process: a capture must exclude every thread's launches.
+_GATE = _LaunchGate()
+
+
+def _shape_key(xs: tuple[torch.Tensor, ...]) -> tuple:
+    return tuple((tuple(t.shape), t.dtype) for t in xs)
+
+
+@dataclasses.dataclass
+class _Graph:
+    """A runner's step range captured once for one input shape: the graph,
+    its static inputs and outputs, and the ``gemm_int8`` counts its
+    capture recorded (:func:`launch_counts` keys)."""
+
+    key: tuple
+    graph: "torch.cuda.CUDAGraph"
+    inputs: tuple[torch.Tensor, ...]
+    outputs: torch.Tensor | tuple[torch.Tensor, ...]
+    launches: dict[str, int]
+
+
 @dataclasses.dataclass
 class CompiledRunner:
-    """One eager device program for a contiguous step range of the engine
+    """One device program for a contiguous step range of the engine
     chain — the whole chain for :meth:`EngineProgram.compile_runner`
     (``start == 0``, ``stop == len(steps)``), or one pipeline stage.
 
     ``fn`` maps an int8 (int16 at bits=16) activation batch ``[B, H, W,
     C]`` on the program's device to the range's output — raw final
     accumulators (int32; int64 at bits=16) when the range includes the
-    last engine, int8/int16 activations otherwise. Host-side
-    quantize-in and argmax/dequant-out live here so the executor can
-    overlap them with device compute; they exist only at the matching end
-    of the chain (first / last stage).
+    last engine, int8/int16 activations otherwise — launch by launch.
+    Host-side quantize-in and argmax/dequant-out live here so the executor
+    can overlap them with device compute; they exist only at the matching
+    end of the chain (first / last stage).
+
+    On a CUDA device on the kernel route a call replays ``fn`` as one CUDA
+    graph: the second call with an input of one shape and dtype captures
+    it, and every later call of that shape replays it (``replays``
+    counts those, ``eager_calls`` every call that ran ``fn``). The same
+    kernels run in the same order on the same integers. Every other
+    device, route and shape runs ``fn`` eagerly.
     """
 
     program: EngineProgram
@@ -470,6 +545,15 @@ class CompiledRunner:
     start: int = 0
     stop: int = -1          # -1 == len(program.steps) (whole chain)
     device: torch.device | None = None     # None == program.device
+    replays: int = dataclasses.field(default=0, init=False, compare=False)
+    eager_calls: int = dataclasses.field(default=0, init=False,
+                                         compare=False)
+    _graph: _Graph | None = dataclasses.field(default=None, init=False,
+                                              repr=False, compare=False)
+    _seen: set = dataclasses.field(default_factory=set, init=False,
+                                   repr=False, compare=False)
+    _lock: Any = dataclasses.field(default_factory=threading.Lock,
+                                   init=False, repr=False, compare=False)
 
     def __post_init__(self):
         if self.stop < 0:
@@ -506,11 +590,83 @@ class CompiledRunner:
         """Launch one quantized batch (numpy, or a tensor on any device; a
         tuple of them at a cut where several are live) on the runner's
         device's current stream; returns the output tensor (or tuple)
-        without waiting for the device."""
-        if isinstance(xq, tuple):
-            return self.fn(tuple(torch.as_tensor(t, device=self.device)
-                                 for t in xq))
-        return self.fn(torch.as_tensor(xq, device=self.device))
+        without waiting for the device.
+
+        A replay copies the batch into the graph's static input on the
+        stream (from a pinned host tensor without waiting: its owner keeps
+        it unchanged until the stream has passed the call, as the
+        executors' staging rings do), replays the graph and hands back a
+        fresh copy of its static output, all three under the runner's lock,
+        in a ``runner.replay`` span nested in the caller's. The capture
+        holds every runner's launches off (``_GATE``) and runs on a side
+        stream: the stage workers share the legacy default stream."""
+        tup = isinstance(xq, tuple)
+        xs = tuple(torch.as_tensor(t) for t in (xq if tup else (xq,)))
+        gate = contextlib.nullcontext()
+        if self.device.type == "cuda" and self.route == "kernel":
+            key = _shape_key(xs)
+            with self._lock:
+                g = self._graph
+                capture = g is None and key in self._seen
+                if g is None:
+                    self._seen.add(key)
+            if capture:
+                g = self._capture(key, xs, tup)
+            if g is not None and g.key == key:
+                return self._replay(g, xs)
+            gate = _GATE.shared()
+        with self._lock:
+            self.eager_calls += 1
+        xs = tuple(t.to(self.device) for t in xs)
+        with gate:
+            return self.fn(xs if tup else xs[0])
+
+    def will_replay(self, xq) -> bool:
+        """Whether a call on ``xq`` (a tensor or a tuple of them) replays
+        the captured graph: the executors then hand it their pinned
+        staging buffer as it is, and the replay copies it in."""
+        g = self._graph
+        return g is not None and g.key == _shape_key(
+            xq if isinstance(xq, tuple) else (xq,))
+
+    def _capture(self, key: tuple, xs: tuple, tup: bool) -> _Graph:
+        """Capture ``fn`` on static inputs shaped as ``xs``, alone on the
+        card (``_GATE``) on a side stream, once: a thread that finds the
+        graph made by another takes that one. The capture's own calls to
+        ``gemm_int8`` launch nothing and are taken off its counts; each
+        replay adds them back. A capture that fails raises."""
+        with self._lock:
+            if self._graph is not None:
+                return self._graph
+            with _GATE.alone(), torch.cuda.device(self.device):
+                inputs = tuple(torch.empty(t.shape, dtype=t.dtype,
+                                           device=self.device) for t in xs)
+                graph = torch.cuda.CUDAGraph()
+                before = launch_counts()
+                try:
+                    with torch.cuda.graph(
+                            graph, stream=torch.cuda.Stream(self.device),
+                            capture_error_mode="thread_local"):
+                        outputs = self.fn(inputs if tup else inputs[0])
+                finally:
+                    after = launch_counts()
+                    launches = {k: after[k] - before[k] for k in after}
+                    add_launches(launches, -1)
+            self._graph = _Graph(key, graph, inputs, outputs, launches)
+            self._seen.clear()
+            return self._graph
+
+    def _replay(self, g: _Graph, xs: tuple):
+        with spans.nested("runner.replay"), self._lock, _GATE.shared():
+            for static, x in zip(g.inputs, xs):
+                static.copy_(x, non_blocking=True)
+            g.graph.replay()
+            out = g.outputs
+            out = tuple(t.clone() for t in out) if isinstance(out, tuple) \
+                else out.clone()
+            self.replays += 1
+        add_launches(g.launches)
+        return out
 
     def dequantize(self, acc) -> np.ndarray:
         """Raw final accumulators -> float32 logits on their exact po2
@@ -540,9 +696,10 @@ class CompiledRunner:
         return np.argmax(out.reshape(out.shape[0], -1), axis=-1)
 
     def cache_size(self) -> int:
-        """Compiled executables behind ``fn``: -1 ("unknown"), since the
-        port runs eagerly and compiles nothing per batch shape."""
-        return -1
+        """Compiled executables behind the runner: 1 once it has captured
+        its CUDA graph, else -1 ("unknown"), since ``fn`` runs eagerly and
+        compiles nothing per batch shape."""
+        return -1 if self._graph is None else 1
 
 
 def kernel_available(bits: int = 8) -> tuple[bool, str]:

@@ -270,4 +270,24 @@ def reset_launches() -> None:
         gemm_int8.residual_launches = 0
 
 
+def launch_counts() -> dict[str, int]:
+    """``gemm_int8``'s counts now: ``"launches"``, each path's, and
+    ``"residual"`` (the launches that added a residual)."""
+    with _build._COUNT_LOCK:
+        return {"launches": gemm_int8.launches, **gemm_int8.launches_by_path,
+                "residual": gemm_int8.residual_launches}
+
+
+def add_launches(counts: dict[str, int], sign: int = 1) -> None:
+    """Add ``sign`` times ``counts`` (the difference of two
+    :func:`launch_counts`) to ``gemm_int8``'s counts: a replayed CUDA graph
+    launches the kernels its capture recorded without calling the
+    wrapper, and a capture calls it without launching."""
+    with _build._COUNT_LOCK:
+        gemm_int8.launches += sign * counts["launches"]
+        for path in PATHS:
+            gemm_int8.launches_by_path[path] += sign * counts[path]
+        gemm_int8.residual_launches += sign * counts["residual"]
+
+
 reset_launches()

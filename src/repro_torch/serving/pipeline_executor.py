@@ -23,7 +23,8 @@ tensors the whole chain passes between steps (at a cut inside a residual
 block, the tuple of every tensor live there: the block's input beside
 the activation, each moved to the next stage's device by its runner, as
 the activation is), and the last stage hands
-the collector its int32 (int64 at bits=16) accumulators, so the K-stage
+the collector its int32 (int64 at bits=16) accumulators, copied to the
+host behind its own launches on CUDA, so the K-stage
 pipeline is bit-identical to :meth:`EngineProgram.compile_runner` for
 every route (pinned by ``tests/test_torch_serving.py``); K=1 degenerates
 to one worker.
@@ -39,13 +40,18 @@ the stages' kernels run in submission order as on the TPU), records a
 event is created with ``blocking=True`` so a waiting worker sleeps
 instead of spinning a core the other stages' host work needs. The wait
 gives ``stage_busy_s`` and hands a finished tensor to the next queue.
+On the kernel route a stage's runner replays its step range as one CUDA
+graph once its second batch has captured it (:class:`CompiledRunner`:
+the capture runs on a side stream while no other thread launches), so a
+stage's launches are one call a batch.
 Stage 0 moves the quantized host batch to the card from a pinned staging
 ring of ``queue_depth + 1`` buffers in the program's input dtype, each
 with the float32 scratch quantize-in passes frames through: the
 submitting thread takes a free buffer (blocking while all are in
 flight), quantizes the float frames straight into it and queues it;
-stage 0 copies it to the card with ``non_blocking=True`` and returns the
-buffer to the ring once its event has completed, so no buffer is
+stage 0 copies it to the card with ``non_blocking=True`` (or hands it to
+its runner's replay, which copies it into the graph's input) and returns
+the buffer to the ring once its event has completed, so no buffer is
 rewritten while its copy is in flight. On the CPU the stages run
 synchronously in their threads, over the same ring unpinned.
 """
@@ -419,10 +425,14 @@ class PipelineExecutor:
             x, done = (payload[0] if i == 0 else payload), None
             with (torch.cuda.device(runner.device) if cuda
                   else contextlib.nullcontext()):
-                if cuda and i == 0:
+                if cuda and i == 0 and not runner.will_replay(x):
                     x = x.to(runner.device, non_blocking=True)
                 out = runner(x)
                 if cuda:
+                    if runner.is_last:
+                        # To the host behind this batch's own launches, so
+                        # the collector never waits on later batches.
+                        out = out.to("cpu", non_blocking=True)
                     done = torch.cuda.Event(blocking=True)
                     done.record()
         with span(wait, owner=self._owner, batch=seq):

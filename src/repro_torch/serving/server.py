@@ -984,7 +984,7 @@ def serve(model_name: str, *, frames: int = 64, batch: int = 16,
         "compile_plus_first_batch_s": round(st.first_batch_s, 3),
         "measured_steady_fps": round(st.steady_fps, 3),
         "modeled_fps_alg1": round(prog.fps(), 3),
-        # The port runs eagerly: no executables to count (-1 = unknown).
+        # 1 once the runner replays a CUDA graph; -1 (unknown) eagerly.
         "executables": ex.runner.cache_size(),
         "recompiles": None,
         "sample_top1": [int(np.asarray(o).reshape(-1).argmax())
