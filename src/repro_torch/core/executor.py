@@ -9,14 +9,13 @@ frame stream:
 
 * ``submit(frame)`` micro-batches incoming frames to ``batch_size``;
 * a full micro-batch is quantized to int8 (int16 at bits=16) on the
-  *host* straight into a pinned staging buffer of that dtype, a chunk of
-  frames at a time through a reused float32 scratch, copied to the card
-  with ``non_blocking=True`` and the step chain is launched on the
-  current stream (from the third batch on the kernel route, the copy
-  into a CUDA graph's input and one replay of the graph), the final
-  accumulators are copied back to the host behind it, and a
-  ``torch.cuda.Event`` recorded after that copy marks the batch done.
-  The device computes
+  *host* straight into a pinned staging slot (:func:`staging_slot`), a
+  chunk of frames at a time through the slot's float32 scratch, and
+  handed to the runner (:meth:`CompiledRunner.launch`), which copies it
+  to the card without waiting, launches the step chain on the current
+  stream (from the third batch on the kernel route, one replay of a
+  CUDA graph), copies the final accumulators back to the host behind it
+  and records an event that marks the batch done. The device computes
   batch ``k`` while the host quantizes batch ``k+1`` and argmax-decodes
   batch ``k-1`` (the two "buffer halves" are the bounded in-flight queue);
 * ``drain()`` flushes the partial tail batch (padded to the batch shape)
@@ -69,16 +68,19 @@ def normalize_frames(program: EngineProgram,
     return frames
 
 
-def staging_buffer(program: EngineProgram, batch_size: int, *,
-                   pinned: bool) -> torch.Tensor:
-    """One host staging buffer for a quantized batch of ``program``: the
-    batch's shape in the program's input dtype (int8, or int16 at
-    bits=16), pinned for an asynchronous copy to the card when
-    ``pinned``. Quantize-in writes into it (and refuses any other dtype);
-    it is used by one thread at a time, with its scratch."""
+def staging_slot(program: EngineProgram, batch_size: int, *,
+                 pinned: bool) -> tuple[torch.Tensor, np.ndarray]:
+    """One slot of a serve loop's staging ring: a host buffer for a
+    quantized batch of ``program`` (the batch's shape in the program's
+    input dtype, int8 or int16 at bits=16), pinned for an asynchronous
+    copy to the card when ``pinned``, and the one-chunk float32 scratch
+    quantize-in passes frames through. Quantize-in writes into the buffer
+    (and refuses any other dtype); a slot is used by one thread at a
+    time."""
     m = program.model
-    return torch.empty((batch_size, m.input_hw, m.input_hw, m.input_ch),
-                       dtype=quant.int_dtype(program.bits), pin_memory=pinned)
+    buf = torch.empty((batch_size, m.input_hw, m.input_hw, m.input_ch),
+                      dtype=quant.int_dtype(program.bits), pin_memory=pinned)
+    return buf, quant.quantize_scratch(buf.shape)
 
 
 @dataclasses.dataclass
@@ -153,7 +155,6 @@ class EngineExecutor:
         # max_inflight, which is free again once batch k - max_inflight
         # has been collected (its event waited on, so its host-to-device
         # copy is done). The CPU runs the same ring, unpinned.
-        self._cuda = program.device.type == "cuda"
         self._staging: list[tuple[torch.Tensor, np.ndarray]] = []
         self._slot = 0
 
@@ -212,16 +213,6 @@ class EngineExecutor:
 
     # -- the overlap core ----------------------------------------------------
 
-    def _to_device(self, buf: torch.Tensor) -> torch.Tensor:
-        """A staged batch as the runner takes it: on CUDA an asynchronous
-        copy from its pinned buffer on the current stream, or the buffer
-        itself where the runner replays a CUDA graph for it (the replay
-        copies it into the graph's input); the buffer itself on the
-        CPU."""
-        if not self._cuda or self.runner.will_replay(buf):
-            return buf
-        return buf.to(self.program.device, non_blocking=True)
-
     def _dispatch(self, frames, n_valid: int | None = None,
                   tag: object = None):
         """Host quantize-in + asynchronous launch of one micro-batch (a
@@ -239,14 +230,10 @@ class EngineExecutor:
         self._seq += 1
         with span("engine.stack", owner=owner, batch=seq):
             if not self._staging:
-                # Chunk scratches: no other thread of this executor wants
-                # the GIL while it quantizes, so quantize-in walks the
-                # batch in numpy, in cache.
-                for _ in range(self._max_inflight):
-                    buf = staging_buffer(self.program, self.batch_size,
-                                         pinned=self._cuda)
-                    self._staging.append(
-                        (buf, quant.quantize_scratch(buf.shape)))
+                pinned = self.runner.device.type == "cuda"
+                self._staging = [staging_slot(self.program, self.batch_size,
+                                              pinned=pinned)
+                                 for _ in range(self._max_inflight)]
             buf, scratch = self._staging[self._slot]
         with span("engine.quantize", owner=owner, batch=seq):
             self.runner.quantize(frames, out=buf.numpy(), scratch=scratch)
@@ -254,18 +241,8 @@ class EngineExecutor:
         # leaves the ring where it was.
         self._slot = (self._slot + 1) % self._max_inflight
         t0 = time.perf_counter()
-        with span("engine.stage_in", owner=owner, batch=seq):
-            x = self._to_device(buf)
         with span("engine.enqueue", owner=owner, batch=seq):
-            acc = self.runner(x)
-            done = None
-            if self._cuda:
-                # The accumulators go to the host behind this batch's own
-                # launches: collecting it then waits for its event alone,
-                # not for the next batch, already queued on the stream.
-                acc = acc.to("cpu", non_blocking=True)
-                done = torch.cuda.Event()
-                done.record()
+            acc, done = self.runner.launch(buf, sleep=False)
         if self.stats.batches == 0:
             # The first launch builds the kernels; charge it separately so
             # steady_fps reflects the pipeline, not the build.
@@ -287,9 +264,7 @@ class EngineExecutor:
             if done is not None:
                 done.synchronize()
         with span("engine.collect", owner=self._owner, batch=seq):
-            out = self.runner.dequantize(acc)[:n]
-            if self.output == "top1":
-                out = np.argmax(out.reshape(n, -1), axis=-1)
+            out = self.runner.decode(acc, n, self.output)
             if tag is not None and self.on_result is not None:
                 self.on_result(tag, out)
             else:

@@ -527,9 +527,11 @@ class CompiledRunner:
     C]`` on the program's device to the range's output — raw final
     accumulators (int32; int64 at bits=16) when the range includes the
     last engine, int8/int16 activations otherwise — launch by launch.
-    Host-side quantize-in and argmax/dequant-out live here so the executor
-    can overlap them with device compute; they exist only at the matching
-    end of the chain (first / last stage).
+    The runner owns a batch's trip to the card and back for both serve
+    loops: host-side quantize-in (first stage), the copy in, the launches,
+    the copy out and its event (:meth:`launch`), and dequantize and
+    argmax (:meth:`decode`, last stage); the executors only order and
+    collect.
 
     On a CUDA device on the kernel route a call replays ``fn`` as one CUDA
     graph: the second call with an input of one shape and dtype captures
@@ -592,14 +594,16 @@ class CompiledRunner:
         device's current stream; returns the output tensor (or tuple)
         without waiting for the device.
 
-        A replay copies the batch into the graph's static input on the
-        stream (from a pinned host tensor without waiting: its owner keeps
-        it unchanged until the stream has passed the call, as the
-        executors' staging rings do), replays the graph and hands back a
-        fresh copy of its static output, all three under the runner's lock,
-        in a ``runner.replay`` span nested in the caller's. The capture
-        holds every runner's launches off (``_GATE``) and runs on a side
-        stream: the stage workers share the legacy default stream."""
+        A batch elsewhere is copied onto the stream without waiting: into
+        the graph's static input when the call replays, into a fresh
+        tensor on the device when it runs eagerly. From a pinned host
+        tensor its owner keeps it unchanged until the stream has passed
+        the call, as the executors' staging rings do. A replay copies the
+        batch in, replays the graph and hands back a fresh copy of its
+        static output, all three under the runner's lock, in a
+        ``runner.replay`` span nested in the caller's. The capture holds
+        every runner's launches off (``_GATE``) and runs on a side stream:
+        the stage workers share the legacy default stream."""
         tup = isinstance(xq, tuple)
         xs = tuple(torch.as_tensor(t) for t in (xq if tup else (xq,)))
         gate = contextlib.nullcontext()
@@ -617,17 +621,29 @@ class CompiledRunner:
             gate = _GATE.shared()
         with self._lock:
             self.eager_calls += 1
-        xs = tuple(t.to(self.device) for t in xs)
+        xs = tuple(t.to(self.device, non_blocking=True) for t in xs)
         with gate:
             return self.fn(xs if tup else xs[0])
 
-    def will_replay(self, xq) -> bool:
-        """Whether a call on ``xq`` (a tensor or a tuple of them) replays
-        the captured graph: the executors then hand it their pinned
-        staging buffer as it is, and the replay copies it in."""
-        g = self._graph
-        return g is not None and g.key == _shape_key(
-            xq if isinstance(xq, tuple) else (xq,))
+    def launch(self, xq, *, sleep: bool):
+        """One batch's trip through the range as a serve loop makes it:
+        the call on the runner's device, then, on CUDA, the accumulators'
+        copy to the host behind the launches (where the range ends the
+        chain, so their collector waits on this batch alone, never on one
+        queued after it) and an event recorded after both. Returns
+        ``(out, done)``; ``done`` is None off CUDA, where the call has
+        already run. ``sleep`` makes the event's waiter sleep instead of
+        spinning a core (a stage worker, beside the other stages' host
+        work)."""
+        if self.device.type != "cuda":
+            return self(xq), None
+        with torch.cuda.device(self.device):
+            out = self(xq)
+            if self.is_last:
+                out = out.to("cpu", non_blocking=True)
+            done = torch.cuda.Event(blocking=sleep)
+            done.record()
+        return out, done
 
     def _capture(self, key: tuple, xs: tuple, tup: bool) -> _Graph:
         """Capture ``fn`` on static inputs shaped as ``xs``, alone on the
@@ -684,6 +700,17 @@ class CompiledRunner:
         scale = self.program.out_scale()
         return acc.astype(np.float32) * scale.reshape(
             (1,) * (acc.ndim - 1) + (-1,))
+
+    def decode(self, acc, n: int, output: str) -> np.ndarray:
+        """A batch's answers from its accumulators: the first ``n`` frames'
+        logits (:meth:`dequantize`) for ``output == "logits"``, their
+        top-1 class ids for ``"top1"`` (empty where ``n`` is 0)."""
+        out = self.dequantize(acc)[:n]
+        if output != "top1":
+            return out
+        if not n:
+            return np.zeros((0,), dtype=np.int64)
+        return np.argmax(out.reshape(n, -1), axis=-1)
 
     def logits(self, x) -> np.ndarray:
         """Blocking convenience: float frames -> float logits. Bit-identical

@@ -85,22 +85,14 @@ def quantize_to_exponent_np(x, e: int, bits: int = 8, out=None,
     ``bits``), ``x`` is an ``[n, H, W, C]`` array or a sequence of ``n <=
     B`` frames ``[H, W, C]``: the n quantized frames go to ``out[:n]``,
     ``out[n:]`` is zeroed (what a zero frame quantizes to) and ``out`` is
-    returned. The frames pass through the float32 ``scratch`` (from
-    :func:`quantize_scratch`; one chunk is allocated without it), cast,
-    multiplied, rounded, clipped and cast into ``out`` in that order, so a
-    scratch its owner reuses leaves no array the size of the batch made.
-    The scratch sets the walk:
-
-    * one chunk (:data:`SCRATCH_BYTES` of whole frames): numpy, a chunk at
-      a time on the calling thread, in cache; it gives the GIL up and
-      takes it back three times a chunk;
-    * the whole batch, where that is more than one chunk: five torch ops
-      over the batch on torch's intra-op threads, so five times a batch.
-      An intake beside threads that launch kernels under the GIL (a
-      pipeline's stage workers) needs the latter.
-
-    An ``out`` or ``scratch`` of another dtype or frame shape is refused,
-    never cast."""
+    returned. The frames are walked a chunk at a time on the calling
+    thread, in cache: each chunk (:data:`SCRATCH_BYTES` of whole frames)
+    passes through the float32 ``scratch`` (from :func:`quantize_scratch`;
+    one chunk is allocated without it, and only one chunk of a longer one
+    is used), cast, multiplied, rounded, clipped and cast into ``out`` in
+    that order, so a scratch its owner reuses leaves no array the size of
+    the batch made. An ``out`` or ``scratch`` of another dtype or frame
+    shape is refused, never cast."""
     qmax = 2 ** (bits - 1) - 1
     scale = np.float32(2.0 ** (-e))
     if out is None:
@@ -128,13 +120,8 @@ def quantize_to_exponent_np(x, e: int, bits: int = 8, out=None,
     elif scratch.dtype != np.float32 or scratch.shape[1:] != frame:
         raise ValueError(f"scratch {scratch.dtype}{list(scratch.shape)} is "
                          f"not float32 frames {list(frame)}")
-    if len(scratch) <= scratch_frames(frame):
-        _quantize_chunks(x, n, scale, qmax, out, scratch)
-    elif len(scratch) >= n:
-        _quantize_batch(x, n, e, qmax, out, torch.from_numpy(scratch[:n]))
-    else:
-        raise ValueError(f"a scratch of {len(scratch)} frames is neither "
-                         f"one chunk nor the batch of {n}")
+    _quantize_chunks(x, n, scale, qmax, out,
+                     scratch[:scratch_frames(frame)])
     out[n:] = 0
     return out
 
@@ -150,14 +137,12 @@ def scratch_frames(frame_shape) -> int:
     return max(1, SCRATCH_BYTES // (4 * math.prod(frame_shape)))
 
 
-def quantize_scratch(batch_shape, *, whole: bool = False) -> np.ndarray:
+def quantize_scratch(batch_shape) -> np.ndarray:
     """A float32 scratch for :func:`quantize_to_exponent_np`'s ``out=``
     form into ``[B, H, W, C]`` batches, for its owner to reuse: one chunk
-    (the whole batch where it is smaller), or with ``whole`` the whole
-    batch, which takes the torch walk."""
+    (the whole batch where it is smaller)."""
     b, *frame = batch_shape
-    return np.empty((b if whole else min(b, scratch_frames(frame)), *frame),
-                    np.float32)
+    return np.empty((min(b, scratch_frames(frame)), *frame), np.float32)
 
 
 def _quantize_chunks(x, n, scale, qmax, out, scratch) -> None:
@@ -181,23 +166,6 @@ def _scale_into(s: np.ndarray, x: np.ndarray, scale: np.float32) -> None:
         s[...] = x
         x = s
     np.multiply(x, scale, out=s)
-
-
-def _quantize_batch(x, n, e, qmax, out, s: torch.Tensor) -> None:
-    if isinstance(x, np.ndarray):
-        s.copy_(_host_tensor(x))
-    elif n:
-        torch.stack([_host_tensor(f) for f in x], out=s)
-    s.mul_(2.0 ** (-e)).round_().clamp_(-qmax - 1, qmax)
-    torch.from_numpy(out)[:n].copy_(s)
-
-
-def _host_tensor(a: np.ndarray) -> torch.Tensor:
-    """``a`` as a CPU tensor sharing its memory (a copy only where torch
-    cannot view it: a negative stride)."""
-    if any(st < 0 for st in a.strides):
-        a = np.ascontiguousarray(a)
-    return torch.from_numpy(a)
 
 
 def _channel_shape(ndim: int, axis: int) -> list[int]:

@@ -251,7 +251,8 @@ def install_stage_fault(px, stage: int, at_call: int):
             self.calls = 0
             self._lock = threading.Lock()
 
-        def __call__(self, payload):
+        def launch(self, payload, *, sleep):
+            # The stage's whole trip (CompiledRunner.launch) is its batch.
             with self._lock:
                 self.calls += 1
                 n = self.calls
@@ -259,10 +260,10 @@ def install_stage_fault(px, stage: int, at_call: int):
                 raise StageKilled(
                     f"injected fault: stage {stage} died on its "
                     f"batch {n}")
-            return self._runner(payload)
+            return self._runner.launch(payload, sleep=sleep)
 
         def __getattr__(self, attr):
-            # quantize/dequantize and anything else the pipeline needs.
+            # quantize/decode and anything else the pipeline needs.
             return getattr(self._runner, attr)
 
     wrapper = _DyingRunner(px.runners[stage])

@@ -34,42 +34,40 @@ How a stage waits for the card. The reference's stage worker calls
 order, so that waits for this stage's output and for everything queued
 before it. Here each stage launches its kernels on its device's current
 stream (the default stream, shared by every thread of the process, so
-the stages' kernels run in submission order as on the TPU), records a
-``torch.cuda.Event`` after its own launches and waits on that event only
-(never ``torch.cuda.synchronize``, which waits on the whole device). The
-event is created with ``blocking=True`` so a waiting worker sleeps
-instead of spinning a core the other stages' host work needs. The wait
-gives ``stage_busy_s`` and hands a finished tensor to the next queue.
-On the kernel route a stage's runner replays its step range as one CUDA
-graph once its second batch has captured it (:class:`CompiledRunner`:
-the capture runs on a side stream while no other thread launches), so a
-stage's launches are one call a batch.
-Stage 0 moves the quantized host batch to the card from a pinned staging
-ring of ``queue_depth + 1`` buffers in the program's input dtype, each
-with the float32 scratch quantize-in passes frames through: the
-submitting thread takes a free buffer (blocking while all are in
-flight), quantizes the float frames straight into it and queues it;
-stage 0 copies it to the card with ``non_blocking=True`` (or hands it to
-its runner's replay, which copies it into the graph's input) and returns
-the buffer to the ring once its event has completed, so no buffer is
-rewritten while its copy is in flight. On the CPU the stages run
-synchronously in their threads, over the same ring unpinned.
+the stages' kernels run in submission order as on the TPU) through its
+runner's :meth:`CompiledRunner.launch`, which copies the batch in,
+launches, copies the last stage's accumulators out and records an event
+after them; the stage waits on that event only (never
+``torch.cuda.synchronize``, which waits on the whole device). The event
+sleeps its waiter (``sleep=True``) instead of spinning a core the other
+stages' host work needs. The wait gives ``stage_busy_s`` and hands a
+finished tensor to the next queue. On the kernel route a stage's runner
+replays its step range as one CUDA graph once its second batch has
+captured it (:class:`CompiledRunner`: the capture runs on a side stream
+while no other thread launches), so a stage's launches are one call a
+batch.
+Stage 0 takes the quantized host batch from a pinned staging ring of
+``queue_depth + 1`` slots (:func:`~repro_torch.core.executor
+.staging_slot`): the submitting thread takes a free slot (blocking while
+all are in flight), quantizes the float frames straight into its buffer
+and queues it; stage 0 hands the buffer to its runner, which copies it
+to the card without waiting, and returns the slot to the ring once its
+event has completed, so no buffer is rewritten while its copy is in
+flight. On the CPU the stages run synchronously in their threads, over
+the same ring unpinned.
 """
 
 from __future__ import annotations
 
-import contextlib
 import queue
 import threading
 import time
 from typing import Callable, Iterable, Sequence
 
 import numpy as np
-import torch
 
-from repro_torch.core import quant
 from repro_torch.core.executor import (ServeStats, normalize_frames,
-                                       staging_buffer)
+                                       staging_slot)
 from repro_torch.core.program import CompiledRunner, EngineProgram
 from repro_torch.core.spans import span
 from repro_torch.serving.partition import (partition_from_boundaries,
@@ -157,18 +155,13 @@ class PipelineExecutor:
         depth = max(1, int(queue_depth))
         # queues[i] feeds stage i; queues[K] feeds the collector.
         self._queues = [queue.Queue(maxsize=depth) for _ in range(n + 1)]
-        # The staging ring (pinned on CUDA): its free slots, a buffer and
-        # its quantize-in scratch each, depth + 1 of them (stage 0's queue
-        # full and one batch in stage 0). Whole-batch scratches: the
-        # intake runs beside K stage threads that launch under the GIL,
-        # so quantize-in takes the torch walk, which gives the GIL up and
-        # back a handful of times a batch.
-        self._cuda = self.runners[0].device.type == "cuda"
+        # The staging ring (pinned on CUDA): its free slots, depth + 1 of
+        # them (stage 0's queue full and one batch in stage 0).
+        pinned = self.runners[0].device.type == "cuda"
         self._free: queue.Queue = queue.Queue()
         for _ in range(depth + 1):
-            buf = staging_buffer(program, self.batch_size, pinned=self._cuda)
-            self._free.put((buf, quant.quantize_scratch(buf.shape,
-                                                        whole=True)))
+            self._free.put(staging_slot(program, self.batch_size,
+                                        pinned=pinned))
         self._threads: list[threading.Thread] = []
         self._lock = threading.RLock()
         # Serializes batch assembly + seq assignment + stage-0 enqueue as
@@ -295,7 +288,7 @@ class PipelineExecutor:
             self._free.put(slot)
             raise
 
-    def _stage_in(self) -> tuple[torch.Tensor, np.ndarray]:
+    def _stage_in(self) -> tuple:
         """A free slot of the staging ring (buffer, scratch) for the next
         batch's quantize-in; waits while every buffer is in flight (stage
         0 gives one back once its copy to the card is done)."""
@@ -411,30 +404,16 @@ class PipelineExecutor:
             self._done.notify_all()
 
     def _run_stage(self, i: int, payload):
-        """Stage i on one batch: launch its steps on the device's current
-        stream, record an event after them and wait on it. Stage 0 takes
-        a slot of the staging ring, copies its pinned buffer to the card
-        (runs on it in place on the CPU) and gives the slot back to the
-        ring once the copy is known done. The two spans cover the whole
-        call, so they add up to ``stage_busy_s``."""
+        """Stage i on one batch: its runner's trip on the device's current
+        stream (:meth:`CompiledRunner.launch`), then a wait on its event.
+        Stage 0 takes a slot of the staging ring and gives it back once
+        the copy of its buffer is known done. The two spans cover the
+        whole call, so they add up to ``stage_busy_s``."""
         _, launch, wait, _ = self._stage_spans[i]
         seq = self._stage_batch[i]
         with span(launch, owner=self._owner, batch=seq):
-            runner = self.runners[i]
-            cuda = runner.device.type == "cuda"
-            x, done = (payload[0] if i == 0 else payload), None
-            with (torch.cuda.device(runner.device) if cuda
-                  else contextlib.nullcontext()):
-                if cuda and i == 0 and not runner.will_replay(x):
-                    x = x.to(runner.device, non_blocking=True)
-                out = runner(x)
-                if cuda:
-                    if runner.is_last:
-                        # To the host behind this batch's own launches, so
-                        # the collector never waits on later batches.
-                        out = out.to("cpu", non_blocking=True)
-                    done = torch.cuda.Event(blocking=True)
-                    done.record()
+            out, done = self.runners[i].launch(
+                payload[0] if i == 0 else payload, sleep=True)
         with span(wait, owner=self._owner, batch=seq):
             if done is not None:
                 done.synchronize()
@@ -484,14 +463,7 @@ class PipelineExecutor:
                 try:
                     with span("collect.dequantize", owner=self._owner,
                               batch=seq):
-                        out = runner.dequantize(payload)[:n_valid]
-                        if self.output == "top1":
-                            # reshape(0, -1) is ill-posed for an
-                            # all-padding batch; its top-1 is just empty.
-                            out = (np.argmax(out.reshape(n_valid, -1),
-                                             axis=-1)
-                                   if n_valid else
-                                   np.zeros((0,), dtype=np.int64))
+                        out = runner.decode(payload, n_valid, self.output)
                 except BaseException as e:  # noqa: BLE001 - recorded
                     self._fail(e)
                     kind, payload = "err", e

@@ -354,9 +354,12 @@ def test_port_knee_rescale_result_validates_and_serves_exact(
         tmp_path, monkeypatch):
     """The port's ``serve_knee_rescale`` on a tiny CPU program: its block
     passes the reference's schema validator, every request resolved
-    (``hung == 0``), a rescale happened (by the policy or forced), and
-    every served frame's output equals the whole chain's on that
-    frame."""
+    (``hung == 0``), one rescale happened, forced under live traffic, and
+    every served frame's output equals the whole chain's on that frame.
+    The policy is held back: whether and when it fires inside the ramp
+    depends on how fast the host serves the tiny program, so the test
+    takes the forced path, which runs the same drain, swap and resume
+    every time (the policy's rules have their own cases above)."""
     import numpy as np
 
     from repro_torch.serving import server as server_t
@@ -364,13 +367,15 @@ def test_port_knee_rescale_result_validates_and_serves_exact(
     monkeypatch.setattr(server_t, "synthetic_stream",
                         lambda name, n, seed=0: server_t
                         .synthetic_stream_like(prog.model, n, seed))
+    monkeypatch.setattr(ElasticController, "decide",
+                        lambda self, signals: None)
     res = server_t.serve_knee_rescale(
         "tiny", program=prog, frames=32, batch=4, stages=2,
         max_segments=2, refine_iters=0, max_factor=2.0, output="logits",
         verbose=False, return_outputs=True)
     served = res.pop("outputs")
-    assert res["hung"] == 0 and res["n_rescales"] >= 1
-    assert res["replicas_after"] == 2 and isinstance(res["forced"], bool)
+    assert res["hung"] == 0 and res["n_rescales"] == 1
+    assert res["replicas_after"] == 2 and res["forced"] is True
     stream = server_t.synthetic_stream_like(prog.model, 32, 0)
     want = prog.compile_runner().logits(stream)
     idx = served["frame_idx"]

@@ -55,7 +55,7 @@ def test_a_cpu_runner_never_captures(bits, route):
     for n in range(1, 4):
         assert torch.equal(runner(xq), want)
         assert (runner.replays, runner.eager_calls) == (0, n)
-    assert runner.cache_size() == -1 and not runner.will_replay(xq)
+    assert runner.cache_size() == -1
 
 
 def test_the_launch_gate_keeps_a_capture_alone():
@@ -175,8 +175,11 @@ def test_the_replayed_runner_equals_the_eager_chain(progs, model):
     torch.cuda.synchronize()
     after = gemm_kernel.launch_counts()
     assert (runner.eager_calls, runner.replays) == (1, 3)
-    assert runner.cache_size() == 1 and runner.will_replay(xqs[0])
+    assert runner.cache_size() == 1
     assert all(torch.equal(g, w) for g, w in zip(gots, wants))
+    # A host batch replays too: the replay copies it into the graph.
+    assert torch.equal(runner(xqs[0].cpu()), wants[0])
+    assert (runner.eager_calls, runner.replays) == (1, 4)
     assert {k: after[k] - mid[k] for k in after} == \
         {k: mid[k] - before[k] for k in mid}
 
@@ -210,8 +213,9 @@ def test_another_shape_runs_eagerly(progs):
     assert (runner.eager_calls, runner.replays) == (1, 1)
     got = runner(x8)
     assert (runner.eager_calls, runner.replays) == (2, 1)
-    assert not runner.will_replay(x8)
     assert torch.equal(got, runner.fn(x8))
+    assert torch.equal(runner(x8.cpu()), got)
+    assert (runner.eager_calls, runner.replays) == (3, 1)
 
 
 @pytest.mark.cuda

@@ -2,7 +2,6 @@
 reference's (``repro.core.quant``) on edge grids: int32 rails, every
 shift in -31..31, and round-half-to-even ties. Every comparison is exact."""
 
-import warnings
 
 import jax.numpy as jnp
 import numpy as np
@@ -150,8 +149,8 @@ def _quantize_in_frames(bits, e, dtype, n, frame=(4, 5, 3)):
     return (x * 2.0 ** e).astype(dtype).reshape((n,) + frame)
 
 
-# 360 KB float32 frames: a chunk holds two, so the chunk walk takes
-# several chunks and a whole-batch scratch takes the torch walk.
+# 360 KB float32 frames: a chunk holds two, so the walk takes several
+# chunks, and of a longer scratch it uses one chunk.
 WIDE = (300, 300, 1)
 
 
@@ -161,13 +160,13 @@ WIDE = (300, 300, 1)
 @pytest.mark.parametrize("bits", [8, 16])
 def test_quantize_into_out_equals_the_allocating_form(bits, e, dtype, form):
     """The ``out=`` form writes the allocating form's bits into the batch
-    buffer and zeroes the rows past the frames, over stale data, on both
-    walks: chunks of two frames (its own scratch or a reused one) and the
-    whole batch in torch ops (7 and 9 frames into 9 rows)."""
+    buffer and zeroes the rows past the frames, over stale data, in chunks
+    of two frames through its own scratch, a reused one or a whole-batch
+    one (7 and 9 frames into 9 rows)."""
     batch = 9
     assert qt.scratch_frames(WIDE) == 2
     scratches = (None, qt.quantize_scratch((batch,) + WIDE),
-                 qt.quantize_scratch((batch,) + WIDE, whole=True))
+                 np.empty((batch,) + WIDE, np.float32))
     for n in (7, batch):
         x = _quantize_in_frames(bits, e, dtype, n, WIDE)
         want = qt.quantize_to_exponent_np(x, e, bits)
@@ -180,10 +179,9 @@ def test_quantize_into_out_equals_the_allocating_form(bits, e, dtype, form):
             assert not out[n:].any()
 
 
-@pytest.mark.parametrize("whole", [False, True])
-def test_quantize_into_out_takes_frames_torch_cannot_view(whole):
+def test_quantize_into_out_takes_frames_torch_cannot_view():
     """Flipped (negative-stride), strided and read-only frames quantize
-    as their copies do, on either walk."""
+    as their copies do."""
     x = _quantize_in_frames(8, -2, np.float32, 4, WIDE)
     ro = x[3].copy()
     ro.flags.writeable = False
@@ -191,13 +189,10 @@ def test_quantize_into_out_takes_frames_torch_cannot_view(whole):
     want = qt.quantize_to_exponent_np(
         np.stack([np.ascontiguousarray(f) for f in frames]), -2, 8)
     out = np.full((5,) + WIDE, 77, np.int8)
-    scratch = qt.quantize_scratch(out.shape, whole=whole)
-    with warnings.catch_warnings():
-        warnings.simplefilter("ignore", UserWarning)   # torch: read-only
-        qt.quantize_to_exponent_np(frames, -2, 8, out=out, scratch=scratch)
-        np.testing.assert_array_equal(out[:4], want)
-        qt.quantize_to_exponent_np(x[:, ::-1], -2, 8, out=out,
-                                   scratch=scratch)
+    scratch = qt.quantize_scratch(out.shape)
+    qt.quantize_to_exponent_np(frames, -2, 8, out=out, scratch=scratch)
+    np.testing.assert_array_equal(out[:4], want)
+    qt.quantize_to_exponent_np(x[:, ::-1], -2, 8, out=out, scratch=scratch)
     np.testing.assert_array_equal(
         out[:4], qt.quantize_to_exponent_np(x[:, ::-1].copy(), -2, 8))
     assert not out[4:].any()
@@ -206,12 +201,11 @@ def test_quantize_into_out_takes_frames_torch_cannot_view(whole):
 @pytest.mark.parametrize("bits", [8, 16])
 def test_quantize_into_out_refuses_what_it_would_cast(bits):
     """An ``out`` of another dtype or frame shape, more frames than rows, a
-    lone frame, or a scratch of another dtype or frame shape, or one that
-    is neither a chunk nor the batch, is refused with nothing written."""
+    lone frame, or a scratch of another dtype or frame shape, is refused
+    with nothing written."""
     x = _quantize_in_frames(bits, 0, np.float32, 3)
     good = np.int8 if bits == 8 else np.int16
     other = np.int16 if bits == 8 else np.int8
-    wide = _quantize_in_frames(bits, 0, np.float32, 5, WIDE)
     cases = [(x, np.full((4, 4, 5, 3), 5, other), None),
              (x, np.full((4, 4, 5, 3), 5, np.int32), None),
              (x, np.full((4, 5, 4, 3), 5, good), None),
@@ -221,9 +215,7 @@ def test_quantize_into_out_refuses_what_it_would_cast(bits):
              (x, np.full((4, 4, 5, 3), 5, good),
               np.empty((4, 4, 5, 3), np.float64)),
              (x, np.full((4, 4, 5, 3), 5, good),
-              np.empty((4, 4, 4, 3), np.float32)),
-             (wide, np.full((5,) + WIDE, 5, good),
-              np.empty((3,) + WIDE, np.float32))]
+              np.empty((4, 4, 4, 3), np.float32))]
     for src, out, scratch in cases:
         with pytest.raises(ValueError):
             qt.quantize_to_exponent_np(src, 0, bits, out=out,
@@ -242,4 +234,3 @@ def test_quantize_scratch_holds_whole_frames_within_a_mebibyte(batch,
     s = qt.quantize_scratch(batch)
     assert s.dtype == np.float32 and s.shape == (frames,) + batch[1:]
     assert s.nbytes <= qt.SCRATCH_BYTES or frames == 1
-    assert qt.quantize_scratch(batch, whole=True).shape == batch

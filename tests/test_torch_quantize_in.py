@@ -10,11 +10,13 @@ import numpy as np
 import pytest
 from torch.profiler import ProfilerActivity, profile
 
+from repro_torch.core import executor as ex_mod
 from repro_torch.core import program as prog_t
 from repro_torch.core import workload as Wt
-from repro_torch.core.executor import EngineExecutor
+from repro_torch.core.executor import EngineExecutor, staging_slot
 from repro_torch.models import cnn as cnn_t
 from repro_torch.serving import PipelineExecutor
+from repro_torch.serving import pipeline_executor as pe_mod
 
 
 def _program(hw: int, ch: int, bits: int = 8):
@@ -139,3 +141,47 @@ def test_reused_staging_slots_carry_each_batch_exactly(kind, hw, bits):
         want = np.zeros_like(x)
         want[:hi - lo] = whole.quantize(frames[lo:hi])
         np.testing.assert_array_equal(x, want)
+
+
+def test_both_rings_take_one_chunk_slots_and_hand_over_the_buffer(
+        monkeypatch):
+    """Both executors build their staging slots with the one
+    ``staging_slot``; each slot's scratch is one chunk (a frame at 227 x
+    227 x 3, not the batch), and the runner's launch takes the slot's
+    buffer itself: the runner, not the executor, copies it onward."""
+    made = []
+
+    def slot(*args, **kwargs):
+        made.append(staging_slot(*args, **kwargs))
+        return made[-1]
+
+    monkeypatch.setattr(ex_mod, "staging_slot", slot)
+    monkeypatch.setattr(pe_mod, "staging_slot", slot)
+    batch = 3
+    prog = _program(227, 3)
+    frames = np.random.default_rng(3).standard_normal(
+        (2 * batch, 227, 227, 3)).astype(np.float32)
+    want = prog.compile_runner().logits(frames)
+    for kind, n_slots in (("engine", 2), ("pipeline", 3)):
+        made.clear()
+        ex = _executor(kind, prog, batch)
+        first = ex.runner if kind == "engine" else ex.runners[0]
+        handed = []
+        launch = first.launch
+
+        def record(x, *, sleep, launch=launch, handed=handed):
+            handed.append(x)
+            return launch(x, sleep=sleep)
+
+        first.launch = record
+        try:
+            got = ex.serve(list(frames))
+        finally:
+            _close(ex)
+        np.testing.assert_array_equal(np.stack(got), want)
+        assert len(made) == n_slots
+        for buf, scratch in made:
+            assert scratch.shape == (1, 227, 227, 3), kind
+        bufs = [buf for buf, _ in made]
+        assert len(handed) == 2
+        assert all(any(x is b for b in bufs) for x in handed), kind

@@ -25,8 +25,8 @@ from repro_torch.serving import (AsyncFrontend, PipelineExecutor,
 BATCH = 4
 N_FRAMES = 14               # three whole batches and a padded tail
 
-ENGINE = {"engine.stack", "engine.quantize", "engine.stage_in",
-          "engine.enqueue", "engine.wait", "engine.collect"}
+ENGINE = {"engine.stack", "engine.quantize", "engine.enqueue",
+          "engine.wait", "engine.collect"}
 SUBMIT = {"pipeline.quantize", "pipeline.stage_in", "pipeline.put"}
 COLLECT = {"collect.dequantize", "collect.deliver"}
 BATCHER = {"batcher.fill", "batcher.dispatch"}
