@@ -26,20 +26,31 @@ failure exits nonzero without the final line:
    per-batch line for each model; at each of those shapes every
    ``wgmma`` tiling the kernels are built for (``kernel.plans``) is
    forced in turn, checked bit for bit and timed beside the wrapper's
-   choice (``gemm_int8_tilings`` lines);
+   choice (``gemm_int8_tilings`` lines); then every conv of one batch of
+   the three models as the conv route runs it (``gemm_int8_conv`` lines):
+   the implicit-GEMM route (patches read by TMA's im2col mode) bit for
+   bit against the explicit one (im2col, then the GEMM) and its launches
+   counted, the implicit route, the explicit route's im2col and its GEMM
+   each timed alone by CUDA events, and the bound; a per-batch line for
+   each model (``gemm_int8_conv_batch``); and at each implicit conv every
+   large-N tiling forced in turn (``gemm_int8_tilings`` lines with
+   ``"route": "implicit"``);
 3. full-width AlexNet served through ``serve`` on the default (kernel)
-   route, with the kernels' launches counted by path (8 ``large_n`` and
-   3 ``small_n`` a batch, no ``dp4a``); every served frame's logits
+   route, with the kernels' launches counted by path
+   (``PATHS_PER_BATCH``: 3 ``large_n``, 5 ``implicit`` and 3 ``small_n``
+   a batch, no ``dp4a``); every served frame's logits
    equal the oracle route's on the same frames; on one batch the raw
    int32 accumulators of the kernel, oracle and f32 routes are identical
    on the card and equal the plain integer oracle run on the CPU; a
    breakdown of one batch's time (host enqueue, wall, device by kernel,
    the host cost of one ``gemm_int8`` call on either path); then one
-   batch of full-width VGG16 through the kernel (13 + 3 launches),
+   batch of full-width VGG16 through the kernel (1 + 12 implicit + 3
+   launches),
    oracle and f32 routes, identical int32, with its chain's wall time,
    device time by kernel and idle share; then one batch of full-width
-   ResNet-50 v1.5 through the kernel (53 ``large_n``, 16 of them adding
-   the skip, + 1 ``small_n``), oracle and f32 routes, identical int32 and
+   ResNet-50 v1.5 through the kernel (1 ``large_n`` + 52 ``implicit``,
+   16 of them adding the skip, + 1 ``small_n``), oracle and f32 routes,
+   identical int32 and
    equal on two frames to the kernel route's plain version on the CPU,
    with the same times; for each of the three, one batch on a fresh
    runner launch by launch and replayed as its CUDA graph: the host's
@@ -50,13 +61,13 @@ failure exits nonzero without the final line:
    at K = 1, 2 and 4 stages and through the replica pool at R = 2, K = 2
    on the one card, each with its partition, steady fps beside the single
    executor's in the same run, open-loop p50/p95/p99, launches by path
-   (8 ``large_n`` + 3 ``small_n`` a batch summed over the stages, no
+   (``PATHS_PER_BATCH`` summed over the stages, no
    ``dp4a``), every frame's top-1 (on one pass its logits) identical to
    the single executor's and the oracle route's; closed-loop fps of the
    single executor and each config measured in turns, with the device's
    idle share; full-width VGG16 through ``PipelineExecutor`` at K = 2 and
-   4 with int32 identical to the whole chain and the oracle route (13 + 3
-   launches a batch); ``simulate()``
+   4 with int32 identical to the whole chain and the oracle route (1 + 12
+   implicit + 3 launches a batch); ``simulate()``
    for the four paper models beside the modeled fps; then phase
    ``bits16``: full-width AlexNet at bits=16 (its one route, the exact
    integer oracle) with every step's int16 output and the int64
@@ -69,8 +80,8 @@ failure exits nonzero without the final line:
    or failed, none hung, ``recovery_report``), then
    ``serve_knee_rescale`` (a live rescale R 1 -> 2, ``hung == 0``,
    whether it was forced), every served frame's top-1 equal to the
-   single executor's and the launches 8 ``large_n`` + 3 ``small_n`` a
-   batch; phase ``import``: ``examples/lenet.json`` through
+   single executor's and the launches ``PATHS_PER_BATCH`` a batch; phase
+   ``import``: ``examples/lenet.json`` through
    ``launch/import_model.py`` (import, golden, a serve through
    ``Server``), its launches by path (2 ``large_n`` + 1 ``small_n`` + 2
    ``dp4a`` a batch, as the wrapper's rule predicts for fc2 and fc3,
@@ -286,10 +297,12 @@ from repro_torch.core.program import ROUTES  # noqa: E402
 from repro_torch.core.workload import CNN_MODELS  # noqa: E402
 from repro_torch.kernels import _build, autotune  # noqa: E402
 from repro_torch.kernels.conv2d_int8 import kernel as gemm_kernel  # noqa
+from repro_torch.kernels.conv2d_int8 import ops as conv_ops  # noqa: E402
 from repro_torch.kernels.conv2d_int8.kernel import (  # noqa: E402
-    gemm_int8, k_major_view, plan_for, plans)
+    ALIGN, SMALL_N, gemm_int8, implicit_ok, k_major_view, plan_for, plans)
 from repro_torch.kernels.conv2d_int8.ref import (  # noqa: E402
-    bias_relu_ref, gemm_int8_ref, requantize_ref)
+    bias_relu_ref, conv2d_int8_via, gemm_int8_ref, im2col_int8,
+    requantize_ref)
 from repro_torch.kernels.flash_attention import kernel as flash_kernel  # noqa
 from repro_torch.kernels.flash_attention.kernel import (  # noqa: E402
     flash_attention)
@@ -387,6 +400,20 @@ KNEE_FRAMES = 96
 # The import phase: frames served by the imported LeNet (batch 4).
 IMPORT_FRAMES = 16
 GEMM_MODELS = ("alexnet", "vgg16", "resnet50")
+# gemm_int8's launches a batch by path on the kernel route: the convs
+# read as implicit GEMMs (a group width of a multiple of 64 channels), the
+# convs on patches made outside the kernel (the 3-channel stems, AlexNet's
+# conv2 at Cg 48), the fc layers; none on dp4a.
+PATHS_PER_BATCH = {
+    "alexnet": {"large_n": 3, "small_n": 3, "dp4a": 0, "implicit": 5},
+    "vgg16": {"large_n": 1, "small_n": 3, "dp4a": 0, "implicit": 12},
+    "resnet50": {"large_n": 1, "small_n": 1, "dp4a": 0, "implicit": 52}}
+
+
+def paths_for(model: str, batches: int) -> dict:
+    """``PATHS_PER_BATCH[model]`` over ``batches`` batches."""
+    return {p: n * batches for p, n in PATHS_PER_BATCH[model].items()}
+
 # The first design's per-shape times at AlexNet batch 16 (__dp4a, 64 x 64
 # tiles; cold L2, median of 10), recorded by this script on an NVIDIA
 # H100 80GB HBM3 at 700 W when that design was new (PERF.md), not measured
@@ -883,17 +910,21 @@ def _plan_label(plan) -> str:
     return f"{plan.path} {plan.width}x{64 * plan.warpgroups}"
 
 
-def _gemm_tilings(model, name, N, K, M, call, want, flush, cases) -> dict:
+def _gemm_tilings(model, name, N, K, M, call, want, flush, cases,
+                  route="gemm") -> dict:
     """Every ``wgmma`` tiling the kernels are built for that can take N
-    rows (``plans``), forced in place of ``plan_for``'s choice, checked bit
-    for bit against ``want`` (the wrapper's own result, already held to the
-    plain version) and timed cold: whether the wrapper's rule picks the
-    fastest. Labels are "path width x rows" of a tile."""
-    chosen = plan_for(N, K, M, torch.cuda.get_device_properties(
+    rows (``plans``; the large-N ones on the implicit conv ``route``, which
+    takes them at every N), forced in place of ``plan_for``'s choice,
+    checked bit for bit against ``want`` (the wrapper's own result,
+    already held to the plain version) and timed cold: whether the
+    wrapper's rule picks the fastest. Labels are "path width x rows" of a
+    tile."""
+    n_plan = max(N, SMALL_N + 1) if route == "implicit" else N
+    chosen = plan_for(n_plan, K, M, torch.cuda.get_device_properties(
         0).multi_processor_count)
     times = {}
     try:
-        for plan in plans(N):
+        for plan in plans(n_plan):
             gemm_kernel.plan_for = lambda *shape, plan=plan: plan
             if not torch.equal(call(), want):
                 raise SmokeFailure(f"gemm_int8 tiling {_plan_label(plan)} "
@@ -906,8 +937,8 @@ def _gemm_tilings(model, name, N, K, M, call, want, flush, cases) -> dict:
     finally:
         gemm_kernel.plan_for = plan_for
     fastest = min(times, key=times.get)
-    row = {"phase": "gemm_int8_tilings", "model": model, "engine": name,
-           "N": N, "K": K, "M": M, "ms": times,
+    row = {"phase": "gemm_int8_tilings", "route": route, "model": model,
+           "engine": name, "N": N, "K": K, "M": M, "ms": times,
            "chosen": _plan_label(chosen), "fastest": fastest,
            "chosen_over_fastest": times[_plan_label(chosen)] / times[fastest]}
     emit(row)
@@ -1000,6 +1031,9 @@ def _gemm_model_shapes(model: str, gen, peaks, flush, cases,
         return sum(r[key] * r["launches_per_batch"] for r in rows)
     by_ops = per("bound_ms", [r for r in shapes
                               if r["bound_by"] == "operations"])
+    fc_names = {lyr.name for lyr in CNN_MODELS[model]().layers
+                if lyr.kind == "fc"}
+    fc = [r for r in shapes if r["engine"] in fc_names]
     have_lib = all(r["library_ms"] is not None for r in shapes)
     batch = {"launches": sum(r["launches_per_batch"] for r in shapes),
              "ms": per("ms"), "dp4a_ms": per("dp4a_ms"),
@@ -1007,7 +1041,8 @@ def _gemm_model_shapes(model: str, gen, peaks, flush, cases,
              "bound_by": "operations" if 2 * by_ops >= per("bound_ms")
              else "bytes",
              "library_ms": per("library_ms") if have_lib else None,
-             "ops": per("ops"), "tilings": tilings}
+             "ops": per("ops"), "tilings": tilings,
+             "fc_ms": per("ms", fc), "fc_bound_ms": per("bound_ms", fc)}
     res = [r for r in shapes if r["skip"]]
     if res:
         have_lib = all(r["library_ms"] is not None for r in res)
@@ -1020,6 +1055,164 @@ def _gemm_model_shapes(model: str, gen, peaks, flush, cases,
           **{k: v for k, v in batch.items() if k != "tilings"},
           "ops_per_s": batch["ops"] / (batch["ms"] * 1e-3),
           "bound_share": batch["bound_ms"] / batch["ms"]})
+    return batch
+
+
+def conv_shapes(model_name: str, batch: int) -> list:
+    """Every distinct conv of one batch of ``model_name``: (engine, x
+    shape [B, H, W, C], R = S, stride, (lo, hi) padding on both dims,
+    groups, M, ReLU, adds a skip, launches of the shape a batch), named by
+    its first engine."""
+    model = CNN_MODELS[model_name]()
+    rows: dict = {}
+    for lyr, hw in zip(model.layers, model.in_sizes()):
+        if lyr.kind != "conv":
+            continue
+        key = ((batch, hw, hw, lyr.in_ch), lyr.kernel, lyr.stride,
+               lyr.padding(hw), lyr.groups, lyr.out_ch,
+               lyr.relu is not False, lyr.residual is not None)
+        if key in rows:
+            rows[key][-1] += 1
+        else:
+            rows[key] = [lyr.name, *key, 1]
+    return [tuple(r) for r in rows.values()]
+
+
+def _conv_model_shapes(model: str, gen, peaks, flush, cases,
+                       gemm_batch: dict) -> dict:
+    """Every conv of one batch of ``model`` as ``conv2d_int8`` runs it:
+    on the implicit route where ``implicit_ok`` admits it (its launches
+    counted: one ``implicit`` a group, nothing else), bit for bit against
+    the explicit route (``conv2d_int8_via`` over ``gemm_int8``: im2col,
+    then the GEMM); each timed cold by CUDA events: the implicit route,
+    the explicit route whole, its im2col alone and its GEMM alone on the
+    patches made beforehand; the bound (the input activation read once,
+    no patches: ``bench/roofline/counts.py``'s yardstick). At each
+    implicit conv every large-N tiling is forced in turn
+    (``gemm_int8_tilings`` lines). Returns the per-batch sums, with the
+    fc layers' GEMMs from ``gemm_batch`` (phase 2's rows) beside them."""
+    _, peak_ops, _, peak_bytes = peaks
+    rows, tilings = [], []
+    for name, xshape, R, stride, pad, groups, M, relu, has_skip, n in \
+            conv_shapes(model, SERVE_BATCH):
+        B, H, W, C = xshape
+        Cg, Mg = C // groups, M // groups
+        pads = (pad, pad)
+        Ho = (H + sum(pad) - R) // stride + 1
+        N, K = B * Ho * Ho, R * R * Cg
+        x = _rand_int8(gen, xshape)
+        w = k_major_view(_rand_int8(gen, (R, R, Cg, M), -40, 40))
+        shift = torch.randint(2, 14, (M,), generator=gen, device="cuda",
+                              dtype=torch.int32)
+        bias = torch.randint(-2 ** 20, 2 ** 20, (M,), generator=gen,
+                             device="cuda", dtype=torch.int32)
+        skip = {}
+        if has_skip:
+            skip = {"residual": _rand_int8(gen, (B, Ho, Ho, M)),
+                    "res_shift": torch.randint(-8, 12, (M,), generator=gen,
+                                               device="cuda",
+                                               dtype=torch.int32)}
+        kw = dict(stride=stride, padding=pads, groups=groups, relu=relu,
+                  **skip)
+        implicit = implicit_ok(x, w, stride=stride, pad=pads, groups=groups)
+
+        def route():
+            return conv_ops.conv2d_int8(x, w, shift, bias, **kw)
+
+        def explicit():
+            return conv2d_int8_via(gemm_int8, x, w, shift, bias,
+                                   row_align=ALIGN, **kw)
+
+        def im2col():
+            return [im2col_int8(x[..., g * Cg:(g + 1) * Cg], R, R, stride,
+                                pads, ALIGN) for g in range(groups)]
+        patches = im2col()
+        res2d = None if not skip else skip["residual"].reshape(N, M)
+
+        def gemm():
+            outs = []
+            for g in range(groups):
+                cols = slice(g * Mg, (g + 1) * Mg)
+                extra = {} if res2d is None else {
+                    "residual": res2d[:, cols],
+                    "res_shift": skip["res_shift"][cols]}
+                outs.append(gemm_int8(
+                    patches[g].reshape(N, K), w[..., cols].reshape(K, Mg),
+                    shift[cols], bias[cols], relu=relu, **extra))
+            return outs
+
+        want = explicit()
+        before = dict(gemm_int8.launches_by_path)
+        got = route()
+        torch.cuda.synchronize()
+        ran = {p: c - before[p] for p, c in gemm_int8.launches_by_path.items()
+               if c != before[p]}
+        expect_ran = {"implicit" if implicit else "large_n": groups}
+        exact = torch.equal(got, want)
+        label = f"{model} {name} conv {tuple(xshape)} R{R}/{stride} {pad}"
+        cases.append({"case": label, "layout": "NHWC",
+                      "path": "implicit" if implicit else "large_n",
+                      "exact": exact, "max_abs_err": 0 if exact else None})
+        if not exact or ran != expect_ran:
+            raise SmokeFailure(f"conv route on {label}: exact {exact}, "
+                               f"launched {ran}, expected {expect_ran}")
+        del got
+        ms = {"route": _time_cold_ms(route, flush),
+              "explicit": _time_cold_ms(explicit, flush),
+              "im2col": _time_cold_ms(im2col, flush),
+              "gemm": _time_cold_ms(gemm, flush)}
+        ops = 2 * N * K * M
+        nbytes = B * H * W * C + K * M + 8 * M + N * M
+        if has_skip:
+            nbytes += N * M + 4 * M
+        t_ops, t_bytes = ops / peak_ops * 1e3, nbytes / peak_bytes * 1e3
+        row = {"phase": "gemm_int8_conv", "model": model, "engine": name,
+               "x": list(xshape), "R": R, "stride": stride, "pad": list(pad),
+               "groups": groups, "M": M, "N": N, "K": K, "skip": has_skip,
+               "launches_per_batch": n * groups,
+               "route": "implicit" if implicit else "explicit",
+               "patch_bytes": N * (-(-K // ALIGN) * ALIGN) * groups,
+               "plan": dataclasses.asdict(plan_for(
+                   max(N, SMALL_N + 1) if implicit else N, K, Mg,
+                   torch.cuda.get_device_properties(
+                       0).multi_processor_count)),
+               "route_ms": ms["route"], "explicit_ms": ms["explicit"],
+               "im2col_ms": ms["im2col"], "gemm_ms": ms["gemm"],
+               "ops": ops, "bytes": nbytes, "bound_ms": max(t_ops, t_bytes),
+               "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+               "exact": True, "convs": n}
+        row["bound_share"] = row["bound_ms"] / ms["route"]
+        rows.append(row)
+        emit(row)
+        if implicit:
+            tilings.append(_gemm_tilings(model, name, N, K, Mg, route,
+                                         want, flush, cases,
+                                         route="implicit"))
+        del patches, want
+
+    def per(key, sel=rows):
+        return sum(r[key] * r["convs"] for r in sel)
+    imp = [r for r in rows if r["route"] == "implicit"]
+    batch = {"convs": sum(r["convs"] for r in rows),
+             "launches": {"implicit": sum(r["launches_per_batch"]
+                                          for r in imp),
+                          "large_n": sum(r["launches_per_batch"]
+                                         for r in rows if r not in imp)},
+             "route_ms": per("route_ms"), "explicit_ms": per("explicit_ms"),
+             "im2col_ms": per("im2col_ms"), "gemm_ms": per("gemm_ms"),
+             "bound_ms": per("bound_ms"),
+             "implicit_convs": {k: per(k, imp) for k in (
+                 "route_ms", "explicit_ms", "im2col_ms", "gemm_ms",
+                 "bound_ms", "patch_bytes")},
+             "fc_ms": gemm_batch["fc_ms"],
+             "fc_bound_ms": gemm_batch["fc_bound_ms"]}
+    batch["with_fc"] = {
+        "route_ms": batch["route_ms"] + batch["fc_ms"],
+        "explicit_ms": batch["explicit_ms"] + batch["fc_ms"],
+        "bound_ms": batch["bound_ms"] + batch["fc_bound_ms"]}
+    emit({"phase": "gemm_int8_conv_batch", "model": model,
+          "batch": SERVE_BATCH, **batch})
+    batch["tilings"] = tilings
     return batch
 
 
@@ -1078,6 +1271,9 @@ def phase_gemm(env: dict) -> dict:
     batches = {model: _gemm_model_shapes(model, gen, peaks, flush, cases,
                                          max_err)
                for model in GEMM_MODELS}
+    for model in GEMM_MODELS:
+        batches[model]["conv"] = _conv_model_shapes(
+            model, gen, peaks, flush, cases, batches[model])
     del flush
     emit({"phase": "gemm_int8_vs_plain", "cases": len(cases),
           "all_exact": all(c["exact"] for c in cases),
@@ -1119,9 +1315,9 @@ def phase_main_path() -> dict:
     served = result.pop("outputs")
     expect = 11 * result["batches"]
     # Per batch: conv1-conv5 (8 launches, two groups on conv2, 4, 5) on
-    # the large-N kernels, fc6-fc8 on the small-N one, none on dp4a.
-    expect_paths = {"large_n": 8 * result["batches"],
-                    "small_n": 3 * result["batches"], "dp4a": 0}
+    # the large-N kernel, conv3-conv5's 5 as implicit GEMMs; fc6-fc8 on
+    # the small-N one, none on dp4a.
+    expect_paths = paths_for("alexnet", result["batches"])
     emit({"phase": "serve", **result, "gemm_int8_launches": launches,
           "launches_by_path": by_path, "expected_launches": expect,
           "expected_by_path": expect_paths})
@@ -1369,8 +1565,9 @@ def phase_breakdown(prog, frames) -> None:
 
 def phase_vgg16() -> dict:
     """Full-width VGG16 (seed 0) on one batch of 16 frames: the kernel
-    route with its launches counted (13 convs on the large-N kernels, the
-    3 fc layers on the small-N one, none on dp4a) and its int32
+    route with its launches counted (13 convs on the large-N kernel, 12
+    of them as implicit GEMMs, the 3 fc layers on the small-N one, none on
+    dp4a) and its int32
     accumulators equal to the oracle and f32 routes'; the chain's wall
     time, device time by kernel and idle share."""
     prog = compile_for_serving("vgg16", seed=0, device="cuda")
@@ -1381,7 +1578,7 @@ def phase_vgg16() -> dict:
     acc = kernel(xq)
     torch.cuda.synchronize()
     launches, by_path = gemm_int8.launches, dict(gemm_int8.launches_by_path)
-    expect = {"large_n": 13, "small_n": 3, "dp4a": 0}
+    expect = paths_for("vgg16", 1)
     accs = {"kernel": acc}
     for route in ("oracle", "f32"):
         accs[route] = prog.compile_runner(route=route)(xq)
@@ -1422,9 +1619,10 @@ def phase_vgg16() -> dict:
     return {"launches": launches}
 
 
-# ResNet-50 v1.5 a batch: 53 convs on the large-N kernels (16 of them
-# adding their bottleneck's skip), the fc on the small-N one.
-RESNET_PATHS = {"large_n": 53, "small_n": 1, "dp4a": 0}
+# ResNet-50 v1.5 a batch: 53 convs on the large-N kernel (the 52 after
+# the stem as implicit GEMMs, 16 of them adding their bottleneck's skip),
+# the fc on the small-N one.
+RESNET_PATHS = paths_for("resnet50", 1)
 RESNET_SKIPS = 16
 # Frames of the batch the plain version runs on the CPU.
 RESNET_CPU_FRAMES = 2
@@ -1596,8 +1794,8 @@ def _vgg16_pipeline() -> list:
     """Full-width VGG16 through ``PipelineExecutor`` at each K of
     ``VGG_PIPE_STAGES``: the int32 accumulators every batch reaches the
     collector with equal the whole chain's (``compile_runner``) and the
-    oracle route's on the same frames, and each batch launches 13
-    ``large_n`` + 3 ``small_n`` kernels summed over the stages."""
+    oracle route's on the same frames, and each batch launches
+    ``PATHS_PER_BATCH["vgg16"]`` summed over the stages."""
     prog = compile_for_serving("vgg16", seed=0, device="cuda")
     n = VGG_PIPE_BATCHES * SERVE_BATCH
     frames = synthetic_stream("vgg16", n, 0)
@@ -1623,8 +1821,7 @@ def _vgg16_pipeline() -> list:
             by_path = dict(gemm_int8.launches_by_path)
         finally:
             px.close()
-        expect = {"large_n": 13 * VGG_PIPE_BATCHES,
-                  "small_n": 3 * VGG_PIPE_BATCHES, "dp4a": 0}
+        expect = paths_for("vgg16", VGG_PIPE_BATCHES)
         identical = len(cap.accs) == len(want) and all(
             a.dtype == torch.int32 and torch.equal(a, w.cpu())
             for a, w in zip(cap.accs, want))
@@ -1649,8 +1846,8 @@ def phase_pipeline() -> dict:
     through ``serve_async`` at K = 1, 2 and 4 stages and through the
     replica pool at R = 2, K = 2, on the one card: partition, steady fps
     beside the single executor's in the same run, the open-loop p50, p95
-    and p99, launches by path (8 ``large_n`` + 3 ``small_n`` a batch
-    summed over the stages, no ``dp4a``), every served frame's top-1
+    and p99, launches by path (``PATHS_PER_BATCH`` summed over the
+    stages, no ``dp4a``), every served frame's top-1
     (and on one pass its logits) identical to the single executor's and
     the oracle route's; then
     the closed-loop fps of the single executor and every config in turns
@@ -1694,7 +1891,7 @@ def phase_pipeline() -> dict:
         outs = res.pop("outputs")
         res.pop("replica_rows", None)
         n = res["batches_run"]
-        expect = {"large_n": 8 * n, "small_n": 3 * n, "dp4a": 0}
+        expect = paths_for("alexnet", n)
         top1 = outs.argmax(-1) if logits else outs
         row = {"phase": "pipeline", "config": f"K{k}R{r}", **res,
                "single_executor_steady_fps":
@@ -1979,7 +2176,7 @@ def phase_chaos_elastic() -> dict:
           and res["replicas_after"] == 2 and top1_ok
           and len(served["frame_idx"]) > 0 and by_path["dp4a"] == 0
           and by_path["small_n"] > 0
-          and 3 * by_path["large_n"] == 8 * by_path["small_n"])
+          and by_path == paths_for("alexnet", by_path["small_n"] // 3))
     if not ok:
         raise SmokeFailure(f"elastic check failed: {knee_row}")
     return {"launches": launched, "by_path": by_path,
@@ -2050,7 +2247,8 @@ def phase_import() -> dict:
           and serve["route"] == "kernel" and small > 0
           and by_path["large_n"] == 2 * small
           and by_path["dp4a"] == 2 * small
-          and kernel_paths == {"large_n": 2, "small_n": 1, "dp4a": 2})
+          and kernel_paths == {"large_n": 2, "small_n": 1, "dp4a": 2,
+                               "implicit": 0})
     if not ok:
         raise SmokeFailure(f"import check failed: {row}")
     return {"launches": launched, "by_path": by_path, "batches": small}
@@ -5379,8 +5577,8 @@ def main() -> int:
             "alexnet-elastic": f"two K2 replicas, one killed, then "
                                f"serve_knee_rescale R1 -> R2: "
                                f"{elastic['batches']} batches of "
-                               f"{SERVE_BATCH}, 8 large_n + 3 small_n "
-                               f"each",
+                               f"{SERVE_BATCH}, 3 large_n + 5 implicit "
+                               f"+ 3 small_n each",
             "lenet": f"examples/lenet.json through import_model "
                      f"(calibration and serve): {lenet['batches']} "
                      f"batches of 4, 2 large_n + 1 small_n + 2 dp4a "
@@ -5406,6 +5604,8 @@ def main() -> int:
                                        "library_ms")},
         **({"skip_launches": gemm[model]["residual"]}
            if "residual" in gemm[model] else {}),
+        "conv_route": {k: v for k, v in gemm[model]["conv"].items()
+                       if k != "tilings"},
         "path": model,
         "per": f"one {model} batch of {SERVE_BATCH}: the sum over its "
                f"{gemm[model]['launches']} launches"}

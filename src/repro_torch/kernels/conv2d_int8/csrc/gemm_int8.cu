@@ -22,7 +22,9 @@
 // it; the CUDA cores' __dp4a reach a few percent of it.
 //
 // Three kernels, picked by the wrapper (kernel.py) from N and the layout:
-//   * `gemm_wgmma<W, G, 1, false>`, large N (the convs): a block takes
+//   * `gemm_wgmma<W, G, 1, false>`, large N (the fc layers at large
+//     batches, and the convs that the implicit form below cannot take:
+//     patches built by im2col outside the kernel): a block takes
 //     64 G rows of x by W output channels: 128-row tiles (G = 2) W = 64,
 //     96 or 128 wide (wgmma s8 widths, so M = 96 and 128 fit one tile,
 //     384 three; wider tiles are not built), or 64 x 64 tiles (G = 1)
@@ -42,6 +44,19 @@
 //     (setmaxnreg.inc); with G = 1 two blocks share an SM. int8 output
 //     rows of a multiple of 16 bytes are staged in shared memory and
 //     stored a whole row at a time in 16-byte pieces.
+//   * the same kernel as an implicit-GEMM conv (`gemm_wgmma<W, G, 1,
+//     false, RES, A_IM2COL*>`, launched by gemm_int8_conv_launch): A, the
+//     patches, is read straight from the conv's int8 NHWC input by TMA's
+//     im2col mode, so no patch matrix is written to device memory. The
+//     map covers one channel group (base at its first channel, Cg
+//     channels, pixels C bytes apart); the conv's padding is the map's
+//     box corners (TMA fills zeros there) and its stride the traversal
+//     stride. A load brings the 64 G output pixels of a tile, in A's row
+//     order (image, row, column), at one filter tap (r, s): the load's
+//     im2col offsets. K stays ordered (r, s, c), so the K-major weights
+//     and their 2-D map are unchanged. A 128-byte stage is one tap's box
+//     where Cg is a multiple of 128, else two 64-byte boxes (64-byte
+//     swizzle, which the A descriptors follow).
 //   * `gemm_wgmma<W, 1, 2, true>`, small N (N <= 64: the fc layers at a
 //     batch of 16): the operands swap, out^T[M, N] = w_k[M, K] . x[N, K]^T,
 //     so the weights are wgmma's 64-row A and x's rows its width W (16, 32
@@ -62,11 +77,11 @@
 // over K < 2^17 stays below 2^31, and the bias add then wraps as the plain
 // version's int32 add does.
 //
-// What remains: im2col runs outside the kernel (the patches are
-// materialised in device memory), one launch per channel group, no
-// persistent scheduler (a tile's epilogue does not overlap the next
-// tile's loads), and the output is stored from registers, not through
-// shared memory and TMA.
+// What remains: the convs whose group width is not a multiple of 64
+// bytes (the 3-channel stems, AlexNet's conv2) still take patches made
+// outside the kernel; one launch per channel group; no persistent
+// scheduler (a tile's epilogue does not overlap the next tile's loads);
+// the output is stored from registers, not through shared memory and TMA.
 
 #include <limits.h>
 
@@ -273,6 +288,22 @@ struct WgTile {
   static_assert(G == 1 || CONSUMER_REGS <= 256, "setmaxnreg's limit");
 };
 
+// How the producer brings A (gemm_wgmma's AM).
+enum AMode : int {
+  A_TILED = 0,     // a 2-D map over an int8 [rows, K] matrix
+  A_IM2COL = 1,    // a conv's patches by im2col: one 128-byte box a stage
+  A_IM2COL64 = 2,  // the same in two 64-byte boxes a stage
+};
+
+// A conv's geometry, for the im2col loads.
+struct ConvGeom {
+  int cg;           // the group's channels: K = R S cg, ordered (r, s, c)
+  int s, rs;        // the filter's width S, and R S
+  int hw, wo;       // output pixels an image, and a row
+  int stride;       // both spatial dims
+  int pad_t, pad_l;
+};
+
 struct WgParams {
   const int32_t* shift;
   const int32_t* bias;      // or null
@@ -284,6 +315,7 @@ struct WgParams {
   int M;                    // the output's row length
   int k_iters;              // stages of KB BK over K
   int relu, emit_int32;
+  ConvGeom conv;            // AM != A_TILED only
 };
 
 // One TMA box [rows][128 bytes] of a 2-D int8 tensor, at byte column k of
@@ -299,18 +331,42 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
       : "memory");
 }
 
+// One im2col box of a 4-D [b, h, w, c] map into shared memory: `rows`
+// pixels (the map's) of the box's channels from channel c, the first at
+// input (h, w) of image b, the traversal's start, each read at filter tap
+// (r, s); the barrier counts its bytes.
+__device__ __forceinline__ void tma_load_im2col(uint32_t dst,
+                                                const CUtensorMap* map,
+                                                uint32_t bar, int c, int w,
+                                                int h, int b, int s, int r) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.im2col.mbarrier"
+      "::complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], [%2], {%7, %8};\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c),
+         "r"(w), "r"(h), "r"(b), "h"((unsigned short)s),
+         "h"((unsigned short)r)
+      : "memory");
+}
+
 // The consumer threads (and only they) meet on barrier 1.
 template <int N>
 __device__ __forceinline__ void consumers_sync() {
   asm volatile("bar.sync 1, %0;\n" :: "n"(N) : "memory");
 }
 
-template <int W, int G, int KB, bool SWAP, bool RES>
+template <int W, int G, int KB, bool SWAP, bool RES, int AM>
 __global__ void __launch_bounds__((G + 1) * 128, (WgTile<W, G, KB>::B))
 gemm_wgmma(const __grid_constant__ CUtensorMap ta,
            const __grid_constant__ CUtensorMap tb, const WgParams p) {
   using T = WgTile<W, G, KB>;
   constexpr int REGS = W / 2;
+  // A's boxes: BOXES a 128-byte K stage, rows of A_ROW bytes swizzled in
+  // A_ROW, A_SUB bytes a box.
+  constexpr int BOXES = AM == A_IM2COL64 ? 2 : 1;
+  constexpr int A_ROW = BK / BOXES;
+  constexpr int A_SUB = T::ROWS * A_ROW;
+  static_assert(AM == A_TILED || (KB == 1 && !SWAP),
+                "im2col feeds the large-N kernel's A");
   extern __shared__ unsigned char smem_raw[];
   __shared__ __align__(8) uint64_t bars[2 * T::STAGES];
   // Swizzle atoms must sit on 1024-byte boundaries.
@@ -335,6 +391,17 @@ gemm_wgmma(const __grid_constant__ CUtensorMap ta,
       asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n"
                    :: "n"(PRODUCER_REGS));
     if (threadIdx.x == G * 128) {
+      // im2col: the tile's first output pixel (image img, row ho, column
+      // wo) and the input pixel its filter's top-left tap reads, where the
+      // traversal starts; it walks the output pixels in A's row order,
+      // across rows and images.
+      int img = 0, h = 0, w = 0;
+      if constexpr (AM != A_TILED) {
+        img = a0 / p.conv.hw;
+        const int q = a0 - img * p.conv.hw, ho = q / p.conv.wo;
+        h = ho * p.conv.stride - p.conv.pad_t;
+        w = (q - ho * p.conv.wo) * p.conv.stride - p.conv.pad_l;
+      }
       for (int it = 0; it < p.k_iters; ++it) {
         const int s = it % T::STAGES;
         mbar_wait(empty + 8 * s, ((it / T::STAGES) & 1) ^ 1);
@@ -343,7 +410,23 @@ gemm_wgmma(const __grid_constant__ CUtensorMap ta,
 #pragma unroll
         for (int kb = 0; kb < KB; ++kb) {
           const int k = (it * KB + kb) * BK;
-          tma_load(dst + kb * T::A_BOX, &ta, full + 8 * s, k, a0);
+          if constexpr (AM == A_TILED) {
+            tma_load(dst + kb * T::A_BOX, &ta, full + 8 * s, k, a0);
+          } else {
+#pragma unroll
+            for (int j = 0; j < BOXES; ++j) {
+              // The box's tap and first channel; a box past K (the last
+              // of an odd count of 64-byte boxes) reads tap 0, which
+              // meets B's zeros there.
+              int tap = (k + j * A_ROW) / p.conv.cg;
+              int c = k + j * A_ROW - tap * p.conv.cg;
+              if (tap >= p.conv.rs) tap = c = 0;
+              const int r = tap / p.conv.s;
+              tma_load_im2col(dst + kb * T::A_BOX + j * A_SUB, &ta,
+                              full + 8 * s, c, w, h, img, tap - r * p.conv.s,
+                              r);
+            }
+          }
           tma_load(dst + T::A_BYTES + kb * T::B_BOX, &tb, full + 8 * s, k,
                    b0);
         }
@@ -360,8 +443,10 @@ gemm_wgmma(const __grid_constant__ CUtensorMap ta,
 #pragma unroll
     for (int i = 0; i < REGS; ++i) acc[i] = 0;
     // Descriptors are a base plus offsets in 16-byte units: the stage, the
-    // box, and 32 bytes a k-step inside the 128-byte swizzled row.
-    const uint64_t da = smem_desc(ring + wg * 64 * BK, 16, 1024);
+    // box, and 32 bytes a k-step inside the swizzled row (A's 64-byte
+    // boxes: the second two k-steps in the stage's second box).
+    const uint64_t da = smem_desc(ring + wg * 64 * A_ROW, 16, 8 * A_ROW,
+                                  A_ROW);
     const uint64_t db = smem_desc(ring + T::A_BYTES, 16, 1024);
     fence_regs(acc);
     for (int it = 0; it < p.k_iters; ++it) {
@@ -373,7 +458,9 @@ gemm_wgmma(const __grid_constant__ CUtensorMap ta,
       for (int kb = 0; kb < KB; ++kb)
 #pragma unroll
         for (int kk = 0; kk < BK / 32; ++kk)
-          wgmma_s8<W>(acc, da + off + ((kb * T::A_BOX) >> 4) + 2 * kk,
+          wgmma_s8<W>(acc,
+                      da + off + ((kb * T::A_BOX + 32 * kk / A_ROW * A_SUB
+                                   + 32 * kk % A_ROW) >> 4),
                       db + off + ((kb * T::B_BOX) >> 4) + 2 * kk);
       wgmma_commit();
       // The previous stage's products are done: hand its slot back.
@@ -527,10 +614,54 @@ bool tensor_map(CUtensorMap* map, const void* base, int rows, int K,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int W, int G, int KB, bool SWAP, bool RES>
-cudaError_t launch_wgmma(const void* a, long long lda, const void* b,
-                         long long ldb, int K, WgParams p,
-                         cudaStream_t stream) {
+// cuTensorMapEncodeIm2col, looked up as the tiled encoder is.
+using EncodeIm2col = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                  cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const int*, const int*,
+                                  cuuint32_t, cuuint32_t, const cuuint32_t*,
+                                  CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+EncodeIm2col im2col_encoder() {
+  static const EncodeIm2col fn = reinterpret_cast<EncodeIm2col>(
+      driver_entry("cuTensorMapEncodeIm2col"));
+  return fn;
+}
+
+// An im2col tensor map over one channel group of a conv's int8 NHWC input
+// [B, H, W, C]: cg channels from `base` (the group's first), pixels `pix`
+// bytes apart. A load brings `rows` pixels of `box_c` channels (128 or 64
+// bytes, swizzled in as many), walking the positions of the filter's
+// top-left tap, from -pad to the last that the filter reaches, `stride`
+// apart, row by row and image by image; a position in the padding reads
+// as zero.
+bool im2col_map(CUtensorMap* map, const void* base, int B, int H, int W,
+                int cg, long long pix, int R, int S, int stride, int pad_t,
+                int pad_b, int pad_l, int pad_r, int box_c, int rows) {
+  EncodeIm2col fn = im2col_encoder();
+  if (!fn) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)cg, (cuuint64_t)W, (cuuint64_t)H,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)pix, (cuuint64_t)(pix * W),
+                                 (cuuint64_t)(pix * W * H)};
+  const int lower[2] = {-pad_l, -pad_t};                 // (w, h)
+  const int upper[2] = {pad_r - (S - 1), pad_b - (R - 1)};
+  const cuuint32_t traversal[4] = {1, (cuuint32_t)stride, (cuuint32_t)stride,
+                                   1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 4, const_cast<void*>(base),
+            dims, strides, lower, upper, (cuuint32_t)box_c,
+            (cuuint32_t)rows, traversal, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            box_c == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                         : CU_TENSOR_MAP_SWIZZLE_64B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// Launches gemm_wgmma on encoded maps; p.k_iters is set here from K.
+template <int W, int G, int KB, bool SWAP, bool RES, int AM>
+cudaError_t run_wgmma(const CUtensorMap& ta, const CUtensorMap& tb, int K,
+                      WgParams p, int dev, cudaStream_t stream) {
   using T = WgTile<W, G, KB>;
   static_assert(T::STAGES * T::STAGE >= G * 64 * (W + 16),
                 "the staged output tile fits in the ring");
@@ -539,30 +670,74 @@ cudaError_t launch_wgmma(const void* a, long long lda, const void* b,
   const long long tiles_b = ((long long)p.rows_b + W - 1) / W;
   if (tiles_a > 65535 || tiles_b > 65535)
     return cudaErrorInvalidValue;
-  int dev = 0;
-  cudaError_t err = bind_device_context(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
-  CUtensorMap ta, tb;
-  if (!tensor_map(&ta, a, p.rows_a, K, lda, T::ROWS)
-      || !tensor_map(&tb, b, p.rows_b, K, ldb, W))
-    return cudaErrorInvalidValue;
   // The shared-memory limit is set once per device (a driver call costs
   // host time on every launch otherwise). Several host threads may launch
   // at once: the flags are atomic, and two threads that both find one
   // unset both set the same attribute, which is harmless.
   static std::atomic<bool> configured[MAX_DEVICES];   // zero: all false
   if (!configured[dev].load(std::memory_order_acquire)) {
-    err = cudaFuncSetAttribute(gemm_wgmma<W, G, KB, SWAP, RES>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               T::SMEM);
+    const cudaError_t err = cudaFuncSetAttribute(
+        gemm_wgmma<W, G, KB, SWAP, RES, AM>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
     if (err != cudaSuccess) return err;
     configured[dev].store(true, std::memory_order_release);
   }
   const dim3 grid((unsigned)tiles_b, (unsigned)tiles_a);
-  gemm_wgmma<W, G, KB, SWAP, RES><<<grid, T::THREADS, T::SMEM, stream>>>(
-      ta, tb, p);
+  gemm_wgmma<W, G, KB, SWAP, RES, AM>
+      <<<grid, T::THREADS, T::SMEM, stream>>>(ta, tb, p);
   return cudaGetLastError();
+}
+
+// The device whose primary context the calling thread now holds, or an
+// error.
+cudaError_t current_device(int* dev) {
+  const cudaError_t err = bind_device_context(dev);
+  if (err != cudaSuccess) return err;
+  return *dev < MAX_DEVICES ? cudaSuccess : cudaErrorInvalidDevice;
+}
+
+template <int W, int G, int KB, bool SWAP, bool RES>
+cudaError_t launch_wgmma(const void* a, long long lda, const void* b,
+                         long long ldb, int K, WgParams p,
+                         cudaStream_t stream) {
+  int dev = 0;
+  const cudaError_t err = current_device(&dev);
+  if (err != cudaSuccess) return err;
+  CUtensorMap ta, tb;
+  if (!tensor_map(&ta, a, p.rows_a, K, lda, WgTile<W, G, KB>::ROWS)
+      || !tensor_map(&tb, b, p.rows_b, K, ldb, W))
+    return cudaErrorInvalidValue;
+  return run_wgmma<W, G, KB, SWAP, RES, A_TILED>(ta, tb, K, p, dev, stream);
+}
+
+// The implicit-GEMM conv on tiling (W, G): A by im2col from x (one channel
+// group), B the K-major weights [M, K] with row stride ldw.
+template <int W, int G>
+cudaError_t launch_conv(const void* x, int B, int H, int Wd, long long pix,
+                        int R, int S, int pad_b, int pad_r, const void* wk,
+                        long long ldw, WgParams p, bool res,
+                        cudaStream_t stream) {
+  int dev = 0;
+  const cudaError_t err = current_device(&dev);
+  if (err != cudaSuccess) return err;
+  const ConvGeom& g = p.conv;
+  const bool wide = g.cg % 128 == 0;
+  const int K = g.rs * g.cg;
+  CUtensorMap ta, tb;
+  if (!im2col_map(&ta, x, B, H, Wd, g.cg, pix, R, S, g.stride, g.pad_t,
+                  pad_b, g.pad_l, pad_r, wide ? 128 : 64,
+                  WgTile<W, G, 1>::ROWS)
+      || !tensor_map(&tb, wk, p.rows_b, K, ldw, W))
+    return cudaErrorInvalidValue;
+  if (wide)
+    return res ? run_wgmma<W, G, 1, false, true, A_IM2COL>(ta, tb, K, p, dev,
+                                                           stream)
+               : run_wgmma<W, G, 1, false, false, A_IM2COL>(ta, tb, K, p,
+                                                            dev, stream);
+  return res ? run_wgmma<W, G, 1, false, true, A_IM2COL64>(ta, tb, K, p, dev,
+                                                           stream)
+             : run_wgmma<W, G, 1, false, false, A_IM2COL64>(ta, tb, K, p,
+                                                            dev, stream);
 }
 
 }  // namespace
@@ -655,5 +830,59 @@ extern "C" int gemm_int8_wgmma_launch(const void* x, long long ldx,
   GEMM_CASE(32, 1, 2, true)
   GEMM_CASE(64, 1, 2, true)
 #undef GEMM_CASE
+  return (int)err;
+}
+
+// The implicit-GEMM conv: one channel group of an int8 NHWC input x
+// [B, H, W, C] (x points at the group's first channel; pixels `pix` = C
+// bytes apart), cg channels (a multiple of 64), an R x S filter at
+// `stride` with padding (pad_t, pad_b) on H and (pad_l, pad_r) on W,
+// against the group's K-major weights wk [M, K = R S cg] with row stride
+// ldw bytes; out [B Ho Wo, M] and the epilogue's operands as for
+// gemm_int8_wgmma_launch. x, wk, pix and ldw 16-byte aligned. `width` and
+// `warpgroups` pick one of the large-N tilings. Returns the first
+// cudaError_t met (0 on success); it does not synchronise.
+extern "C" int gemm_int8_conv_launch(const void* x, int B, int H, int W,
+                                     long long pix, int cg, int R, int S,
+                                     int stride, int pad_t, int pad_b,
+                                     int pad_l, int pad_r, const void* wk,
+                                     long long ldw, const void* shift,
+                                     const void* bias, void* out, int M,
+                                     int relu, int emit_int32, int width,
+                                     int warpgroups, const void* res,
+                                     long long ldr, const void* res_shift,
+                                     void* stream) {
+  const int Ho = (H + pad_t + pad_b - R) / stride + 1;
+  const int Wo = (W + pad_l + pad_r - S) / stride + 1;
+  if (B <= 0 || M <= 0 || cg <= 0 || cg % 64 || R <= 0 || S <= 0
+      || stride <= 0 || H + pad_t + pad_b < R || W + pad_l + pad_r < S)
+    return (int)cudaErrorInvalidValue;
+  const long long N = (long long)B * Ho * Wo;
+  if (N > INT_MAX) return (int)cudaErrorInvalidValue;
+  WgParams p;
+  p.shift = static_cast<const int32_t*>(shift);
+  p.bias = static_cast<const int32_t*>(bias);
+  p.res = static_cast<const int8_t*>(res);
+  p.ldr = ldr;
+  p.res_shift = static_cast<const int32_t*>(res_shift);
+  p.out = out;
+  p.rows_a = (int)N;
+  p.rows_b = M;
+  p.M = M;
+  p.relu = relu;
+  p.emit_int32 = emit_int32;
+  p.conv = {cg, S, R * S, Ho * Wo, Wo, stride, pad_t, pad_l};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaErrorInvalidValue;
+#define CONV_CASE(W_, G_)                                                   \
+  else if (width == W_ && warpgroups == G_)                                 \
+    err = launch_conv<W_, G_>(x, B, H, W, pix, R, S, pad_b, pad_r, wk, ldw,  \
+                              p, res != nullptr, s);
+  if (false) {}
+  CONV_CASE(64, 2)
+  CONV_CASE(96, 2)
+  CONV_CASE(128, 2)
+  CONV_CASE(64, 1)
+#undef CONV_CASE
   return (int)err;
 }

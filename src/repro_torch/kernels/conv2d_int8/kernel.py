@@ -8,12 +8,20 @@ the CPU goes to the plain version, ``ref.gemm_int8_ref``; a CUDA tensor
 always launches one kernel, or raises. Which kernel, the *path*, follows
 from the shapes and the layout:
 
-* ``"large_n"``: ``wgmma`` s8 fed by TMA, for N > 64 (the convs);
+* ``"large_n"``: ``wgmma`` s8 fed by TMA, for N > 64 (the convs whose
+  patches im2col builds outside the kernel, the fc layers at large
+  batches);
 * ``"small_n"``: the same with the operands swapped, for N <= 64 (the fc
   layers at small batches);
 * ``"dp4a"``: the first design (``__dp4a`` on the CUDA cores), for what
   TMA cannot take: a base or row stride that is not a multiple of 16
-  bytes, a row-major ``w`` (``wgmma`` reads int8 only K-major), K = 0.
+  bytes, a row-major ``w`` (``wgmma`` reads int8 only K-major), K = 0;
+* ``"implicit"``: the ``large_n`` kernel as an implicit-GEMM conv
+  (:func:`conv_int8_implicit`): it reads the patches straight from the
+  int8 NHWC activation by TMA's im2col mode, so no patch matrix is
+  written, on every conv that :func:`implicit_ok` admits (a group width
+  of a multiple of 64 channels, a contiguous input on a 16-byte base,
+  K-major weights).
 
 The ``wgmma`` paths want ``w`` as a [K, M] view whose stride along K is 1
 (a ``.t()`` of K-major [M, K] rows): :func:`k_major_view` makes it, once
@@ -33,10 +41,11 @@ from pathlib import Path
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.conv2d_int8.ref import gemm_int8_ref
+from repro_torch.kernels.conv2d_int8.ref import (conv2d_int8_via,
+                                                 gemm_int8_ref)
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "gemm_int8.cu"
-PATHS = ("large_n", "small_n", "dp4a")
+PATHS = ("large_n", "small_n", "dp4a", "implicit")
 SMALL_N = 64           # N up to this takes the swapped kernel
 BOX_K = 128            # K bytes of one TMA box (one swizzled row)
 ALIGN = 16             # TMA: bases and row strides in multiples of 16 bytes
@@ -44,6 +53,11 @@ ALIGN = 16             # TMA: bases and row strides in multiples of 16 bytes
 # built for: 128-row tiles of each large width, 64-row tiles of the first.
 LARGE_WIDTHS = (64, 96, 128)
 SMALL_WIDTHS = (16, 32, 64)
+IM2COL_CHANNELS = 64   # the implicit route's group widths: multiples of this
+# TMA's im2col limits on a 4-D map: traversal strides up to 8, box corners
+# (the padding, and the padding less the filter's extent) in [-128, 127].
+IM2COL_MAX_STRIDE = 8
+IM2COL_CORNER = 128
 
 
 @dataclasses.dataclass(frozen=True)
@@ -124,8 +138,12 @@ def _lib():
                                      i, p, ll, p, p]
     lib.gemm_int8_wgmma_launch.argtypes = [p, ll, p, ll, p, p, p, i, i, i,
                                            i, i, i, i, i, i, p, ll, p, p]
+    lib.gemm_int8_conv_launch.argtypes = [p, i, i, i, ll, i, i, i, i, i, i,
+                                          i, i, p, ll, p, p, p, i, i, i, i,
+                                          i, p, ll, p, p]
     lib.gemm_int8_launch.restype = ctypes.c_int
     lib.gemm_int8_wgmma_launch.restype = ctypes.c_int
+    lib.gemm_int8_conv_launch.restype = ctypes.c_int
     return lib
 
 
@@ -181,6 +199,29 @@ def _check_residual(residual: torch.Tensor, n: int, m: int) -> None:
                          f"{residual.stride()} for shape {(n, m)})")
 
 
+def _check_epilogue(N: int, M: int, shift: torch.Tensor,
+                    bias: torch.Tensor | None,
+                    residual: torch.Tensor | None,
+                    res_shift: torch.Tensor | None,
+                    *operands: torch.Tensor) -> torch.device:
+    """Checks the epilogue's operands for an [N, M] output (``residual``
+    as its [N, M] rows) and returns the one device they and ``operands``
+    are on."""
+    _check_vec("shift", shift, M)
+    if bias is not None:
+        _check_vec("bias", bias, M)
+    if (residual is None) != (res_shift is None):
+        raise ValueError("residual and res_shift come together")
+    if residual is not None:
+        _check_residual(residual, N, M)
+        _check_vec("res_shift", res_shift, M)
+    devices = {t.device for t in (*operands, shift, bias, residual,
+                                  res_shift) if t is not None}
+    if len(devices) != 1:
+        raise ValueError(f"operands on several devices: {devices}")
+    return devices.pop()
+
+
 def gemm_int8(x: torch.Tensor, w: torch.Tensor, shift: torch.Tensor,
               bias: torch.Tensor | None = None, *, relu: bool = False,
               emit_int32: bool = False,
@@ -207,19 +248,7 @@ def gemm_int8(x: torch.Tensor, w: torch.Tensor, shift: torch.Tensor,
         raise ValueError(f"x {tuple(x.shape)} and w {tuple(w.shape)} do not "
                          f"chain")
     M = w.shape[1]
-    _check_vec("shift", shift, M)
-    if bias is not None:
-        _check_vec("bias", bias, M)
-    if (residual is None) != (res_shift is None):
-        raise ValueError("residual and res_shift come together")
-    if residual is not None:
-        _check_residual(residual, N, M)
-        _check_vec("res_shift", res_shift, M)
-    device = x.device
-    devices = {t.device for t in (x, w, shift, bias, residual, res_shift)
-               if t is not None}
-    if len(devices) != 1:
-        raise ValueError(f"operands on several devices: {devices}")
+    device = _check_epilogue(N, M, shift, bias, residual, res_shift, x, w)
     if device.type == "cpu":
         return gemm_int8_ref(x, w, shift, bias, relu=relu,
                              emit_int32=emit_int32, residual=residual,
@@ -260,6 +289,125 @@ def gemm_int8(x: torch.Tensor, w: torch.Tensor, shift: torch.Tensor,
         with _build._COUNT_LOCK:
             gemm_int8.residual_launches += 1
     return out
+
+
+def _w_conv_k_major(w: torch.Tensor) -> bool:
+    """Whether conv weights w [R, S, Cg, M] are a K-major view on the
+    ``wgmma`` paths' alignment (:func:`k_major_view`): unit stride along
+    R, S, Cg, and [M, K] rows of a multiple of 16 bytes on a 16-byte
+    base."""
+    R, S, Cg, M = w.shape
+    K = R * S * Cg
+    return w.stride()[:3] == (S * Cg, Cg, 1) and \
+        (M <= 1 or w.stride(3) >= K and w.stride(3) % ALIGN == 0) and \
+        w.data_ptr() % ALIGN == 0
+
+
+def implicit_ok(x: torch.Tensor, w: torch.Tensor, *, stride: int,
+                pad: tuple[tuple[int, int], tuple[int, int]],
+                groups: int = 1) -> bool:
+    """Whether :func:`conv_int8_implicit` takes this conv: int8 x
+    [B, H, W, C] contiguous on a 16-byte base, int8 w [R, S, C / groups,
+    M] K-major (:func:`k_major_view`), a group width ``Cg`` of a multiple
+    of 64 channels (TMA's im2col boxes of 64 or 128 bytes), and a stride
+    and padding within TMA's im2col limits. The rest (the 3-channel
+    stems, AlexNet's conv2 at ``Cg`` 48, LeNet's convs) take im2col
+    outside the kernel."""
+    if x.dtype != torch.int8 or w.dtype != torch.int8 or x.ndim != 4 \
+            or w.ndim != 4:
+        return False
+    R, S, Cg, M = w.shape
+    (top, bot), (left, right) = pad
+    corners = (-top, -left, bot - (R - 1), right - (S - 1))
+    return x.shape[3] == Cg * groups and M % groups == 0 and \
+        Cg % IM2COL_CHANNELS == 0 and x.is_contiguous() and \
+        x.data_ptr() % ALIGN == 0 and _w_conv_k_major(w) and \
+        1 <= stride <= IM2COL_MAX_STRIDE and \
+        all(-IM2COL_CORNER <= c < IM2COL_CORNER for c in corners)
+
+
+def conv_int8_implicit(x: torch.Tensor, w: torch.Tensor,
+                       shift: torch.Tensor,
+                       bias: torch.Tensor | None = None, *, stride: int,
+                       pad: tuple[tuple[int, int], tuple[int, int]],
+                       groups: int = 1, relu: bool = False,
+                       emit_int32: bool = False,
+                       residual: torch.Tensor | None = None,
+                       res_shift: torch.Tensor | None = None
+                       ) -> torch.Tensor:
+    """The conv as an implicit GEMM on the ``large_n`` kernel: x [B, H, W,
+    C] int8, w [R, S, C / groups, M] int8 K-major, padding ``pad`` =
+    ((top, bottom), (left, right)), shift/bias [M] int32 -> int8 [B, Ho,
+    Wo, M] (int32 with ``emit_int32``), an int8 ``residual`` [B, Ho, Wo,
+    M] added in the epilogue as :func:`gemm_int8` adds it. One launch per
+    channel group; each reads its patches from x by TMA's im2col mode
+    (``gemm_int8_conv_launch``), so none is written; the tiling is
+    :func:`plan_for`'s large-N one for the GEMM's shape. The conv must
+    satisfy :func:`implicit_ok`. On CPU tensors the plain version runs
+    (``conv2d_int8_via`` over ``gemm_int8_ref``: the same integers)."""
+    if not implicit_ok(x, w, stride=stride, pad=pad, groups=groups):
+        raise ValueError(f"conv_int8_implicit cannot take x "
+                         f"{x.dtype} {tuple(x.shape)}, w {tuple(w.shape)} "
+                         f"strides {w.stride()}, stride {stride}, pad {pad}, "
+                         f"groups {groups}")
+    R, S, Cg, M = w.shape
+    B, H, W, C = x.shape
+    (top, bot), (left, right) = pad
+    Ho, Wo = (H + top + bot - R) // stride + 1, \
+        (W + left + right - S) // stride + 1
+    N, Mg = B * max(Ho, 0) * max(Wo, 0), M // groups
+    res2d = None
+    if residual is not None:
+        if tuple(residual.shape) != (B, Ho, Wo, M):
+            raise ValueError(f"residual: expected [{B}, {Ho}, {Wo}, {M}], "
+                             f"got {tuple(residual.shape)}")
+        res2d = residual.reshape(N, M)
+    device = _check_epilogue(N, M, shift, bias, res2d, res_shift, x, w)
+    if device.type == "cpu":
+        return conv2d_int8_via(gemm_int8_ref, x, w, shift, bias,
+                               stride=stride, padding=pad, groups=groups,
+                               relu=relu, emit_int32=emit_int32,
+                               residual=residual, res_shift=res_shift)
+    if device.type != "cuda":
+        raise ValueError(f"conv_int8_implicit runs on cuda or cpu, not "
+                         f"{device}")
+    dtype = torch.int32 if emit_int32 else torch.int8
+    if N == 0:
+        return torch.empty((B, max(Ho, 0), max(Wo, 0), M), dtype=dtype,
+                           device=device)
+    # The small-N kernel swaps the operands, so the implicit route keeps
+    # to the large-N tilings at every N.
+    plan = plan_for(max(N, SMALL_N + 1), R * S * Cg, Mg,
+                    _sms(device.index or 0))
+    if plan.path != "large_n":
+        raise ValueError(f"conv_int8_implicit runs the large-N tilings, "
+                         f"not {plan}")
+    stream = torch.cuda.current_stream(device).cuda_stream
+    outs = []
+    for g in range(groups):
+        cols = slice(g * Mg, (g + 1) * Mg)
+        out = torch.empty((N, Mg), dtype=dtype, device=device)
+        res = (None, 0, None) if res2d is None else \
+            (res2d[:, cols].data_ptr(), res2d.stride(0),
+             res_shift[cols].data_ptr())
+        err = _lib().gemm_int8_conv_launch(
+            x.data_ptr() + g * Cg, B, H, W, C, Cg, R, S, stride, top, bot,
+            left, right, w[..., cols].data_ptr(), w.stride(3),
+            shift[cols].data_ptr(),
+            None if bias is None else bias[cols].data_ptr(),
+            out.data_ptr(), Mg, int(relu), int(emit_int32), plan.width,
+            plan.warpgroups, *res, stream)
+        if err:
+            raise RuntimeError(
+                f"gemm_int8 launch failed: cudaError_t {err} (conv x "
+                f"{tuple(x.shape)}, w {tuple(w.shape)}, stride {stride}, "
+                f"pad {pad}, group {g}, path implicit)")
+        _build.count(gemm_int8, "implicit")
+        if residual is not None:
+            with _build._COUNT_LOCK:
+                gemm_int8.residual_launches += 1
+        outs.append(out.reshape(B, Ho, Wo, Mg))
+    return outs[0] if groups == 1 else torch.cat(outs, dim=-1)
 
 
 def reset_launches() -> None:

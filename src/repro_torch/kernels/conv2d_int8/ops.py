@@ -1,23 +1,29 @@
-"""conv2d / fc as int8 im2col + the Hopper int8 GEMM kernel with the fused
+"""conv2d / fc on the Hopper int8 GEMM kernel with the fused
 bias/ReLU/requantize epilogue. Twin of ``repro/kernels/conv2d_int8/ops.py``.
 
-The im2col (the line-buffer address generator) stays plain int8 tensor
-slicing outside the kernel, as the reference runs it in XLA outside the
-Pallas kernel; the MAC array + output pipeline is the kernel. Grouped
+A conv is an implicit GEMM over its int8 patches (the paper's line-buffer
+address generator). Where :func:`kernel.implicit_ok` admits it (a group
+width of a multiple of 64 channels: every conv of the paper's models but
+the 3-channel stems and AlexNet's conv2) the kernel reads the patches
+straight from the NHWC activation by TMA's im2col mode
+(``kernel.conv_int8_implicit``, path ``"implicit"``), and no patch matrix
+is written. The rest take the reference's route: int8 im2col as tensor
+slicing outside the kernel, into rows of a multiple of 16 bytes (AlexNet's
+stem has K = 363, VGG16's 27), which TMA needs, then the GEMM. Grouped
 convolutions (AlexNet's two-tower layers) run one weight-stationary GEMM
-per group, like the paper's per-engine channel split. The patches land in
-rows of a multiple of 16 bytes (AlexNet's stem has K = 363, VGG16's 27),
-which TMA needs; the weights reach the fast path as a K-major view
-(``core/program.py``). On CPU tensors the kernel's plain version runs
-instead (``kernel.gemm_int8``).
+per group on either route, like the paper's per-engine channel split. The
+weights reach the fast paths as a K-major view (``core/program.py``). On
+CPU tensors the kernel's plain version runs instead (the same integers).
 """
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.conv2d_int8.kernel import ALIGN, gemm_int8
-from repro_torch.kernels.conv2d_int8.ref import conv2d_int8_via
+from repro_torch.kernels.conv2d_int8.kernel import (ALIGN,
+                                                    conv_int8_implicit,
+                                                    gemm_int8, implicit_ok)
+from repro_torch.kernels.conv2d_int8.ref import conv2d_int8_via, resolve_pad
 
 
 def conv2d_int8(x: torch.Tensor, w: torch.Tensor, shift: torch.Tensor,
@@ -35,8 +41,16 @@ def conv2d_int8(x: torch.Tensor, w: torch.Tensor, shift: torch.Tensor,
     ``stride`` and ``groups`` are arbitrary, so every conv shape in the
     paper's four models (stride-4/stride-2 stems, grouped towers) takes
     this route. ``w`` may be HWIO row-major or a K-major view of that
-    shape; only the K-major one reaches the ``wgmma`` kernels.
+    shape; only the K-major one reaches the ``wgmma`` kernels, and only
+    it the implicit route.
     """
+    pad = resolve_pad(padding, x.shape[1], x.shape[2], w.shape[0],
+                      w.shape[1], stride)
+    if implicit_ok(x, w, stride=stride, pad=pad, groups=groups):
+        return conv_int8_implicit(x, w, shift, bias, stride=stride, pad=pad,
+                                  groups=groups, relu=relu,
+                                  emit_int32=emit_int32, residual=residual,
+                                  res_shift=res_shift)
     return conv2d_int8_via(gemm_int8, x, w, shift, bias, stride=stride,
                            padding=padding, groups=groups, relu=relu,
                            row_align=ALIGN, emit_int32=emit_int32,

@@ -129,8 +129,10 @@ def im2col_int8(x: torch.Tensor, R: int, S: int, stride: int,
     return patches[..., :K] if extra else patches
 
 
-def _resolve_pad(padding, in_h: int, in_w: int, R: int, S: int,
-                 stride: int) -> Pad2:
+def resolve_pad(padding, in_h: int, in_w: int, R: int, S: int,
+                stride: int) -> Pad2:
+    """``padding`` ("same", or explicit ((top, bottom), (left, right)))
+    as explicit pairs for an R x S filter at ``stride``."""
     if padding == "same":
         return same_padding(in_h, R, stride), same_padding(in_w, S, stride)
     return tuple(tuple(p) for p in padding)  # type: ignore[return-value]
@@ -159,7 +161,7 @@ def conv2d_int8_via(gemm_fn, x: torch.Tensor, w: torch.Tensor,
     if C != Cg * groups or M % groups:
         raise ValueError(f"x {tuple(x.shape)} and w {tuple(w.shape)} do "
                          f"not split into {groups} groups")
-    pad = _resolve_pad(padding, H, W, R, S, stride)
+    pad = resolve_pad(padding, H, W, R, S, stride)
     outs = []
     Mg = M // groups
     for g in range(groups):

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) plumbing shared by the port's TMA + wgmma kernels
 // (conv2d_int8/csrc/gemm_int8.cu, flash_attention/csrc/flash_attention.cu):
 // shared-memory addresses, the mbarrier ring's operations, the wgmma
-// fences and descriptors, and the host's lookup of cuTensorMapEncodeTiled.
+// fences and descriptors, and the host's lookup of the driver's tensor-map
+// encoders.
 // Included by each source, which _build.py compiles alone; _build.py
 // hashes this directory into every library's name, so an edit here
 // rebuilds them all.
@@ -58,15 +59,18 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
 // wgmma
 // ---------------------------------------------------------------------------
 
-// A wgmma shared-memory descriptor for a 128-byte-swizzled tile whose
-// swizzle atoms (8 rows of 128 bytes, 1024-byte aligned) lie `sbo` bytes
-// apart along the 8-row direction and `lbo` bytes apart along the other.
+// A wgmma shared-memory descriptor for a tile swizzled in rows of
+// `swizzle` bytes (128 or 64) whose swizzle atoms (8 such rows, aligned to
+// their size) lie `sbo` bytes apart along the 8-row direction and `lbo`
+// bytes apart along the other.
 __device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo) {
+                                              uint32_t sbo,
+                                              int swizzle = 128) {
+  const uint64_t layout = swizzle == 128 ? 1 : 2;  // 128- or 64-byte
   return (uint64_t)((addr & 0x3ffff) >> 4)
       | ((uint64_t)(lbo >> 4) << 16)
       | ((uint64_t)(sbo >> 4) << 32)
-      | (1ull << 62);                            // layout: 128-byte swizzle
+      | (layout << 62);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -137,24 +141,28 @@ inline cudaError_t bind_device_context(int* dev) {
   return cudaSuccess;
 }
 
+// A driver entry point looked up in libcuda through the runtime; null if
+// the driver does not have it.
+inline void* driver_entry(const char* name) {
+  void* ptr = nullptr;
+  cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+  cudaError_t err = cudaGetDriverEntryPointByVersion(
+      name, &ptr, 12000, cudaEnableDefault, &found);
+#else
+  cudaError_t err = cudaGetDriverEntryPoint(name, &ptr, cudaEnableDefault,
+                                            &found);
+#endif
+  return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+             ? ptr : nullptr;
+}
+
 // Looked up once: a function-local static is initialised by one thread
 // while concurrent callers wait (C++11), so host threads launching at once
 // never read it half-written.
 EncodeTiled encoder() {
-  static const EncodeTiled fn = [] {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(ptr)
-               : EncodeTiled(nullptr);
-  }();
+  static const EncodeTiled fn =
+      reinterpret_cast<EncodeTiled>(driver_entry("cuTensorMapEncodeTiled"));
   return fn;
 }
 

@@ -214,8 +214,9 @@ def test_residual_epilogue_on_the_dp4a_kernel(gen):
 
 def test_resnet50_chain_runs_on_the_wgmma_paths():
     """One batch of 16 frames of full-width ResNet-50 v1.5 on the kernel
-    route: 54 launches, the 53 convs on the large-N kernels (16 of them
-    adding their block's skip), the fc on the small-N one, none on dp4a;
+    route: 54 launches, the 53 convs on the large-N kernel (the 52 after
+    the stem as implicit GEMMs, 16 of them adding their block's skip), the
+    fc on the small-N one, none on dp4a;
     the accumulators equal the oracle route's. Two stages cut inside a
     bottleneck, its input handed on beside the activation, equal the
     whole chain."""
@@ -233,7 +234,7 @@ def test_resnet50_chain_runs_on_the_wgmma_paths():
     acc = runner(xq)
     torch.cuda.synchronize()
     ran = {p: n - before[p] for p, n in gemm_int8.launches_by_path.items()}
-    assert ran == {"large_n": 53, "small_n": 1, "dp4a": 0}
+    assert ran == {"large_n": 1, "small_n": 1, "dp4a": 0, "implicit": 52}
     assert gemm_int8.residual_launches - res_before == 16
     assert torch.equal(acc, prog.compile_runner(route="oracle")(xq))
     cut = next(i for i, s in enumerate(prog.steps)
@@ -292,8 +293,9 @@ def test_unaligned_views_take_the_dp4a_kernel(gen):
 
 def test_alexnet_chain_runs_on_the_wgmma_paths():
     """One batch of full-width AlexNet on the kernel route: 11 launches,
-    the 8 conv launches on the large-N kernels, fc6-fc8 on the small-N
-    one, none on dp4a; the accumulators equal the oracle route's."""
+    the 8 conv launches on the large-N kernel (conv3-conv5's 5 as implicit
+    GEMMs), fc6-fc8 on the small-N one, none on dp4a; the accumulators
+    equal the oracle route's."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
     from repro_torch.serving.server import (compile_for_serving,
@@ -306,7 +308,7 @@ def test_alexnet_chain_runs_on_the_wgmma_paths():
     acc = runner(xq)
     torch.cuda.synchronize()
     ran = {p: n - before[p] for p, n in gemm_int8.launches_by_path.items()}
-    assert ran == {"large_n": 8, "small_n": 3, "dp4a": 0}
+    assert ran == {"large_n": 3, "small_n": 3, "dp4a": 0, "implicit": 5}
     assert torch.equal(acc, prog.compile_runner(route="oracle")(xq))
 
 
@@ -315,8 +317,8 @@ def test_four_stage_workers_launch_gemm_int8_concurrently():
     route for 200 batches: four stage threads launch ``gemm_int8`` at once
     (its library bound at first use, its counts updated from every
     thread). Every batch's logits equal the whole chain's bit for bit, and
-    the counts are exact: 8 ``large_n`` + 3 ``small_n`` a batch, no
-    ``dp4a``."""
+    the counts are exact: 3 ``large_n`` + 5 ``implicit`` + 3 ``small_n``
+    a batch, no ``dp4a``."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
     import numpy as np
@@ -338,8 +340,8 @@ def test_four_stage_workers_launch_gemm_int8_concurrently():
         got = np.stack(px.serve(frames))
     ran = {p: n - before[p] for p, n in gemm_int8.launches_by_path.items()}
     assert px.partition.n_stages == 4 and px.route == "kernel"
-    assert ran == {"large_n": 8 * n_batches, "small_n": 3 * n_batches,
-                   "dp4a": 0}
+    assert ran == {"large_n": 3 * n_batches, "small_n": 3 * n_batches,
+                   "dp4a": 0, "implicit": 5 * n_batches}
     np.testing.assert_array_equal(got, np.tile(want, (n_batches
                                                       // distinct, 1)))
 
@@ -412,7 +414,7 @@ def test_lenet_golden_holds_on_every_route_on_the_card():
     before = dict(gemm_int8.launches_by_path)
     compiler.check_golden(prog, golden, seed=0, route="kernel")
     ran = {p: n - before[p] for p, n in gemm_int8.launches_by_path.items()}
-    assert ran == {"large_n": 2, "small_n": 1, "dp4a": 2}
+    assert ran == {"large_n": 2, "small_n": 1, "dp4a": 2, "implicit": 0}
     for route in ("f32", "oracle"):
         compiler.check_golden(prog, golden, seed=0, route=route)
         compiler.check_golden(_on_cpu(prog), golden, seed=0, route=route)
