@@ -52,7 +52,15 @@ failure exits nonzero without the final line:
    16 of them adding the skip, + 1 ``small_n``), oracle and f32 routes,
    identical int32 and
    equal on two frames to the kernel route's plain version on the CPU,
-   with the same times; for each of the three, one batch on a fresh
+   with the same times; then ``dwconv_int8`` against its plain version
+   at every depthwise shape of MobileNetV2 (both strides, batches 16, 1,
+   3, 17, a binding ReLU6 ceiling), each of its 17 layers timed cold
+   beside one ``F.conv2d(groups=C)`` call and the bound (lines
+   ``dwconv_int8_layer``, ``dwconv_int8_batch``), and one batch of
+   full-width MobileNetV2 (17 ``dwconv_int8``, 18 ``implicit`` + 17
+   ``large_n`` + 1 ``small_n``) through the kernel, oracle and f32
+   routes, identical int32, and through a K = 2 pipeline; for each of
+   the four, one batch on a fresh
    runner launch by launch and replayed as its CUDA graph: the host's
    enqueue of a batch and the profiled device time each way, the launch
    counts a batch each way, the accumulators equal (lines
@@ -303,6 +311,9 @@ from repro_torch.kernels.conv2d_int8.kernel import (  # noqa: E402
 from repro_torch.kernels.conv2d_int8.ref import (  # noqa: E402
     bias_relu_ref, conv2d_int8_via, gemm_int8_ref, im2col_int8,
     requantize_ref)
+from repro_torch.kernels.dwconv_int8 import kernel as dw_kernel  # noqa
+from repro_torch.kernels.dwconv_int8.kernel import (  # noqa: E402
+    dwconv_int8, dwconv_int8_ref)
 from repro_torch.kernels.flash_attention import kernel as flash_kernel  # noqa
 from repro_torch.kernels.flash_attention.kernel import (  # noqa: E402
     flash_attention)
@@ -407,7 +418,11 @@ GEMM_MODELS = ("alexnet", "vgg16", "resnet50")
 PATHS_PER_BATCH = {
     "alexnet": {"large_n": 3, "small_n": 3, "dp4a": 0, "implicit": 5},
     "vgg16": {"large_n": 1, "small_n": 3, "dp4a": 0, "implicit": 12},
-    "resnet50": {"large_n": 1, "small_n": 1, "dp4a": 0, "implicit": 52}}
+    "resnet50": {"large_n": 1, "small_n": 1, "dp4a": 0, "implicit": 52},
+    # The 18 convs of a group width of a multiple of 64 channels, the
+    # stem and 16 narrow 1x1s on patches, the fc; and 17 dwconv_int8.
+    "mobilenetv2": {"large_n": 17, "small_n": 1, "dp4a": 0,
+                     "implicit": 18}}
 
 
 def paths_for(model: str, batches: int) -> dict:
@@ -664,7 +679,7 @@ def card_peaks(name: str) -> tuple[str, float, float, float]:
 
 
 def reset_launches() -> None:
-    gemm_kernel.reset_launches()
+    gemm_kernel.reset_launches()        # dwconv_int8's count too
     flash_attention.launches = 0
     _build.reset_count(linear_scan, ("forward", "backward"))
 
@@ -685,7 +700,8 @@ def _kernel_name(mangled: str) -> str:
     template arguments (Li256E: 256; f: float; 13__nv_bfloat16 or S1_,
     its repeat: bf16)."""
     m = re.search(r"(flash_fwd_wgmma|flash_fwd_bf16|flash_fwd_f32|"
-                  r"linear_scan_kernel|gemm_int8_kernel|gemm_wgmma)(I.*?EE)?",
+                  r"linear_scan_kernel|gemm_int8_kernel|gemm_wgmma|"
+                  r"dwconv3x3_int8)(I.*?EE)?",
                   mangled)
     if not m:
         return mangled
@@ -754,7 +770,8 @@ def phase_environment() -> dict:
         _build.load(source)
         return round(time.perf_counter() - t0, 3)
 
-    sources = [gemm_kernel.SOURCE, flash_kernel.SOURCE, scan_kernel.SOURCE]
+    sources = [gemm_kernel.SOURCE, flash_kernel.SOURCE, scan_kernel.SOURCE,
+               dw_kernel.SOURCE]
     # One nvcc per source for the build and one per source for ptxas's
     # report, all started together.
     with ThreadPoolExecutor(2 * len(sources)) as pool:
@@ -1697,6 +1714,206 @@ def phase_resnet50(gemm: dict) -> dict:
         raise SmokeFailure(f"ResNet-50 check failed: {row}")
     phase_graph_enqueue("resnet50", prog, frames)
     return {"launches": launches}
+
+
+# ---------------------------------------------------------------------------
+# Phase 3a: the depthwise kernel and MobileNetV2
+# ---------------------------------------------------------------------------
+
+DW_SOURCE = "src/repro_torch/kernels/dwconv_int8/csrc/dwconv_int8.cu"
+DW_BATCHES = (16, 1, 3, 17)
+MOBILENET_PATHS = paths_for("mobilenetv2", 1)
+MOBILENET_DEPTHWISE = 17
+
+
+def _depthwise_layers() -> list:
+    """MobileNetV2's 17 depthwise convs in order: (name, input side,
+    channels, stride)."""
+    m = CNN_MODELS["mobilenetv2"]()
+    return [(l.name, hw, l.in_ch, l.stride)
+            for l, hw in zip(m.layers, m.in_sizes()) if l.depthwise]
+
+
+def _depthwise_operands(gen, B, hw, C):
+    x = _rand_int8(gen, (B, hw, hw, C))
+    w = _rand_int8(gen, (3, 3, 1, C))
+    shift = torch.randint(4, 12, (C,), generator=gen, dtype=torch.int32,
+                          device="cuda")
+    bias = torch.randint(-3000, 3000, (C,), generator=gen,
+                         dtype=torch.int32, device="cuda")
+    return x, w, shift, bias
+
+
+def phase_depthwise(env: dict) -> dict:
+    """``dwconv_int8`` against its plain version on the card, bit for bit,
+    at every depthwise shape of MobileNetV2 (both strides) at batches 16,
+    1, 3 and 17, with ReLU and a ceiling of 96 (ReLU6 on a format where
+    it binds; it must bind) and with neither; then each of the 17 layers
+    of one batch of 16 timed cold (CUDA events, L2 flushed): the kernel,
+    its plain version, one ``F.conv2d(groups=C)`` call in float32 on the
+    same values (the library yardstick; the port never calls it) and the
+    bound, bytes over the card's bandwidth (input, output, weights, bias
+    and shift once; the operations need 1/90 of it). A per-layer line
+    each and the batch's sums."""
+    peak_ops, peak_bytes = PEAKS[card_peaks(torch.cuda.get_device_name(0))
+                                 [0]][0::2]
+    gen = torch.Generator(device="cuda").manual_seed(33)
+    cases, shapes = [], sorted({(hw, C, s) for _, hw, C, s in
+                                _depthwise_layers()})
+    before = dwconv_int8.launches
+    for hw, C, stride in shapes:
+        for B in DW_BATCHES:
+            x, w, shift, bias = _depthwise_operands(gen, B, hw, C)
+            for relu, qmax in ((True, 96), (False, 127)):
+                got = dwconv_int8(x, w, shift, bias, stride=stride,
+                                  relu=relu, qmax=qmax)
+                want = dwconv_int8_ref(x, w, shift, bias, stride=stride,
+                                       relu=relu, qmax=qmax)
+                torch.cuda.synchronize()
+                ok = torch.equal(got, want) and (
+                    qmax == 127 or int(got.max()) == qmax)
+                cases.append(ok)
+                if not ok:
+                    raise SmokeFailure(
+                        f"dwconv_int8 disagrees with its plain version at "
+                        f"B {B}, {hw}x{hw}x{C}, stride {stride}, relu "
+                        f"{relu}, qmax {qmax}")
+    launched = dwconv_int8.launches - before
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.int8, device="cuda")
+    sums = dict.fromkeys(("ms", "plain_ms", "library_ms", "bound_ms"), 0.0)
+    total_bytes = 0
+    for name, hw, C, stride in _depthwise_layers():
+        x, w, shift, bias = _depthwise_operands(gen, SERVE_BATCH, hw, C)
+        ho = (hw - 1) // stride + 1
+        xf = x.float().permute(0, 3, 1, 2)       # channels_last NCHW view
+        wf = w.float().permute(3, 2, 0, 1).contiguous()
+        moved = SERVE_BATCH * (hw * hw + ho * ho) * C + 9 * C + 8 * C
+        ops = 2 * SERVE_BATCH * ho * ho * 9 * C
+        row = {"phase": "dwconv_int8_layer", "layer": name, "hw": hw,
+               "channels": C, "stride": stride, "batch": SERVE_BATCH,
+               "ms": _time_cold_ms(lambda: dwconv_int8(
+                   x, w, shift, bias, stride=stride, relu=True, qmax=96),
+                   flush),
+               "plain_ms": _time_cold_ms(lambda: dwconv_int8_ref(
+                   x, w, shift, bias, stride=stride, relu=True, qmax=96),
+                   flush, iters=3),
+               "library_ms": _time_cold_ms(lambda: torch.nn.functional
+                                           .conv2d(xf, wf, stride=stride,
+                                                   padding=1, groups=C),
+                                           flush),
+               "bound_ms": 1e3 * max(moved / peak_bytes, ops / peak_ops),
+               "bytes": moved, "plan": list(dw_kernel.plan_for(
+                   SERVE_BATCH, C, ho, ho, stride,
+                   torch.cuda.get_device_properties(0)
+                   .multi_processor_count))}
+        row["roofline_share"] = row["bound_ms"] / row["ms"]
+        emit(row)
+        for k in sums:
+            sums[k] += row[k]
+        total_bytes += moved
+    batch = {"phase": "dwconv_int8_batch", "model": "mobilenetv2",
+             "batch": SERVE_BATCH, "launches": len(_depthwise_layers()),
+             "cases_exact": len(cases), "launches_checked": launched,
+             **sums, "bytes": total_bytes, "bound_by": "bytes",
+             "roofline_share": sums["bound_ms"] / sums["ms"],
+             "power_limit": env["nvidia_smi"]}
+    emit(batch)
+    if launched != len(cases):
+        raise SmokeFailure(f"dwconv_int8 counted {launched} launches for "
+                           f"{len(cases)} calls")
+    return batch
+
+
+def phase_mobilenet(dw: dict) -> dict:
+    """Full-width MobileNetV2 (seed 0) on one batch of 16 frames: the
+    kernel route with its launches counted (17 ``dwconv_int8``, and
+    ``gemm_int8`` by ``MOBILENET_PATHS``: 36, none per channel) and its
+    int32 accumulators equal to the oracle and f32 routes' on the card and,
+    on two frames, to the kernel route's plain version on the CPU; the
+    chain's wall time, device time by kernel (the depthwise kernel's
+    share) and idle share; the replayed batch (``graph_enqueue``); and a
+    K = 2 ``PipelineExecutor`` over two batches, its accumulators equal to
+    the whole chain's, its cut and stage balance."""
+    prog = compile_for_serving("mobilenetv2", seed=0, device="cuda")
+    frames = synthetic_stream("mobilenetv2", 2 * SERVE_BATCH, 0)
+    kernel = prog.compile_runner(route="kernel")
+    xq = torch.as_tensor(kernel.quantize(frames[:SERVE_BATCH]),
+                         device="cuda")
+    reset_launches()
+    acc = kernel(xq)
+    torch.cuda.synchronize()
+    counts = gemm_kernel.launch_counts()
+    by_path = {p: counts[p] for p in gemm_kernel.PATHS}
+    accs = {"kernel": acc}
+    for route in ("oracle", "f32"):
+        accs[route] = prog.compile_runner(route=route)(xq)
+        torch.cuda.synchronize()
+    identical = all(torch.equal(acc, a) for a in accs.values())
+    cpu = _program_on_cpu(prog).compile_runner(route="kernel")
+    matches_plain = torch.equal(cpu(xq[:RESNET_CPU_FRAMES].cpu()),
+                                acc[:RESNET_CPU_FRAMES].cpu())
+    logits = kernel.dequantize(acc)
+    n = 5
+    for _ in range(2):
+        kernel(xq)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        kernel.fn(xq)
+    enqueue_ms = (time.perf_counter() - t0) / n * 1e3
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) / n * 1e3
+    ops = _device_ops(lambda: kernel.fn(xq))
+    device_ms = sum(us for _, us, _ in ops) / 1e3
+    gemm_ms = sum(us for k, us, _ in ops if _is_gemm_int8(k)) / 1e3
+    dw_ms = sum(us for k, us, _ in ops if "dwconv3x3_int8" in k) / 1e3
+    # K = 2: the partition's cut, the stages' busy time, exact int32.
+    whole = [prog.compile_runner(route="kernel")(torch.as_tensor(
+        kernel.quantize(frames[i:i + SERVE_BATCH]), device="cuda"))
+        for i in range(0, len(frames), SERVE_BATCH)]
+    px = PipelineExecutor(prog, stages=2, batch_size=SERVE_BATCH,
+                          output="logits")
+    cap = _CaptureAcc(px.runners[-1])
+    px.runners[-1] = cap
+    with px:
+        px.serve(list(frames))
+    pipe_exact = len(cap.accs) == len(whole) and all(
+        torch.equal(a.cpu(), w.cpu()) for a, w in zip(cap.accs, whole))
+    cut = px.partition.boundaries[1]
+    row = {"phase": "mobilenetv2", "batch": SERVE_BATCH,
+           "acc_shape": list(acc.shape), "acc_dtype": str(acc.dtype),
+           "routes_identical_int32": identical,
+           "kernel_matches_cpu_plain": matches_plain,
+           "logits_finite": bool(np.isfinite(logits).all()),
+           "distinct_top1": len(np.unique(logits.argmax(-1))),
+           "gemm_int8_launches": counts["launches"],
+           "launches_by_path": by_path, "expected_by_path": MOBILENET_PATHS,
+           "depthwise_launches": counts["depthwise"],
+           "relu6_ceilings": [s.qmax for s in prog.steps
+                              if s.layer.relu6],
+           "host_enqueue_ms": enqueue_ms, "wall_ms": wall_ms,
+           "device_busy_ms": device_ms, "gemm_int8_ms": gemm_ms,
+           "dwconv_int8_ms": dw_ms,
+           "other_device_ms": device_ms - gemm_ms - dw_ms,
+           "device_idle_share": max(0.0, 1.0 - device_ms / wall_ms),
+           "top_device_ops_us": [[k[:60], round(us, 1)]
+                                 for k, us, _ in ops[:8]],
+           "dwconv_int8_batch_cold_ms": dw["ms"],
+           "k2_cut_before": prog.steps[cut].name,
+           "k2_balance": px.partition.balance,
+           "k2_stage_ms_per_batch": _stage_ms_per_batch(px),
+           "k2_int32_identical": pipe_exact}
+    emit(row)
+    if not (identical and matches_plain and row["logits_finite"]
+            and by_path == MOBILENET_PATHS
+            and counts["launches"] == sum(MOBILENET_PATHS.values())
+            and counts["depthwise"] == MOBILENET_DEPTHWISE and pipe_exact
+            and row["acc_shape"] == [SERVE_BATCH, 1000]
+            and acc.dtype == torch.int32):
+        raise SmokeFailure(f"MobileNetV2 check failed: {row}")
+    phase_graph_enqueue("mobilenetv2", prog, frames[:SERVE_BATCH])
+    return {"launches": counts["launches"],
+            "depthwise": counts["depthwise"]}
 
 
 # ---------------------------------------------------------------------------
@@ -5509,6 +5726,9 @@ def main() -> int:
         vgg = phase_vgg16()
         resnet = phase_resnet50(gemm)
         torch.cuda.empty_cache()
+        dw = phase_depthwise(env)
+        mobilenet = phase_mobilenet(dw)
+        torch.cuda.empty_cache()
         pipeline = phase_pipeline()
         torch.cuda.empty_cache()
         phase_bits16()
@@ -5610,6 +5830,19 @@ def main() -> int:
         "per": f"one {model} batch of {SERVE_BATCH}: the sum over its "
                f"{gemm[model]['launches']} launches"}
         for model in GEMM_MODELS] + [{
+        "name": "dwconv_int8", "route": "cuda", "source": DW_SOURCE,
+        "replaces": None,
+        "replaces_note": "no TPU kernel: the JAX package has no depthwise "
+                         "model and runs a grouped conv as one GEMM per "
+                         "group",
+        "launches": mobilenet["depthwise"], "max_abs_err": 0,
+        **{k: dw[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                              "library_ms")},
+        "library_note": "one float32 F.conv2d(groups=C) a layer on the same "
+                        "values, no epilogue",
+        "path": "mobilenetv2",
+        "per": f"one MobileNetV2 batch of {SERVE_BATCH}: the sum over its "
+               f"{MOBILENET_DEPTHWISE} launches"}] + [{
         "name": "flash_attention", "route": "cuda", "source": FLASH_SOURCE,
         "replaces": FLASH_REPLACES, "launches": yi_launches,
         "max_abs_err": flash["max_abs_err"], "ms": flash["ms"],

@@ -19,7 +19,9 @@ The paper's central object is a *balanced plan*: per-layer workloads
    (``kernels/conv2d_int8``), so activations stay int8 end to end. In a
    residual graph (ResNet-50 v1.5) a step may read an earlier step's
    output, and a bottleneck's last conv adds its skip in the same
-   epilogue (the rule is :func:`_lower`'s).
+   epilogue (the rule is :func:`_lower`'s). A ReLU6 engine (MobileNetV2)
+   clips its int8 output at 6 on its frozen format, and a depthwise conv
+   runs on its own kernel, ``dwconv_int8``.
 
 Layouts are the reference's at every public function: NHWC activations,
 HWIO conv weights, ``[F, M]`` fc weights (fc6's flatten order depends on
@@ -41,7 +43,8 @@ Differences from the reference, each forced by PyTorch or by the card:
 * Each engine keeps a second, K-major copy of its int8 weights
   (``EngineStep.wk``, made once at lowering): ``wgmma`` reads int8
   operands only K-major, and the kernel route hands the GEMM a view of
-  it. The reference layout (``wq``) serves the other routes.
+  it. The reference layout (``wq``) serves the other routes, and the
+  depthwise kernel, which reads it along the channels.
 * bits=16 runs the exact integer oracle: int16 weights and activations,
   int64 accumulators from a float64 GEMM over the int16 im2col patches
   (exact, :func:`_step_oracle16`), a floor shift in int64 and a clip to
@@ -75,7 +78,7 @@ from repro_torch.core.quant import ref_exp2
 from repro_torch.core.allocator import (LayerAlloc, allocate_buffers,
                                         allocate_compute)
 from repro_torch.core.workload import CNNModel, ConvLayer
-from repro_torch.kernels.conv2d_int8.kernel import (add_launches,
+from repro_torch.kernels.conv2d_int8.kernel import (QMAX, add_launches,
                                                     k_major_view,
                                                     launch_counts)
 from repro_torch.kernels.conv2d_int8.ops import conv2d_int8, fc_int8
@@ -83,6 +86,7 @@ from repro_torch.kernels.conv2d_int8.ref import (bias_relu_ref,
                                                  conv2d_int8_via,
                                                  matmul_int8_exact,
                                                  requantize_ref)
+from repro_torch.kernels.dwconv_int8.kernel import depthwise_acc
 
 Params = dict[str, dict[str, Any]]
 
@@ -201,8 +205,9 @@ def float_forward(params: Params, model: CNNModel, x: torch.Tensor,
     """Reference float forward over the model graph (NHWC), with TF32 off.
     With ``record`` it doubles as the calibration pass: per-layer output
     amax (post-ReLU where the layer has ReLU — what the next engine
-    actually consumes; a block's last conv after its skip add and ReLU, a
-    projection before the add) is stored under the layer name, the
+    actually consumes; after ReLU6's hold at 6 where it has that; a
+    block's last conv after its skip add and ReLU, a projection before the
+    add) is stored under the layer name, the
     network input under ``"__input__"``. The global average pool emits the
     sum over the map (its amax is the sum's), and the fc after it runs on
     :func:`folded_weights`."""
@@ -233,6 +238,8 @@ def float_forward(params: Params, model: CNNModel, x: torch.Tensor,
                     x = x + outs[skip[0]]
                 if lyr.relu if lyr.relu is not None else lyr is not last:
                     x = torch.relu(x)
+                if lyr.relu6:
+                    x = torch.clamp(x, max=6.0)
             if record is not None and lyr.kind != "pool":
                 record[lyr.name] = float(torch.max(torch.abs(x)))
             outs[i] = x
@@ -270,6 +277,9 @@ class EngineStep:
     e_out: int = 0                         # output activation exponent
     relu: bool = False
     requantize: bool = True        # False on the last engine (emit acc32)
+    # The int8 clip's upper bound where it is not the format's: a ReLU6
+    # engine's ceiling, 6 on its output format (:func:`relu6_ceiling`).
+    qmax: int | None = None
     # The graph, where it is not a chain: the index of the step whose
     # output this one reads (None: the previous step's), the index of the
     # step whose int8 output is added to the accumulators before ReLU
@@ -785,6 +795,9 @@ def _bottlenecks(reads) -> list[int | None]:
     return block
 
 
+_NO_SPAN = contextlib.nullcontext()
+
+
 def _chain(steps, start: int, stop: int, step_fn) -> Callable:
     """The launches of steps ``[start, stop)`` as one function: ``step_fn``
     for the engines, the integer pools for the pools. Each output is kept
@@ -793,7 +806,9 @@ def _chain(steps, start: int, stop: int, step_fn) -> Callable:
     ``stop``, a tuple where there are several (a cut inside a bottleneck)
     and one tensor alone otherwise, as along a chain. The launches of each
     bottleneck (:func:`_bottlenecks`) run inside a ``residual.launch``
-    span carrying the enclosing span's owner and batch."""
+    span carrying the enclosing span's owner and batch, and each
+    depthwise step's inside a ``depthwise.launch`` span nested the same
+    way (inside its block's where it has one)."""
     kinds = {"pool": _pool_int, "gap": _gap_int}
     reads = _step_reads(steps)
     ins, outs = _live_at(reads, start), _live_at(reads, stop)
@@ -802,7 +817,7 @@ def _chain(steps, start: int, stop: int, step_fn) -> Callable:
     plan = [(kinds.get(steps[i].kind, step_fn), steps[i], i, reads[i][0],
              reads[i][1] if len(reads[i]) > 1 else None,
              tuple(j for j in set(reads[i]) if last[j] == i
-                   and j not in outs), block[i])
+                   and j not in outs), block[i], steps[i].layer.depthwise)
             for i in range(start, stop)]
 
     @torch.no_grad()
@@ -810,15 +825,16 @@ def _chain(steps, start: int, stop: int, step_fn) -> Callable:
         env = dict(zip(ins, payload)) if len(ins) > 1 else {ins[0]: payload}
         cur, blk = None, None
         try:
-            for fn, step, i, src, skip, drop, b in plan:
+            for fn, step, i, src, skip, drop, b, dw in plan:
                 if b != cur:
                     if blk is not None:
                         blk.__exit__(None, None, None)
                     blk = None if b is None else \
                         spans.nested("residual.launch").__enter__()
                     cur = b
-                env[i] = fn(env[src], step) if skip is None else \
-                    fn(env[src], step, env[skip])
+                with spans.nested("depthwise.launch") if dw else _NO_SPAN:
+                    env[i] = fn(env[src], step) if skip is None else \
+                        fn(env[src], step, env[skip])
                 for j in drop:
                     del env[j]
         finally:
@@ -849,20 +865,27 @@ def _pool_int(xq: torch.Tensor, step: EngineStep) -> torch.Tensor:
     return _max_pool_nhwc(xq, lyr.kernel, lyr.stride, lo, hi, fill)
 
 
+def _qmax(step: EngineStep) -> int:
+    return QMAX if step.qmax is None else step.qmax
+
+
 def _step_kernel(xq: torch.Tensor, step: EngineStep,
                  skip: torch.Tensor | None = None) -> torch.Tensor:
     """The kernel route: ``gemm_int8`` with the fused epilogue (the skip,
-    where the step has one, added in it), on the K-major weights (the
-    layout its ``wgmma`` kernels read)."""
+    where the step has one, added in it; a ReLU6 engine's ceiling), on the
+    K-major weights (the layout its ``wgmma`` kernels read); a depthwise
+    conv on ``dwconv_int8`` (through ``conv2d_int8``), on ``wq``."""
     lyr = step.layer
     emit = not step.requantize
     if step.kind == "fc":
         return fc_int8(xq.reshape(xq.shape[0], -1), step.wk, step.shift,
-                       step.bias_q, relu=step.relu, emit_int32=emit)
-    return conv2d_int8(xq, step.wk, step.shift, step.bias_q,
-                       stride=lyr.stride, padding=(step.pad, step.pad),
-                       groups=lyr.groups, relu=step.relu, emit_int32=emit,
-                       residual=skip, res_shift=step.skip_shift)
+                       step.bias_q, relu=step.relu, emit_int32=emit,
+                       qmax=_qmax(step))
+    return conv2d_int8(xq, step.wq if lyr.depthwise else step.wk,
+                       step.shift, step.bias_q, stride=lyr.stride,
+                       padding=(step.pad, step.pad), groups=lyr.groups,
+                       relu=step.relu, emit_int32=emit, residual=skip,
+                       res_shift=step.skip_shift, qmax=_qmax(step))
 
 
 def _step_oracle(xq: torch.Tensor, step: EngineStep,
@@ -912,10 +935,14 @@ def _step_exact_f32(xq: torch.Tensor, step: EngineStep,
     float32 GEMMs, not ``F.conv2d``: cuDNN's FFT and Winograd algorithms
     are not chains of MACs, so the 2^24 argument would not hold for them.
     Chunking the flat im2col depth bounds every chunk at 1024 products
-    whatever the kernel size, so no conv is refused here."""
+    whatever the kernel size, so no conv is refused here. A depthwise conv
+    has no GEMM to speak of (K = 9 a channel): its nine taps are summed in
+    int32, exactly (``dwconv_int8``'s plain version)."""
     lyr = step.layer
     if step.kind == "fc":
         acc = _matmul_exact_f32(xq.reshape(xq.shape[0], -1), step.wq)
+    elif lyr.depthwise:
+        acc = depthwise_acc(xq, step.wq, lyr.stride)
     else:
         acc = conv2d_int8_via(
             lambda patches, w2d, shift, bias, relu: _matmul_exact_f32(
@@ -994,7 +1021,8 @@ def _epilogue_int32(acc: torch.Tensor, step: EngineStep,
     res = None if skip is None else skip.reshape(-1, M)
     if step.requantize:
         out = requantize_ref(flat, step.shift, step.bias_q, step.relu,
-                             residual=res, res_shift=step.skip_shift)
+                             residual=res, res_shift=step.skip_shift,
+                             qmax=_qmax(step))
     else:
         out = bias_relu_ref(flat, step.bias_q, step.relu, residual=res,
                             res_shift=step.skip_shift)
@@ -1043,11 +1071,13 @@ def compile_model(model: CNNModel, params: Params | None = None, *,
         raise ValueError("compiling an executable program needs a "
                          "calib_batch to freeze activation formats")
     if bits > 8 and (not model.linear
-                     or any(l.kind == "gap" for l in model.layers)):
+                     or any(l.kind == "gap" or l.relu6
+                            for l in model.layers)):
         raise NotImplementedError(
-            f"{model.name} at bits={bits}: the skip's alignment and the "
-            f"global average pool's requantize are frozen for int8 "
-            f"activations; the bits=16 oracle runs linear chains only")
+            f"{model.name} at bits={bits}: the skip's alignment, the "
+            f"global average pool's requantize and ReLU6's ceiling are "
+            f"frozen for int8 activations; the bits=16 oracle runs linear "
+            f"chains only")
     params = {name: {k: torch.as_tensor(v, dtype=torch.float32,
                                         device=device)
                      for k, v in p.items()}
@@ -1058,6 +1088,15 @@ def compile_model(model: CNNModel, params: Params | None = None, *,
     prog.e_input = quant.po2_exponent(amax["__input__"], bits)
     prog.steps = _lower(model, params, amax, prog.e_input, bits)
     return prog
+
+
+def relu6_ceiling(e_out: int, bits: int = 8) -> int:
+    """The largest integer a ReLU6 engine may emit on its po2 output format
+    ``e_out``: 6 on that format, ``floor(6 * 2^-e_out)``, or the format's
+    own maximum where that is smaller."""
+    qmax = 2 ** (bits - 1) - 1
+    six = 6 << -e_out if e_out <= 0 else 6 >> e_out
+    return min(qmax, six)
 
 
 @torch.no_grad()
@@ -1085,6 +1124,10 @@ def _lower(model: CNNModel, params: Params, amax: dict[str, float],
       shift, exact for an int8 skip of at most 24 places; else an
       arithmetic right shift, which rounds as the requantize shift does.
       The adds wrap in int32 as the bias add does;
+    * a ReLU6 engine holds its output at 6: its int8 clip stops at
+      :func:`relu6_ceiling` of its output format, ``min(127,
+      floor(6 * 2^-e_out))`` (its calibration amax is at most 6, so
+      ``e_out <= -4`` and the ceiling is 6 on the format exactly);
     * the global average pool sums the map exactly in int32 and
       requantizes the sum once onto its own format (calibrated on the
       float sum); the fc after it quantizes its float weights divided by
@@ -1126,6 +1169,10 @@ def _lower(model: CNNModel, params: Params, amax: dict[str, float],
         e_w = quant.po2_scale(w, axis=-1, bits=bits).cpu().numpy().astype(
             np.int64)
         is_last = lyr is last
+        if is_last and lyr.relu6:
+            raise NotImplementedError(
+                f"{lyr.name}: the last engine emits int32 accumulators, "
+                f"which ReLU6's int8 ceiling cannot hold")
         e_out = quant.po2_exponent(amax[lyr.name], bits)
         # Floor each channel's weight format so (a) its bias fits the
         # int32 accumulator and (b) the output shift stays within the
@@ -1163,12 +1210,14 @@ def _lower(model: CNNModel, params: Params, amax: dict[str, float],
         wq = wq.contiguous()
         steps.append(EngineStep(
             name=lyr.name, kind=lyr.kind, layer=lyr, pad=pad,
-            wq=wq, wk=k_major_view(wq) if bits <= 8 else None,
+            wq=wq, wk=k_major_view(wq) if bits <= 8 and not lyr.depthwise
+            else None,
             bias_q=torch.as_tensor(bias_q, device=w.device),
             shift=torch.as_tensor(shift, device=w.device), e_in=e_act,
             e_w=e_w, e_out=e_out,
             relu=lyr.relu if lyr.relu is not None else not is_last,
             requantize=not is_last, src=src_step, skip=skip,
-            skip_shift=skip_shift))
+            skip_shift=skip_shift,
+            qmax=relu6_ceiling(e_out, bits) if lyr.relu6 else None))
         e_of.append(e_out)
     return steps

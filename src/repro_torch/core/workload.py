@@ -8,8 +8,9 @@ paper defines them, and for the transformer-family configs
 ``runtime/fault_tolerance.py`` feeds to the allocator). It began as a copy
 of ``repro/core/workload.py``; the residual graph (ResNet-50 v1.5: explicit
 padding, per-layer ReLU, layers that read an earlier output, the skip
-added in an engine's epilogue, the global average pool) is the port's
-own.
+added in an engine's epilogue, the global average pool) and MobileNetV2's
+inverted residuals (ReLU6, depthwise convs, skips with no activation
+after the add) are the port's own.
 
 Conventions
 -----------
@@ -75,7 +76,12 @@ class ConvLayer:
     layer whose output this one reads; ``residual``, the name of the
     earlier layer whose output is added to this one's accumulators before
     its ReLU (the bottleneck's skip). ``kind="gap"`` is the global
-    average pool over the whole map (``kernel`` is the map's side)."""
+    average pool over the whole map (``kernel`` is the map's side).
+
+    MobileNetV2 sets ``relu6``: ReLU6, ``min(max(x, 0), 6)``, a ReLU whose
+    output is also held at 6 (``relu`` None or True with it); and makes
+    its depthwise convs ``groups == in_ch == out_ch``
+    (:attr:`depthwise`)."""
 
     name: str
     in_ch: int
@@ -89,10 +95,23 @@ class ConvLayer:
     relu: bool | None = None        # None: every compute layer but the last
     src: str | None = None          # None: the previous layer's output
     residual: str | None = None     # the skip added before ReLU, if any
+    relu6: bool = False             # ReLU6: the ReLU's output held at 6
 
     def __post_init__(self):
         if self.pad is not None:    # a list from a JSON file, too
             object.__setattr__(self, "pad", tuple(int(p) for p in self.pad))
+        if self.relu6:
+            if self.relu is False or not self.computes:
+                raise ValueError(f"layer {self.name}: ReLU6 is a compute "
+                                 f"layer's ReLU held at 6")
+            object.__setattr__(self, "relu", True)
+
+    @property
+    def depthwise(self) -> bool:
+        """Whether the layer is a depthwise conv: one input channel per
+        output channel (``groups == in_ch == out_ch``)."""
+        return self.kind == "conv" and 1 < self.groups == self.in_ch \
+            == self.out_ch
 
     @property
     def computes(self) -> bool:
@@ -362,8 +381,64 @@ def resnet50() -> CNNModel:
     return CNNModel("resnet50", 224, 3, tuple(layers))
 
 
+def _divisible(v: float, d: int = 8) -> int:
+    """``v`` rounded to the nearest multiple of ``d``, never more than 10%
+    below ``v`` (torchvision's ``_make_divisible``)."""
+    out = max(d, int(v + d / 2) // d * d)
+    return out + d if out < 0.9 * v else out
+
+
+# MobileNetV2's inverted residual blocks (Sandler et al., Table 2): the
+# expansion t, output channels c, repeats n and the first repeat's stride s.
+MOBILENET_V2_BLOCKS = ((1, 16, 1, 1), (6, 24, 2, 2), (6, 32, 3, 2),
+                       (6, 64, 4, 2), (6, 96, 3, 1), (6, 160, 3, 2),
+                       (6, 320, 1, 1))
+
+
+def mobilenet_v2(width: float = 1.0, input_hw: int = 224,
+                 classes: int = 1000) -> CNNModel:
+    """MobileNetV2 (Sandler et al., arXiv:1801.04381, Table 2) as
+    torchvision's ``mobilenet_v2`` lays it out, BatchNorm folded into the
+    convs: a 3x3/2 stem to 32 channels, 17 inverted residual blocks (a 1x1
+    expansion by t, but in the first block, where t = 1; a 3x3 depthwise
+    conv carrying the block's stride; a linear 1x1 projection, which adds
+    the block's input where the stride is 1 and the width unchanged), a
+    1x1 head to 1280, the global average pool and an fc. ReLU6 follows
+    every conv but the projections; padding (k - 1) // 2. At width 1.0
+    and 224 x 224: 52 convs (17 depthwise), 10 skips, 300,774,272 MACs a
+    frame. ``width`` scales every width but the head's as torchvision's
+    ``width_mult`` does (multiples of 8)."""
+    L = ConvLayer
+    cin = _divisible(32 * width)
+    layers = [L("stem", 3, cin, 3, stride=2, pad=(1, 1), relu6=True)]
+    i = 0
+    for t, c, n, s in MOBILENET_V2_BLOCKS:
+        cout = _divisible(c * width)
+        for r in range(n):
+            i += 1
+            stride, p = (s if r == 0 else 1), f"block{i}."
+            skip = layers[-1].name if stride == 1 and cin == cout else None
+            hidden = cin * t
+            if t != 1:
+                layers.append(L(p + "expand", cin, hidden, 1, pad=(0, 0),
+                                relu6=True))
+            layers += [L(p + "dw", hidden, hidden, 3, stride=stride,
+                         groups=hidden, pad=(1, 1), relu6=True),
+                       L(p + "project", hidden, cout, 1, pad=(0, 0),
+                         relu=False, residual=skip)]
+            cin = cout
+    head = _divisible(1280 * max(1.0, width))
+    side = input_hw                     # the map the pool averages
+    for lyr in layers:
+        side = lyr.out_hw(side)
+    layers += [L("head", cin, head, 1, pad=(0, 0), relu6=True),
+               L("avgpool", head, head, side, kind="gap"),
+               L("fc", head, classes, 1, kind="fc")]
+    return CNNModel("mobilenetv2", input_hw, 3, tuple(layers))
+
+
 CNN_MODELS = {"vgg16": vgg16, "alexnet": alexnet, "zf": zfnet, "yolo": yolo,
-              "resnet50": resnet50}
+              "resnet50": resnet50, "mobilenetv2": mobilenet_v2}
 
 
 # ---------------------------------------------------------------------------

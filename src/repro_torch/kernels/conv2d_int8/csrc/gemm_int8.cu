@@ -6,7 +6,9 @@
 // (Pallas body `_kernel`, pallas_call at :90): out[N, M] = epilogue(x[N, K]
 // @ w[K, M]) with int32 accumulation, then + int32 bias[M], optional ReLU,
 // and a per-column saturating signed shift (negative = left shift, capped
-// at 16, clamped before the shift) clipped to int8. With emit_int32 the
+// at 16, clamped before the shift) clipped to [-128, qmax]: qmax is 127, or
+// a ReLU6 engine's ceiling (6 on the output's po2 format, a runtime
+// argument, so no kernel is instantiated twice for it). With emit_int32 the
 // epilogue stops after bias/ReLU and writes the int32 values. With a
 // residual (a bottleneck's skip: int8 res[N, M], any row stride, and an
 // int32 res_shift[M]) the skip, aligned onto each column's accumulator
@@ -96,8 +98,10 @@ namespace {
 // The epilogue, shared by every kernel
 // ---------------------------------------------------------------------------
 
-// The Fig. 3(c) output stage: saturating signed shift, clip to int8.
-__device__ __forceinline__ int8_t requantize(int v, int sh) {
+// The Fig. 3(c) output stage: saturating signed shift, clip onto
+// [-128, hi] (hi: 127, or a ReLU6 engine's ceiling; the shift is monotone
+// and exact on the ceiling, so clipping before or after it is the same).
+__device__ __forceinline__ int8_t requantize(int v, int sh, int hi) {
   int y;
   if (sh >= 0) {
     y = v >> (sh < 31 ? sh : 31);
@@ -108,7 +112,7 @@ __device__ __forceinline__ int8_t requantize(int v, int sh) {
     const int c = v < lo ? lo : (v > hi ? hi : v);
     y = (int)((unsigned)c << sl);
   }
-  return (int8_t)(y < -128 ? -128 : (y > 127 ? 127 : y));
+  return (int8_t)(y < -128 ? -128 : (y > hi ? hi : y));
 }
 
 // Accumulator + bias (wrapping as the int32 add does), then ReLU.
@@ -178,8 +182,9 @@ gemm_int8_kernel(const int8_t* __restrict__ x, long long ldx,
                  const int8_t* __restrict__ w, long long swk, long long swm,
                  const int32_t* __restrict__ shift,
                  const int32_t* __restrict__ bias, void* __restrict__ out,
-                 int N, int K, int M, int relu, int emit_int32, int vec_x,
-                 int vec_w, const int8_t* __restrict__ res, long long ldr,
+                 int N, int K, int M, int relu, int emit_int32, int qmax,
+                 int vec_x, int vec_w, const int8_t* __restrict__ res,
+                 long long ldr,
                  const int32_t* __restrict__ res_shift) {
   __shared__ __align__(16) int xs[KQ][BN + PAD];  // xs[q][n]: x[n, 4q..4q+3]
   __shared__ __align__(16) int ws[KQ][BM + PAD];  // ws[q][m]: w[4q..4q+3, m]
@@ -246,7 +251,7 @@ gemm_int8_kernel(const int8_t* __restrict__ x, long long ldx,
       if (emit_int32)
         static_cast<int32_t*>(out)[o] = v;
       else
-        static_cast<int8_t*>(out)[o] = requantize(v, shift[m]);
+        static_cast<int8_t*>(out)[o] = requantize(v, shift[m], qmax);
     }
   }
 }
@@ -315,6 +320,7 @@ struct WgParams {
   int M;                    // the output's row length
   int k_iters;              // stages of KB BK over K
   int relu, emit_int32;
+  int qmax;                 // the clip's upper bound: 127, or ReLU6's
   ConvGeom conv;            // AM != A_TILED only
 };
 
@@ -518,7 +524,8 @@ gemm_wgmma(const __grid_constant__ CUtensorMap ta,
           if (staged) {
             const int r = warp * 16 + lane / 4 + 8 * h;
             *reinterpret_cast<char2*>(tile + r * LD + m - b0) =
-                make_char2(requantize(v0, sh0), requantize(v1, sh1));
+                make_char2(requantize(v0, sh0, p.qmax),
+                           requantize(v1, sh1, p.qmax));
             continue;
           }
           const int n = r0 + 8 * h;
@@ -534,13 +541,13 @@ gemm_wgmma(const __grid_constant__ CUtensorMap ta,
             }
           } else {
             int8_t* out = static_cast<int8_t*>(p.out) + o;
-            const int8_t q0 = requantize(v0, sh0);
+            const int8_t q0 = requantize(v0, sh0, p.qmax);
             if (pair) {
               *reinterpret_cast<char2*>(out) =
-                  make_char2(q0, requantize(v1, sh1));
+                  make_char2(q0, requantize(v1, sh1, p.qmax));
             } else {
               out[0] = q0;
-              if (two) out[1] = requantize(v1, sh1);
+              if (two) out[1] = requantize(v1, sh1, p.qmax);
             }
           }
         }
@@ -586,7 +593,7 @@ gemm_wgmma(const __grid_constant__ CUtensorMap ta,
             if (p.emit_int32)
               static_cast<int32_t*>(p.out)[o] = v;
             else
-              static_cast<int8_t*>(p.out)[o] = requantize(v, sh);
+              static_cast<int8_t*>(p.out)[o] = requantize(v, sh, p.qmax);
           }
       }
     }
@@ -745,14 +752,15 @@ cudaError_t launch_conv(const void* x, int B, int H, int Wd, long long pix,
 // The __dp4a kernel. x [N, K] int8 with row stride ldx; w [K, M] int8 with
 // w[k, m] at k swk + m swm (any layout with unit stride along K or M);
 // shift [M] int32; bias [M] int32 or NULL; out [N, M] contiguous, int8, or
-// int32 with emit_int32; res [N, M] int8 with row stride ldr and res_shift
+// int32 with emit_int32; qmax the int8 clip's upper bound (127, or a ReLU6
+// engine's ceiling); res [N, M] int8 with row stride ldr and res_shift
 // [M] int32, or both NULL. Launches on `stream` and returns the launch's
 // cudaError_t (0 on success); it does not synchronise.
 extern "C" int gemm_int8_launch(const void* x, long long ldx, const void* w,
                                 long long swk, long long swm,
                                 const void* shift, const void* bias,
                                 void* out, int N, int K, int M, int relu,
-                                int emit_int32, const void* res,
+                                int emit_int32, int qmax, const void* res,
                                 long long ldr, const void* res_shift,
                                 void* stream) {
   if (N <= 0 || M <= 0 || K < 0) return (int)cudaErrorInvalidValue;
@@ -770,18 +778,18 @@ extern "C" int gemm_int8_launch(const void* x, long long ldx, const void* w,
   const int32_t* rsh = static_cast<const int32_t*>(res_shift);
   if (res)
     gemm_int8_kernel<true><<<grid, THREADS, 0, s>>>(
-        xs, ldx, ws, swk, swm, sh, bz, out, N, K, M, relu, emit_int32, vec_x,
-        vec_w, rs, ldr, rsh);
+        xs, ldx, ws, swk, swm, sh, bz, out, N, K, M, relu, emit_int32, qmax,
+        vec_x, vec_w, rs, ldr, rsh);
   else
     gemm_int8_kernel<false><<<grid, THREADS, 0, s>>>(
-        xs, ldx, ws, swk, swm, sh, bz, out, N, K, M, relu, emit_int32, vec_x,
-        vec_w, rs, ldr, rsh);
+        xs, ldx, ws, swk, swm, sh, bz, out, N, K, M, relu, emit_int32, qmax,
+        vec_x, vec_w, rs, ldr, rsh);
   return (int)cudaGetLastError();
 }
 
 // The wgmma kernels. x [N, K] int8 with row stride ldx bytes; wk [M, K]
 // int8 (the weights K-major) with row stride ldw bytes; both bases and
-// strides 16-byte aligned, K >= 1; res and res_shift as for
+// strides 16-byte aligned, K >= 1; qmax, res and res_shift as for
 // gemm_int8_launch (the RES instantiation where res is not NULL). `swap`
 // picks the small-N kernel,
 // `width` its wgmma width, `warpgroups` the consumer warpgroups (64 rows
@@ -792,7 +800,8 @@ extern "C" int gemm_int8_wgmma_launch(const void* x, long long ldx,
                                       const void* wk, long long ldw,
                                       const void* shift, const void* bias,
                                       void* out, int N, int K, int M,
-                                      int relu, int emit_int32, int swap,
+                                      int relu, int emit_int32, int qmax,
+                                      int swap,
                                       int width, int warpgroups, int k_boxes,
                                       const void* res, long long ldr,
                                       const void* res_shift, void* stream) {
@@ -809,6 +818,7 @@ extern "C" int gemm_int8_wgmma_launch(const void* x, long long ldx,
   p.M = M;
   p.relu = relu;
   p.emit_int32 = emit_int32;
+  p.qmax = qmax;
   const void* a = swap ? wk : x;
   const void* b = swap ? x : wk;
   const long long lda = swap ? ldw : ldx, ldb = swap ? ldx : ldw;
@@ -848,7 +858,8 @@ extern "C" int gemm_int8_conv_launch(const void* x, int B, int H, int W,
                                      int pad_l, int pad_r, const void* wk,
                                      long long ldw, const void* shift,
                                      const void* bias, void* out, int M,
-                                     int relu, int emit_int32, int width,
+                                     int relu, int emit_int32, int qmax,
+                                     int width,
                                      int warpgroups, const void* res,
                                      long long ldr, const void* res_shift,
                                      void* stream) {
@@ -871,6 +882,7 @@ extern "C" int gemm_int8_conv_launch(const void* x, int B, int H, int W,
   p.M = M;
   p.relu = relu;
   p.emit_int32 = emit_int32;
+  p.qmax = qmax;
   p.conv = {cg, S, R * S, Ho * Wo, Wo, stride, pad_t, pad_l};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;

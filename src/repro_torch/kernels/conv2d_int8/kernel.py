@@ -29,6 +29,8 @@ per engine at lowering (``core/program.py``). ``gemm_int8.launches`` counts the 
 launches and nothing else; ``gemm_int8.launches_by_path`` splits them by
 path, and ``gemm_int8.residual_launches`` counts those that added a
 residual (a ResNet bottleneck's skip) in their epilogue.
+:func:`launch_counts` reports them beside the engine's other kernel,
+``dwconv_int8``'s depthwise convs (``kernels/dwconv_int8``).
 """
 
 from __future__ import annotations
@@ -43,6 +45,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.conv2d_int8.ref import (conv2d_int8_via,
                                                  gemm_int8_ref)
+from repro_torch.kernels.dwconv_int8.kernel import dwconv_int8
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "gemm_int8.cu"
 PATHS = ("large_n", "small_n", "dp4a", "implicit")
@@ -53,6 +56,7 @@ ALIGN = 16             # TMA: bases and row strides in multiples of 16 bytes
 # built for: 128-row tiles of each large width, 64-row tiles of the first.
 LARGE_WIDTHS = (64, 96, 128)
 SMALL_WIDTHS = (16, 32, 64)
+QMAX = 127             # the int8 clip's upper bound but for ReLU6 engines
 IM2COL_CHANNELS = 64   # the implicit route's group widths: multiples of this
 # TMA's im2col limits on a 4-D map: traversal strides up to 8, box corners
 # (the padding, and the padding less the filter's extent) in [-128, 127].
@@ -135,12 +139,12 @@ def _lib():
     lib = _build.load(SOURCE)
     p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     lib.gemm_int8_launch.argtypes = [p, ll, p, ll, ll, p, p, p, i, i, i, i,
-                                     i, p, ll, p, p]
+                                     i, i, p, ll, p, p]
     lib.gemm_int8_wgmma_launch.argtypes = [p, ll, p, ll, p, p, p, i, i, i,
-                                           i, i, i, i, i, i, p, ll, p, p]
+                                           i, i, i, i, i, i, i, p, ll, p, p]
     lib.gemm_int8_conv_launch.argtypes = [p, i, i, i, ll, i, i, i, i, i, i,
                                           i, i, p, ll, p, p, p, i, i, i, i,
-                                          i, p, ll, p, p]
+                                          i, i, p, ll, p, p]
     lib.gemm_int8_launch.restype = ctypes.c_int
     lib.gemm_int8_wgmma_launch.restype = ctypes.c_int
     lib.gemm_int8_conv_launch.restype = ctypes.c_int
@@ -199,6 +203,13 @@ def _check_residual(residual: torch.Tensor, n: int, m: int) -> None:
                          f"{residual.stride()} for shape {(n, m)})")
 
 
+def _check_qmax(qmax: int) -> None:
+    """qmax: the int8 clip's upper bound, an int in [0, 127]."""
+    if not isinstance(qmax, int) or not 0 <= qmax <= QMAX:
+        raise ValueError(f"qmax: expected an int in [0, {QMAX}], got "
+                         f"{qmax!r}")
+
+
 def _check_epilogue(N: int, M: int, shift: torch.Tensor,
                     bias: torch.Tensor | None,
                     residual: torch.Tensor | None,
@@ -226,11 +237,13 @@ def gemm_int8(x: torch.Tensor, w: torch.Tensor, shift: torch.Tensor,
               bias: torch.Tensor | None = None, *, relu: bool = False,
               emit_int32: bool = False,
               residual: torch.Tensor | None = None,
-              res_shift: torch.Tensor | None = None) -> torch.Tensor:
+              res_shift: torch.Tensor | None = None,
+              qmax: int = QMAX) -> torch.Tensor:
     """int8 GEMM with fused requantize epilogue: [N,K]x[K,M] -> int8 [N,M].
 
     ``out = clip((relu?)(x @ w + bias) >> shift)`` with per-column (output
-    channel) ``shift``/``bias``; negative shifts left-shift. With
+    channel) ``shift``/``bias``; negative shifts left-shift; the clip is
+    onto ``[-128, qmax]`` (``qmax`` 127, or a ReLU6 engine's ceiling). With
     ``emit_int32`` the epilogue stops after bias/ReLU and returns the raw
     int32 accumulators. ``x`` is a view with unit stride along K and any
     leading dimension; ``w`` has unit stride along K (the fast layout) or
@@ -249,10 +262,11 @@ def gemm_int8(x: torch.Tensor, w: torch.Tensor, shift: torch.Tensor,
                          f"chain")
     M = w.shape[1]
     device = _check_epilogue(N, M, shift, bias, residual, res_shift, x, w)
+    _check_qmax(qmax)
     if device.type == "cpu":
         return gemm_int8_ref(x, w, shift, bias, relu=relu,
                              emit_int32=emit_int32, residual=residual,
-                             res_shift=res_shift)
+                             res_shift=res_shift, qmax=qmax)
     if device.type != "cuda":
         raise ValueError(f"gemm_int8 runs on cuda or cpu, not {device}")
     out = torch.empty((N, M), dtype=torch.int32 if emit_int32 else torch.int8,
@@ -271,7 +285,7 @@ def gemm_int8(x: torch.Tensor, w: torch.Tensor, shift: torch.Tensor,
         plan = plan_for(N, K, M, _sms(device.index or 0))
         err = _lib().gemm_int8_wgmma_launch(
             x.data_ptr(), ldx, w.data_ptr(), ldw, shift.data_ptr(), bias_p,
-            out.data_ptr(), N, K, M, int(relu), int(emit_int32),
+            out.data_ptr(), N, K, M, int(relu), int(emit_int32), qmax,
             int(plan.path == "small_n"), plan.width, plan.warpgroups,
             plan.k_boxes, *res, stream)
         path = plan.path
@@ -279,7 +293,7 @@ def gemm_int8(x: torch.Tensor, w: torch.Tensor, shift: torch.Tensor,
         err = _lib().gemm_int8_launch(
             x.data_ptr(), ldx, w.data_ptr(), w.stride(0), w.stride(1),
             shift.data_ptr(), bias_p, out.data_ptr(), N, K, M, int(relu),
-            int(emit_int32), *res, stream)
+            int(emit_int32), qmax, *res, stream)
         path = "dp4a"
     if err:
         raise RuntimeError(f"gemm_int8 launch failed: cudaError_t {err} "
@@ -333,13 +347,14 @@ def conv_int8_implicit(x: torch.Tensor, w: torch.Tensor,
                        groups: int = 1, relu: bool = False,
                        emit_int32: bool = False,
                        residual: torch.Tensor | None = None,
-                       res_shift: torch.Tensor | None = None
-                       ) -> torch.Tensor:
+                       res_shift: torch.Tensor | None = None,
+                       qmax: int = QMAX) -> torch.Tensor:
     """The conv as an implicit GEMM on the ``large_n`` kernel: x [B, H, W,
     C] int8, w [R, S, C / groups, M] int8 K-major, padding ``pad`` =
     ((top, bottom), (left, right)), shift/bias [M] int32 -> int8 [B, Ho,
     Wo, M] (int32 with ``emit_int32``), an int8 ``residual`` [B, Ho, Wo,
-    M] added in the epilogue as :func:`gemm_int8` adds it. One launch per
+    M] added in the epilogue and the clip onto ``[-128, qmax]``, as
+    :func:`gemm_int8` has them. One launch per
     channel group; each reads its patches from x by TMA's im2col mode
     (``gemm_int8_conv_launch``), so none is written; the tiling is
     :func:`plan_for`'s large-N one for the GEMM's shape. The conv must
@@ -363,11 +378,13 @@ def conv_int8_implicit(x: torch.Tensor, w: torch.Tensor,
                              f"got {tuple(residual.shape)}")
         res2d = residual.reshape(N, M)
     device = _check_epilogue(N, M, shift, bias, res2d, res_shift, x, w)
+    _check_qmax(qmax)
     if device.type == "cpu":
         return conv2d_int8_via(gemm_int8_ref, x, w, shift, bias,
                                stride=stride, padding=pad, groups=groups,
                                relu=relu, emit_int32=emit_int32,
-                               residual=residual, res_shift=res_shift)
+                               residual=residual, res_shift=res_shift,
+                               qmax=qmax)
     if device.type != "cuda":
         raise ValueError(f"conv_int8_implicit runs on cuda or cpu, not "
                          f"{device}")
@@ -395,8 +412,8 @@ def conv_int8_implicit(x: torch.Tensor, w: torch.Tensor,
             left, right, w[..., cols].data_ptr(), w.stride(3),
             shift[cols].data_ptr(),
             None if bias is None else bias[cols].data_ptr(),
-            out.data_ptr(), Mg, int(relu), int(emit_int32), plan.width,
-            plan.warpgroups, *res, stream)
+            out.data_ptr(), Mg, int(relu), int(emit_int32), qmax,
+            plan.width, plan.warpgroups, *res, stream)
         if err:
             raise RuntimeError(
                 f"gemm_int8 launch failed: cudaError_t {err} (conv x "
@@ -411,31 +428,34 @@ def conv_int8_implicit(x: torch.Tensor, w: torch.Tensor,
 
 
 def reset_launches() -> None:
-    """Set ``gemm_int8.launches``, every path's count and the residual
-    launches to 0."""
+    """Set every count of :func:`launch_counts` to 0."""
     _build.reset_count(gemm_int8, PATHS)
+    _build.reset_count(dwconv_int8)
     with _build._COUNT_LOCK:
         gemm_int8.residual_launches = 0
 
 
 def launch_counts() -> dict[str, int]:
-    """``gemm_int8``'s counts now: ``"launches"``, each path's, and
-    ``"residual"`` (the launches that added a residual)."""
+    """The engine's kernel counts now: ``gemm_int8``'s ``"launches"``, each
+    path's and ``"residual"`` (the launches that added a residual), and
+    ``"depthwise"``, ``dwconv_int8``'s launches."""
     with _build._COUNT_LOCK:
         return {"launches": gemm_int8.launches, **gemm_int8.launches_by_path,
-                "residual": gemm_int8.residual_launches}
+                "residual": gemm_int8.residual_launches,
+                "depthwise": dwconv_int8.launches}
 
 
 def add_launches(counts: dict[str, int], sign: int = 1) -> None:
     """Add ``sign`` times ``counts`` (the difference of two
-    :func:`launch_counts`) to ``gemm_int8``'s counts: a replayed CUDA graph
+    :func:`launch_counts`) to the engine's counts: a replayed CUDA graph
     launches the kernels its capture recorded without calling the
-    wrapper, and a capture calls it without launching."""
+    wrappers, and a capture calls them without launching."""
     with _build._COUNT_LOCK:
         gemm_int8.launches += sign * counts["launches"]
         for path in PATHS:
             gemm_int8.launches_by_path[path] += sign * counts[path]
         gemm_int8.residual_launches += sign * counts["residual"]
+        dwconv_int8.launches += sign * counts["depthwise"]
 
 
 reset_launches()

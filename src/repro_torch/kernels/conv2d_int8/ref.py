@@ -2,7 +2,8 @@
 
 The hardware pipeline: int8 activations x int8 weights -> int32 partial
 sums -> (+bias, + a residual engine's aligned skip, ReLU) ->
-per-output-channel shift + truncate to int8. The
+per-output-channel shift + truncate to int8 (onto ``[-128, qmax]``: 127,
+or a ReLU6 engine's ceiling). The
 conv is an implicit GEMM over int8 im2col patches (the activation line
 buffer's address generation), which is what the Hopper kernel computes
 tile by tile. Patch features are ordered ``(r, s, c)`` so
@@ -32,16 +33,21 @@ def requantize_ref(acc: torch.Tensor, shift: torch.Tensor,
                    bias: torch.Tensor | None = None,
                    relu: bool = False, *,
                    residual: torch.Tensor | None = None,
-                   res_shift: torch.Tensor | None = None) -> torch.Tensor:
+                   res_shift: torch.Tensor | None = None,
+                   qmax: int = 127) -> torch.Tensor:
     """The fused epilogue on raw int32 accumulators ``[N, M]``: bias add,
     the aligned residual (:func:`align_residual`) where there is one,
     optional ReLU, then the shared saturating signed shift + clip to int8
     (``quant.requantize_output`` — the CUDA epilogue inlines the identical
-    math, pinned by the bit-identity checks)."""
+    math, pinned by the bit-identity checks), held at ``qmax`` where it is
+    below 127 (a ReLU6 engine's ceiling: the shift is monotone, so holding
+    the shifted value there is holding the accumulator at ``qmax`` times
+    its scale)."""
     acc = bias_relu_ref(acc, bias, relu, residual=residual,
                         res_shift=res_shift)
-    return quant.requantize_output(acc, 0, shift[None, :].to(torch.int32),
-                                   bits=8)
+    out = quant.requantize_output(acc, 0, shift[None, :].to(torch.int32),
+                                  bits=8)
+    return out if qmax >= 127 else torch.clamp(out, max=qmax)
 
 
 def align_residual(residual: torch.Tensor,
@@ -83,10 +89,12 @@ def gemm_int8_ref(x: torch.Tensor, w: torch.Tensor, shift: torch.Tensor,
                   bias: torch.Tensor | None = None, relu: bool = False,
                   emit_int32: bool = False, *,
                   residual: torch.Tensor | None = None,
-                  res_shift: torch.Tensor | None = None) -> torch.Tensor:
+                  res_shift: torch.Tensor | None = None,
+                  qmax: int = 127) -> torch.Tensor:
     """x [N, K] int8, w [K, M] int8, shift [M] int32 (signed shift bits).
-    Returns int8 [N, M]: clip((relu?)(x @ w + bias) >> shift); with
-    ``emit_int32`` the int32 ``(relu?)(x @ w + bias)`` instead. With an
+    Returns int8 [N, M]: clip((relu?)(x @ w + bias) >> shift) onto
+    [-128, qmax]; with ``emit_int32`` the int32 ``(relu?)(x @ w + bias)``
+    instead. With an
     int8 ``residual`` [N, M] and its int32 [M] ``res_shift``, the aligned
     residual is added before ReLU (:func:`align_residual`)."""
     acc = matmul_int8_exact(x, w)
@@ -94,7 +102,7 @@ def gemm_int8_ref(x: torch.Tensor, w: torch.Tensor, shift: torch.Tensor,
         return bias_relu_ref(acc, bias, relu, residual=residual,
                              res_shift=res_shift)
     return requantize_ref(acc, shift, bias, relu, residual=residual,
-                          res_shift=res_shift)
+                          res_shift=res_shift, qmax=qmax)
 
 
 def same_padding(in_hw: int, kernel: int, stride: int) -> tuple[int, int]:
@@ -183,11 +191,12 @@ def conv2d_int8_via(gemm_fn, x: torch.Tensor, w: torch.Tensor,
 def conv2d_int8_ref(x: torch.Tensor, w: torch.Tensor, shift: torch.Tensor,
                     bias: torch.Tensor | None = None, *, stride: int = 1,
                     padding="same", groups: int = 1, relu: bool = False,
-                    emit_int32: bool = False) -> torch.Tensor:
+                    emit_int32: bool = False,
+                    qmax: int = 127) -> torch.Tensor:
     """x [B,H,W,C] int8, w [R,S,C/groups,M] int8, shift/bias [M].
     Arbitrary stride, asymmetric padding ((top,bot),(left,right)) or
-    "same", and grouped channels. Returns int8 [B,Ho,Wo,M] (int32 with
-    ``emit_int32``)."""
+    "same", and grouped channels. Returns int8 [B,Ho,Wo,M] on
+    [-128, qmax] (int32 with ``emit_int32``)."""
     return conv2d_int8_via(gemm_int8_ref, x, w, shift, bias, stride=stride,
                            padding=padding, groups=groups, relu=relu,
-                           emit_int32=emit_int32)
+                           emit_int32=emit_int32, qmax=qmax)

@@ -105,9 +105,10 @@ def test_the_launch_gate_keeps_a_capture_alone():
 
 def test_launch_counts_add_and_take_back():
     before = gemm_kernel.launch_counts()
-    assert set(before) == {"launches", "residual", *gemm_kernel.PATHS}
+    assert set(before) == {"launches", "residual", "depthwise",
+                           *gemm_kernel.PATHS}
     delta = {"launches": 9, "large_n": 3, "small_n": 2, "dp4a": 0,
-             "implicit": 4, "residual": 1}
+             "implicit": 4, "residual": 1, "depthwise": 2}
     gemm_kernel.add_launches(delta)
     after = gemm_kernel.launch_counts()
     assert {k: after[k] - before[k] for k in after} == delta
