@@ -59,8 +59,14 @@ failure exits nonzero without the final line:
    ``dwconv_int8_layer``, ``dwconv_int8_batch``), and one batch of
    full-width MobileNetV2 (17 ``dwconv_int8``, 18 ``implicit`` + 17
    ``large_n`` + 1 ``small_n``) through the kernel, oracle and f32
-   routes, identical int32, and through a K = 2 pipeline; for each of
-   the four, one batch on a fresh
+   routes, identical int32, and through a K = 2 pipeline; then
+   ``quantize_in_int8`` bit for bit against the host's rounding (227² and
+   224², batches 16, 1, 3, 17, ties, rails, infinities, subnormals), one
+   VGG16 batch of it timed cold beside its plain version, one
+   ``torch.quantize_per_tensor`` call and its bound, and VGG16 served
+   through ``EngineExecutor`` on the card path with one ``quantize_in``
+   launch a batch (line ``quantize_in_batch``); for each of
+   the four models, one batch on a fresh
    runner launch by launch and replayed as its CUDA graph: the host's
    enqueue of a batch and the profiled device time each way, the launch
    counts a batch each way, the accumulators equal (lines
@@ -300,6 +306,7 @@ from repro_torch import checkpointing as ckpt  # noqa: E402
 from repro_torch import optim  # noqa: E402
 from repro_torch.configs import ARCHS, reduced  # noqa: E402
 from repro_torch.core import pipeline as PL  # noqa: E402
+from repro_torch.core import quant  # noqa: E402
 from repro_torch.core.executor import EngineExecutor  # noqa: E402
 from repro_torch.core.program import ROUTES  # noqa: E402
 from repro_torch.core.workload import CNN_MODELS  # noqa: E402
@@ -314,6 +321,9 @@ from repro_torch.kernels.conv2d_int8.ref import (  # noqa: E402
 from repro_torch.kernels.dwconv_int8 import kernel as dw_kernel  # noqa
 from repro_torch.kernels.dwconv_int8.kernel import (  # noqa: E402
     dwconv_int8, dwconv_int8_ref)
+from repro_torch.kernels.quantize_in import kernel as qi_kernel  # noqa
+from repro_torch.kernels.quantize_in.kernel import (  # noqa: E402
+    quantize_in_int8, quantize_in_int8_ref)
 from repro_torch.kernels.flash_attention import kernel as flash_kernel  # noqa
 from repro_torch.kernels.flash_attention.kernel import (  # noqa: E402
     flash_attention)
@@ -701,7 +711,7 @@ def _kernel_name(mangled: str) -> str:
     its repeat: bf16)."""
     m = re.search(r"(flash_fwd_wgmma|flash_fwd_bf16|flash_fwd_f32|"
                   r"linear_scan_kernel|gemm_int8_kernel|gemm_wgmma|"
-                  r"dwconv3x3_int8)(I.*?EE)?",
+                  r"dwconv3x3_int8|quantize_in_int8)(I.*?EE)?",
                   mangled)
     if not m:
         return mangled
@@ -771,7 +781,7 @@ def phase_environment() -> dict:
         return round(time.perf_counter() - t0, 3)
 
     sources = [gemm_kernel.SOURCE, flash_kernel.SOURCE, scan_kernel.SOURCE,
-               dw_kernel.SOURCE]
+               dw_kernel.SOURCE, qi_kernel.SOURCE]
     # One nvcc per source for the build and one per source for ptxas's
     # report, all started together.
     with ThreadPoolExecutor(2 * len(sources)) as pool:
@@ -1327,6 +1337,8 @@ def phase_main_path() -> dict:
     torch.cuda.synchronize()
     launches = gemm_int8.launches
     by_path = dict(gemm_int8.launches_by_path)
+    # One quantize_in_int8 a batch: the card rounds every batch's frames.
+    quantize_in = gemm_kernel.launch_counts()["quantize_in"]
     if flash_attention.launches:
         raise SmokeFailure("the AlexNet path launched flash_attention")
     served = result.pop("outputs")
@@ -1337,13 +1349,15 @@ def phase_main_path() -> dict:
     expect_paths = paths_for("alexnet", result["batches"])
     emit({"phase": "serve", **result, "gemm_int8_launches": launches,
           "launches_by_path": by_path, "expected_launches": expect,
-          "expected_by_path": expect_paths})
+          "expected_by_path": expect_paths,
+          "quantize_in_launches": quantize_in})
     if result["route"] != "kernel" or launches != expect \
-            or by_path != expect_paths:
+            or by_path != expect_paths or quantize_in != result["batches"]:
         raise SmokeFailure(f"the served path ran route {result['route']} "
                            f"with {launches} gemm_int8 launches "
-                           f"({by_path}), expected the kernel route with "
-                           f"{expect} ({expect_paths})")
+                           f"({by_path}) and {quantize_in} quantize_in, "
+                           f"expected the kernel route with {expect} "
+                           f"({expect_paths}) and {result['batches']}")
 
     # Every served frame against the oracle route of the same seeded
     # program on the same frames. The logits of distinct frames differ,
@@ -1917,6 +1931,98 @@ def phase_mobilenet(dw: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 3a': quantize-in on the card
+# ---------------------------------------------------------------------------
+
+QI_SOURCE = "src/repro_torch/kernels/quantize_in/csrc/quantize_in.cu"
+QI_BATCHES = 4
+
+
+def phase_quantize_in(env: dict) -> dict:
+    """``quantize_in_int8`` against the host's rounding
+    (``quant.quantize_to_exponent_np``), bit for bit, at AlexNet's 227² and
+    VGG16's 224² frames, batches 16, 1, 3 and 17 (a third of the rows
+    zero), ties at (k + 0.5) 2^e, values past the rails, infinities, -0.0
+    and subnormals; then one VGG16 batch of 16 timed cold (CUDA events, L2
+    flushed): the kernel, its plain version (torch ops on the card), one
+    ``torch.quantize_per_tensor`` call to qint8 (the library yardstick; the
+    port never calls it) and the bound, 5 bytes an element over the card's
+    bandwidth; then full-width VGG16 served through ``EngineExecutor`` on
+    the card path (float32 slots, one ``quantize_in`` launch a batch,
+    replays included), every frame's logits equal to the host path's."""
+    peak_bytes = PEAKS[card_peaks(torch.cuda.get_device_name(0))[0]][2]
+    rng = np.random.default_rng(34)
+    cases = 0
+    before = quantize_in_int8.launches
+    for hw in (227, 224):
+        for B in DW_BATCHES:
+            for e in (-6, -5, -4, 0):
+                step = np.float32(2.0 ** e)
+                x = (rng.standard_normal((B, hw, hw, 3)) * 40 * step
+                     ).astype(np.float32)
+                flat = x.reshape(-1)
+                k = np.arange(-130, 130, dtype=np.float32)
+                special = np.concatenate([
+                    (k + np.float32(0.5)) * step,
+                    np.array([128.5, -129, 1e30, -1e30], np.float32) * step,
+                    np.array([np.inf, -np.inf, -0.0, 1e-45, -1e-40],
+                             np.float32)])
+                flat[rng.choice(flat.size, len(special), replace=False)] = \
+                    special
+                x[B - B // 3:] = 0
+                got = quantize_in_int8(torch.as_tensor(x, device="cuda"), e)
+                torch.cuda.synchronize()
+                cases += 1
+                if not np.array_equal(got.cpu().numpy(),
+                                      quant.quantize_to_exponent_np(x, e)):
+                    raise SmokeFailure(f"quantize_in_int8 disagrees with "
+                                       f"the host at B {B}, {hw}², e {e}")
+    launched = quantize_in_int8.launches - before
+    prog = compile_for_serving("vgg16", seed=0, device="cuda")
+    frames = synthetic_stream("vgg16", QI_BATCHES * SERVE_BATCH, 0)
+    x = torch.as_tensor(frames[:SERVE_BATCH], device="cuda")
+    e = prog.e_input
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.int8, device="cuda")
+    try:
+        torch.quantize_per_tensor(x, 2.0 ** e, 0, torch.qint8)
+        library = lambda: torch.quantize_per_tensor(  # noqa: E731
+            x, 2.0 ** e, 0, torch.qint8)
+    except (RuntimeError, NotImplementedError):
+        library = None
+    moved = 5 * x.numel()
+    row = {"phase": "quantize_in_batch", "model": "vgg16",
+           "batch": SERVE_BATCH, "e_input": e, "cases_exact": cases,
+           "launches_checked": launched,
+           "ms": _time_cold_ms(lambda: quantize_in_int8(x, e), flush),
+           "plain_ms": _time_cold_ms(lambda: quantize_in_int8_ref(x, e),
+                                     flush),
+           "library_ms": None if library is None
+           else _time_cold_ms(library, flush),
+           "bytes": moved, "bound_ms": 1e3 * moved / peak_bytes,
+           "bound_by": "bytes", "power_limit": env["nvidia_smi"]}
+    row["roofline_share"] = row["bound_ms"] / row["ms"]
+    reset_launches()
+    ex = EngineExecutor(prog, batch_size=SERVE_BATCH, output="logits")
+    got = np.stack(ex.serve(list(frames)))
+    torch.cuda.synchronize()
+    counts = gemm_kernel.launch_counts()
+    host = prog.compile_runner(route="kernel")
+    want = np.concatenate([host.logits(frames[i:i + SERVE_BATCH]) for i in
+                           range(0, len(frames), SERVE_BATCH)])
+    row.update(served_batches=QI_BATCHES, served_quantize_in=counts[
+        "quantize_in"], replays=ex.runner.replays,
+        slot_dtype=str(ex._staging[0][0].dtype),
+        logits_equal_host_path=bool(np.array_equal(got, want)))
+    emit(row)
+    if not (launched == cases and ex.runner.card_intake
+            and row["logits_equal_host_path"]
+            and counts["quantize_in"] == QI_BATCHES
+            and ex.runner.replays == QI_BATCHES - 1):
+        raise SmokeFailure(f"quantize-in on the card failed: {row}")
+    return row
+
+
+# ---------------------------------------------------------------------------
 # Phase 3b: the layer-pipelined serving path (stage partition, stage
 # workers, async frontend, replica pool)
 # ---------------------------------------------------------------------------
@@ -2036,6 +2142,7 @@ def _vgg16_pipeline() -> list:
             px.serve(list(frames))
             torch.cuda.synchronize()
             by_path = dict(gemm_int8.launches_by_path)
+            quantize_in = gemm_kernel.launch_counts()["quantize_in"]
         finally:
             px.close()
         expect = paths_for("vgg16", VGG_PIPE_BATCHES)
@@ -2048,11 +2155,13 @@ def _vgg16_pipeline() -> list:
                "stage_balance": px.partition.balance, "route": px.route,
                "batches": len(cap.accs), "launches_by_path": by_path,
                "expected_by_path": expect,
+               "quantize_in_launches": quantize_in,
                "int32_identical_to_whole_chain": identical,
                "whole_chain_identical_to_oracle": True,
                "stage_busy_ms": [1e3 * t for t in px.stage_busy_s]}
         emit(row)
-        if not (identical and by_path == expect and px.route == "kernel"):
+        if not (identical and by_path == expect and px.route == "kernel"
+                and quantize_in == VGG_PIPE_BATCHES):
             raise SmokeFailure(f"VGG16 pipeline check failed: {row}")
         rows.append(row)
     return rows
@@ -2105,6 +2214,7 @@ def phase_pipeline() -> dict:
         torch.cuda.synchronize()
         by_path = dict(gemm_int8.launches_by_path)
         count = gemm_int8.launches
+        quantize_in = gemm_kernel.launch_counts()["quantize_in"]
         outs = res.pop("outputs")
         res.pop("replica_rows", None)
         n = res["batches_run"]
@@ -2116,6 +2226,7 @@ def phase_pipeline() -> dict:
                "gemm_int8_launches": count,
                "launches_by_path": by_path, "expected_by_path": expect,
                "launches_per_batch": _paths_per_batch(by_path, n),
+               "quantize_in_launches": quantize_in,
                "top1_identical": bool(np.array_equal(top1, base_top1)),
                "top1_identical_to_oracle": bool(
                    np.array_equal(top1, want.argmax(-1))),
@@ -2125,7 +2236,7 @@ def phase_pipeline() -> dict:
                    bool(np.array_equal(outs, want)) if logits else None)}
         emit(row)
         ok = (res["route"] == "kernel" and by_path == expect
-              and row["top1_identical"]
+              and quantize_in == n and row["top1_identical"]
               and row["top1_identical_to_oracle"]
               and row["logits_identical"] is not False
               and row["logits_identical_to_oracle"] is not False
@@ -2221,6 +2332,7 @@ def phase_bits16() -> dict:
         px.close()
     torch.cuda.synchronize()
     launched = gemm_int8.launches
+    quantize_in = gemm_kernel.launch_counts()["quantize_in"]
 
     def same(accs) -> bool:
         return len(accs) == len(want) and all(
@@ -2257,6 +2369,7 @@ def phase_bits16() -> dict:
                np.array_equal(px_logits, want_logits)),
            "pipeline_boundaries": list(px.partition.boundaries),
            "gemm_int8_launches": launched,
+           "quantize_in_launches": quantize_in,
            "logits_finite": bool(np.isfinite(want_logits).all()),
            "max_abs_acc": int(max(int(w.abs().max()) for w in want)),
            "serve_route": served["route"],
@@ -2276,6 +2389,7 @@ def phase_bits16() -> dict:
           and row["pipeline_k2_acc_identical_to_cpu"]
           and row["executor_logits_identical"]
           and row["pipeline_logits_identical"] and launched == 0
+          and quantize_in == 0
           and row["logits_finite"] and runner.route == "oracle"
           and served["route"] == "oracle"
           and row["step_dtypes"][-1] == "torch.int64"
@@ -5729,6 +5843,8 @@ def main() -> int:
         dw = phase_depthwise(env)
         mobilenet = phase_mobilenet(dw)
         torch.cuda.empty_cache()
+        qi = phase_quantize_in(env)
+        torch.cuda.empty_cache()
         pipeline = phase_pipeline()
         torch.cuda.empty_cache()
         phase_bits16()
@@ -5842,7 +5958,20 @@ def main() -> int:
                         "values, no epilogue",
         "path": "mobilenetv2",
         "per": f"one MobileNetV2 batch of {SERVE_BATCH}: the sum over its "
-               f"{MOBILENET_DEPTHWISE} launches"}] + [{
+               f"{MOBILENET_DEPTHWISE} launches"}, {
+        "name": "quantize_in_int8", "route": "cuda", "source": QI_SOURCE,
+        "replaces": None,
+        "replaces_note": "no TPU kernel: the JAX package rounds the frames "
+                         "on the host in numpy, as the port did before",
+        "launches": qi["served_quantize_in"], "max_abs_err": 0,
+        **{k: qi[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                              "library_ms")},
+        "library_note": "one torch.quantize_per_tensor to qint8 at the "
+                        "same scale",
+        "path": "vgg16",
+        "per": f"one VGG16 batch of {SERVE_BATCH} float32 frames; one "
+               f"launch a batch at the head of stage 0's graph "
+               f"({QI_BATCHES} batches served)"}] + [{
         "name": "flash_attention", "route": "cuda", "source": FLASH_SOURCE,
         "replaces": FLASH_REPLACES, "launches": yi_launches,
         "max_abs_err": flash["max_abs_err"], "ms": flash["ms"],

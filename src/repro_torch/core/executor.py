@@ -8,15 +8,18 @@ buffering, Fig. 2). :class:`EngineExecutor` is the software analogue on a
 frame stream:
 
 * ``submit(frame)`` micro-batches incoming frames to ``batch_size``;
-* a full micro-batch is quantized to int8 (int16 at bits=16) on the
-  *host* straight into a pinned staging slot (:func:`staging_slot`), a
-  chunk of frames at a time through the slot's float32 scratch, and
-  handed to the runner (:meth:`CompiledRunner.launch`), which copies it
+* a full micro-batch goes straight into a pinned staging slot
+  (:func:`staging_slot`): on the card's kernel route as float32 frames,
+  copied in one pass, which the runner rounds to int8 on the card as the
+  first kernel of its graph; elsewhere quantized to int8 (int16 at
+  bits=16) on the *host*, a chunk of frames at a time through the slot's
+  float32 scratch. The slot is handed to the runner
+  (:meth:`CompiledRunner.launch`), which copies it
   to the card without waiting, launches the step chain on the current
   stream (from the third batch on the kernel route, one replay of a
   CUDA graph), copies the final accumulators back to the host behind it
   and records an event that marks the batch done. The device computes
-  batch ``k`` while the host quantizes batch ``k+1`` and argmax-decodes
+  batch ``k`` while the host stages batch ``k+1`` and argmax-decodes
   batch ``k-1`` (the two "buffer halves" are the bounded in-flight queue);
 * ``drain()`` flushes the partial tail batch (padded to the batch shape)
   and collects all results.
@@ -68,18 +71,25 @@ def normalize_frames(program: EngineProgram,
     return frames
 
 
-def staging_slot(program: EngineProgram, batch_size: int, *,
-                 pinned: bool) -> tuple[torch.Tensor, np.ndarray]:
-    """One slot of a serve loop's staging ring: a host buffer for a
-    quantized batch of ``program`` (the batch's shape in the program's
-    input dtype, int8 or int16 at bits=16), pinned for an asynchronous
-    copy to the card when ``pinned``, and the one-chunk float32 scratch
-    quantize-in passes frames through. Quantize-in writes into the buffer
-    (and refuses any other dtype); a slot is used by one thread at a
-    time."""
-    m = program.model
-    buf = torch.empty((batch_size, m.input_hw, m.input_hw, m.input_ch),
-                      dtype=quant.int_dtype(program.bits), pin_memory=pinned)
+def staging_slot(runner: CompiledRunner, batch_size: int, *,
+                 pinned: bool) -> tuple[torch.Tensor, np.ndarray | None]:
+    """One slot of a serve loop's staging ring for the batches ``runner``
+    (the first stage) takes: a host buffer of the batch's shape, pinned
+    for an asynchronous copy to the card when ``pinned``, and the
+    one-chunk float32 scratch the host's quantize-in passes frames
+    through. Where the runner rounds on the card
+    (``CompiledRunner.card_intake``) the buffer holds float32 frames and
+    there is no scratch (None); else it holds the quantized batch in the
+    program's input dtype, int8 or int16 at bits=16. Quantize-in writes
+    into the buffer (and refuses any other dtype); a slot is used by one
+    thread at a time."""
+    m = runner.program.model
+    shape = (batch_size, m.input_hw, m.input_hw, m.input_ch)
+    if runner.card_intake:
+        return torch.empty(shape, dtype=torch.float32,
+                           pin_memory=pinned), None
+    buf = torch.empty(shape, dtype=quant.int_dtype(runner.program.bits),
+                      pin_memory=pinned)
     return buf, quant.quantize_scratch(buf.shape)
 
 
@@ -215,10 +225,11 @@ class EngineExecutor:
 
     def _dispatch(self, frames, n_valid: int | None = None,
                   tag: object = None):
-        """Host quantize-in + asynchronous launch of one micro-batch (a
-        list of frames from the pending buffer, or an ``[n, H, W, C]``
-        array, ``n <= batch_size``), quantized straight into the next
-        staging slot and zero-padded there. Blocks only when
+        """Quantize-in + asynchronous launch of one micro-batch (a list of
+        frames from the pending buffer, or an ``[n, H, W, C]`` array, ``n
+        <= batch_size``), staged straight into the next staging slot (its
+        float frames on the card path, else quantized) and zero-padded
+        there. Blocks only when
         ``max_inflight`` batches are already on device (the double-buffer
         back-pressure). Caller holds the lock."""
         if self._t0 is None:
@@ -231,7 +242,7 @@ class EngineExecutor:
         with span("engine.stack", owner=owner, batch=seq):
             if not self._staging:
                 pinned = self.runner.device.type == "cuda"
-                self._staging = [staging_slot(self.program, self.batch_size,
+                self._staging = [staging_slot(self.runner, self.batch_size,
                                               pinned=pinned)
                                  for _ in range(self._max_inflight)]
             buf, scratch = self._staging[self._slot]

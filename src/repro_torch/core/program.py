@@ -87,6 +87,7 @@ from repro_torch.kernels.conv2d_int8.ref import (bias_relu_ref,
                                                  matmul_int8_exact,
                                                  requantize_ref)
 from repro_torch.kernels.dwconv_int8.kernel import depthwise_acc
+from repro_torch.kernels.quantize_in.kernel import quantize_in_int8
 
 Params = dict[str, dict[str, Any]]
 
@@ -427,8 +428,12 @@ class EngineProgram:
         step_fn = {"kernel": _step_kernel, "f32": _step_exact_f32,
                    "oracle": _step_oracle}[route]
         chain = _chain(self.steps_on(device), start, stop, step_fn)
+        card = start == 0 and rounds_on_card(device, route, self.bits)
+        if card:
+            chain = _rounding_first(chain, self.e_input)
         return CompiledRunner(program=self, route=route, fn=chain,
-                              start=start, stop=stop, device=device)
+                              start=start, stop=stop, device=device,
+                              card_intake=card)
 
     def live_at(self, cut: int) -> list[int]:
         """The step outputs live at the cut before step ``cut`` (-1: the
@@ -463,6 +468,33 @@ class EngineProgram:
                 placed.append(s)
             self._placed[key] = placed
         return self._placed[key]
+
+
+def rounds_on_card(device, route: str, bits: int) -> bool:
+    """Whether quantize-in rounds the frames on the card: where a runner
+    replays its range as a CUDA graph (a CUDA device, the kernel route), at
+    bits 8. There the serve loops' staging slots hold float32 frames, the
+    host only copies them in (:meth:`CompiledRunner.quantize`), and the
+    first runner's ``fn`` starts with ``quantize_in_int8``, so the rounding
+    is the first node of stage 0's graph. Everywhere else (the CPU, the
+    f32 and oracle routes, bits=16) the host rounds them into an int8
+    (int16) slot. :meth:`EngineProgram.compile_stage_runner` asks it once
+    and records the answer as the runner's ``card_intake``, which
+    ``staging_slot`` and :meth:`CompiledRunner.quantize` read."""
+    return torch.device(device).type == "cuda" and route == "kernel" \
+        and bits == 8
+
+
+def _rounding_first(chain: Callable, e_input: int) -> Callable:
+    """The first runner's ``fn`` on the card path: a float32 batch is
+    rounded onto the input format by ``quantize_in_int8`` in the same call
+    (inside the graph a capture records), then runs the chain; an int8
+    batch, quantized already, runs the chain as it is."""
+    def fn(x):
+        if isinstance(x, torch.Tensor) and x.dtype == torch.float32:
+            x = quantize_in_int8(x, e_input)
+        return chain(x)
+    return fn
 
 
 class _LaunchGate:
@@ -536,12 +568,14 @@ class CompiledRunner:
     ``fn`` maps an int8 (int16 at bits=16) activation batch ``[B, H, W,
     C]`` on the program's device to the range's output — raw final
     accumulators (int32; int64 at bits=16) when the range includes the
-    last engine, int8/int16 activations otherwise — launch by launch.
+    last engine, int8/int16 activations otherwise — launch by launch. On
+    the card path (:func:`rounds_on_card`) the first runner's ``fn`` also
+    takes the float32 frames, and rounds them on the card first.
     The runner owns a batch's trip to the card and back for both serve
-    loops: host-side quantize-in (first stage), the copy in, the launches,
-    the copy out and its event (:meth:`launch`), and dequantize and
-    argmax (:meth:`decode`, last stage); the executors only order and
-    collect.
+    loops: quantize-in (first stage; :attr:`card_intake`), the copy in,
+    the launches, the copy out and its event (:meth:`launch`), and
+    dequantize and argmax (:meth:`decode`, last stage); the executors only
+    order and collect.
 
     On a CUDA device on the kernel route a call replays ``fn`` as one CUDA
     graph: the second call with an input of one shape and dtype captures
@@ -557,6 +591,9 @@ class CompiledRunner:
     start: int = 0
     stop: int = -1          # -1 == len(program.steps) (whole chain)
     device: torch.device | None = None     # None == program.device
+    # The first stage on the card path (:func:`rounds_on_card`): ``fn``
+    # rounds float32 frames on the card, and the staging slots hold them.
+    card_intake: bool = False
     replays: int = dataclasses.field(default=0, init=False, compare=False)
     eager_calls: int = dataclasses.field(default=0, init=False,
                                          compare=False)
@@ -583,17 +620,22 @@ class CompiledRunner:
 
     def quantize(self, x, out: np.ndarray | None = None,
                  scratch: np.ndarray | None = None) -> np.ndarray:
-        """Host-side quantize onto the program's frozen input format
-        (numpy twin of ``quant.quantize_to_exponent`` — bit-identical).
-        With ``out`` (and its ``scratch``), the frames are written straight
-        into that batch buffer, zero-padded: the serve loops' staging
-        buffers (``quant.quantize_to_exponent_np``). Only the first stage
-        consumes float frames."""
+        """Quantize-in, as the serve loops call it. Without ``out``: the
+        host rounds onto the program's frozen input format (numpy twin of
+        ``quant.quantize_to_exponent`` — bit-identical). With ``out`` (a
+        staging slot's buffer, and its ``scratch``) the frames are written
+        straight into it, zero-padded: on the card path
+        (:attr:`card_intake`) as float32 frames, copied in one pass
+        (``quant.copy_frames_np``), which ``fn`` rounds on the card;
+        elsewhere rounded on the host (``quant.quantize_to_exponent_np``).
+        Only the first stage consumes float frames."""
         if not self.is_first:
             raise ValueError(
                 f"stage [{self.start}, {self.stop}) does not start the "
                 f"chain; it consumes the previous stage's quantized "
                 f"activations, not float frames")
+        if out is not None and self.card_intake:
+            return quant.copy_frames_np(x, out)
         return quant.quantize_to_exponent_np(
             x, self.program.e_input, self.program.bits, out=out,
             scratch=scratch)

@@ -100,21 +100,8 @@ def quantize_to_exponent_np(x, e: int, bits: int = 8, out=None,
                     -qmax - 1, qmax)
         return q.astype(np.int8 if bits <= 8 else np.int16)
     frame = out.shape[1:]
-    want = np.dtype(np.int8 if bits <= 8 else np.int16)
-    if out.dtype != want:
-        raise ValueError(f"quantize-in at bits={bits} writes {want}, not "
-                         f"into {out.dtype}")
-    if isinstance(x, np.ndarray):
-        if x.ndim != out.ndim or x.shape[1:] != frame:
-            raise ValueError(f"frames {list(x.shape)} do not fit a batch "
-                             f"{list(out.shape)}")
-    else:
-        x = [np.asarray(f) for f in x]
-        if any(f.shape != frame for f in x):
-            raise ValueError(f"a frame's shape is not {list(frame)}")
-    n = len(x)
-    if n > len(out):
-        raise ValueError(f"{n} frames exceed a batch of {len(out)}")
+    x, n = _frames_into(x, out, np.dtype(np.int8 if bits <= 8 else np.int16),
+                        f"quantize-in at bits={bits}")
     if scratch is None:
         scratch = quantize_scratch((max(n, 1),) + frame)
     elif scratch.dtype != np.float32 or scratch.shape[1:] != frame:
@@ -124,6 +111,44 @@ def quantize_to_exponent_np(x, e: int, bits: int = 8, out=None,
                      scratch[:scratch_frames(frame)])
     out[n:] = 0
     return out
+
+
+def copy_frames_np(x, out: np.ndarray) -> np.ndarray:
+    """Quantize-in's host half on the card path: the ``n`` float frames of
+    ``x`` (an ``[n, H, W, C]`` array or a sequence of ``[H, W, C]``
+    frames, as :func:`quantize_to_exponent_np` takes them) copied into the
+    float32 batch ``out[:n]``, cast in the same pass where they are of
+    another dtype, and ``out[n:]`` zeroed; returns ``out``. One pass over
+    the frames and no temporary; ``np.copyto`` releases the GIL. The card
+    rounds ``out`` (``kernels/quantize_in``). An ``out`` of another dtype
+    or frame shape is refused."""
+    x, n = _frames_into(x, out, np.dtype(np.float32), "the card's intake")
+    if isinstance(x, np.ndarray):
+        np.copyto(out[:n], x, casting="unsafe")
+    else:
+        for i, f in enumerate(x):
+            np.copyto(out[i], f, casting="unsafe")
+    out[n:] = 0
+    return out
+
+
+def _frames_into(x, out: np.ndarray, want: np.dtype, what: str):
+    """``(x, n)``: the frames checked against the batch ``out`` of dtype
+    ``want`` (a sequence made a list of arrays), or a ``ValueError``."""
+    frame = out.shape[1:]
+    if out.dtype != want:
+        raise ValueError(f"{what} writes {want}, not into {out.dtype}")
+    if isinstance(x, np.ndarray):
+        if x.ndim != out.ndim or x.shape[1:] != frame:
+            raise ValueError(f"frames {list(x.shape)} do not fit a batch "
+                             f"{list(out.shape)}")
+    else:
+        x = [np.asarray(f) for f in x]
+        if any(f.shape != frame for f in x):
+            raise ValueError(f"a frame's shape is not {list(frame)}")
+    if len(x) > len(out):
+        raise ValueError(f"{len(x)} frames exceed a batch of {len(out)}")
+    return x, len(x)
 
 
 # The float32 scratch of the chunk walk: at most 1 MiB of whole frames

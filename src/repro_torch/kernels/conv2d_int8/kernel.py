@@ -29,8 +29,9 @@ per engine at lowering (``core/program.py``). ``gemm_int8.launches`` counts the 
 launches and nothing else; ``gemm_int8.launches_by_path`` splits them by
 path, and ``gemm_int8.residual_launches`` counts those that added a
 residual (a ResNet bottleneck's skip) in their epilogue.
-:func:`launch_counts` reports them beside the engine's other kernel,
-``dwconv_int8``'s depthwise convs (``kernels/dwconv_int8``).
+:func:`launch_counts` reports them beside the engine's other kernels,
+``dwconv_int8``'s depthwise convs (``kernels/dwconv_int8``) and
+``quantize_in_int8``'s rounding of the frames (``kernels/quantize_in``).
 """
 
 from __future__ import annotations
@@ -46,6 +47,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.conv2d_int8.ref import (conv2d_int8_via,
                                                  gemm_int8_ref)
 from repro_torch.kernels.dwconv_int8.kernel import dwconv_int8
+from repro_torch.kernels.quantize_in.kernel import quantize_in_int8
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "gemm_int8.cu"
 PATHS = ("large_n", "small_n", "dp4a", "implicit")
@@ -431,6 +433,7 @@ def reset_launches() -> None:
     """Set every count of :func:`launch_counts` to 0."""
     _build.reset_count(gemm_int8, PATHS)
     _build.reset_count(dwconv_int8)
+    _build.reset_count(quantize_in_int8)
     with _build._COUNT_LOCK:
         gemm_int8.residual_launches = 0
 
@@ -438,11 +441,13 @@ def reset_launches() -> None:
 def launch_counts() -> dict[str, int]:
     """The engine's kernel counts now: ``gemm_int8``'s ``"launches"``, each
     path's and ``"residual"`` (the launches that added a residual), and
-    ``"depthwise"``, ``dwconv_int8``'s launches."""
+    ``"depthwise"``, ``dwconv_int8``'s launches, and ``"quantize_in"``,
+    ``quantize_in_int8``'s."""
     with _build._COUNT_LOCK:
         return {"launches": gemm_int8.launches, **gemm_int8.launches_by_path,
                 "residual": gemm_int8.residual_launches,
-                "depthwise": dwconv_int8.launches}
+                "depthwise": dwconv_int8.launches,
+                "quantize_in": quantize_in_int8.launches}
 
 
 def add_launches(counts: dict[str, int], sign: int = 1) -> None:
@@ -456,6 +461,7 @@ def add_launches(counts: dict[str, int], sign: int = 1) -> None:
             gemm_int8.launches_by_path[path] += sign * counts[path]
         gemm_int8.residual_launches += sign * counts["residual"]
         dwconv_int8.launches += sign * counts["depthwise"]
+        quantize_in_int8.launches += sign * counts["quantize_in"]
 
 
 reset_launches()

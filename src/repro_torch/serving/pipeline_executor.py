@@ -46,11 +46,12 @@ replays its step range as one CUDA graph once its second batch has
 captured it (:class:`CompiledRunner`: the capture runs on a side stream
 while no other thread launches), so a stage's launches are one call a
 batch.
-Stage 0 takes the quantized host batch from a pinned staging ring of
+Stage 0 takes the host batch from a pinned staging ring of
 ``queue_depth + 1`` slots (:func:`~repro_torch.core.executor
 .staging_slot`): the submitting thread takes a free slot (blocking while
-all are in flight), quantizes the float frames straight into its buffer
-and queues it; stage 0 hands the buffer to its runner, which copies it
+all are in flight), stages the float frames straight into its buffer
+(copied as float32 on the card's kernel route, which stage 0's graph
+rounds on the card; quantized on the host elsewhere) and queues it; stage 0 hands the buffer to its runner, which copies it
 to the card without waiting, and returns the slot to the ring once its
 event has completed, so no buffer is rewritten while its copy is in
 flight. On the CPU the stages run synchronously in their threads, over
@@ -160,7 +161,7 @@ class PipelineExecutor:
         pinned = self.runners[0].device.type == "cuda"
         self._free: queue.Queue = queue.Queue()
         for _ in range(depth + 1):
-            self._free.put(staging_slot(program, self.batch_size,
+            self._free.put(staging_slot(self.runners[0], self.batch_size,
                                         pinned=pinned))
         self._threads: list[threading.Thread] = []
         self._lock = threading.RLock()
@@ -248,8 +249,8 @@ class PipelineExecutor:
                      tag: object = None) -> None:
         """Dispatch one float micro-batch ``[B, H, W, C]`` (padded with
         zero frames to the batch size if short; a list of frames is taken
-        too). Takes a free buffer of the staging ring and quantizes into
-        it on the calling thread — the host half of the stage-0 double
+        too). Takes a free buffer of the staging ring and runs quantize-in
+        into it on the calling thread — the host half of the stage-0 double
         buffer — and blocks while the ring is empty or the stage-0 queue
         is full (backpressure)."""
         self._check_error()

@@ -366,7 +366,7 @@ def test_staging_rings_refuse_a_batch_of_another_dtype():
     runner = prog.compile_runner()
     frames = (np.random.default_rng(7).standard_normal((3, 8, 8, 3))
               * 4).astype(np.float32)
-    buf, scratch = ex_t.staging_slot(prog, 4, pinned=False)
+    buf, scratch = ex_t.staging_slot(runner, 4, pinned=False)
     assert buf.dtype == torch.int16 and tuple(buf.shape) == (4, 8, 8, 3)
     view = buf.numpy()
     view[...] = 97

@@ -200,7 +200,8 @@ def _check(gen, B, H, C, R, stride, pad, groups, M, *, skip=False,
     ran = {k: after[k] - before[k] for k in after}
     assert ran == {"launches": groups, "large_n": 0, "small_n": 0,
                    "dp4a": 0, "implicit": groups,
-                   "residual": groups if skip else 0, "depthwise": 0}
+                   "residual": groups if skip else 0, "depthwise": 0,
+                   "quantize_in": 0}
     want = ref.conv2d_int8_via(ref.gemm_int8_ref, x, w, shift, bias, **kw)
     assert got.dtype == want.dtype and torch.equal(got, want)
 

@@ -106,9 +106,9 @@ def test_the_launch_gate_keeps_a_capture_alone():
 def test_launch_counts_add_and_take_back():
     before = gemm_kernel.launch_counts()
     assert set(before) == {"launches", "residual", "depthwise",
-                           *gemm_kernel.PATHS}
+                           "quantize_in", *gemm_kernel.PATHS}
     delta = {"launches": 9, "large_n": 3, "small_n": 2, "dp4a": 0,
-             "implicit": 4, "residual": 1, "depthwise": 2}
+             "implicit": 4, "residual": 1, "depthwise": 2, "quantize_in": 1}
     gemm_kernel.add_launches(delta)
     after = gemm_kernel.launch_counts()
     assert {k: after[k] - before[k] for k in after} == delta
@@ -245,9 +245,11 @@ def test_pipeline_stages_replay_and_equal_the_eager_chain(progs, model,
     frames = _frames(model, 6, seed=3)
     want = _eager_logits(prog, frames)
     one = prog.compile_runner(route="kernel")
-    xq = torch.as_tensor(one.quantize(frames[:BATCH]), device="cuda")
+    # The float frames, as the pipeline's ring holds them: stage 0 rounds
+    # them on the card, one quantize_in launch a batch.
+    xf = torch.as_tensor(frames[:BATCH], device="cuda")
     before = gemm_kernel.launch_counts()
-    one.fn(xq)
+    one.fn(xf)
     torch.cuda.synchronize()
     mid = gemm_kernel.launch_counts()
     per_batch = {k: mid[k] - before[k] for k in mid}
